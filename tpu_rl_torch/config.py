@@ -1,0 +1,83 @@
+"""Typed configuration — the port's own copy of ``tpu_rl.config.Config``.
+
+It holds the fields the serving slice reads, with ``tpu_rl``'s names and
+defaults, so an existing params file loads unchanged. Keys the port does not
+know yet are kept in ``extra`` and otherwise ignored: a full ``tpu_rl``
+params file still loads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass
+class Config:
+    algo: str = "PPO"
+    # model
+    hidden_size: int = 64
+    model: str = "lstm"
+    seq_len: int = 5
+    # Reset the LSTM carry at in-sequence episode seams (tpu_rl default).
+    reset_carry_on_first: bool = True
+    # Compute dtype of the train step ("float32" or "bfloat16").
+    compute_dtype: str = "float32"
+    # Number of envs one worker steps per tick (one batched act per tick).
+    worker_num_envs: int = 1
+    # Dynamic-batch flush knobs of the inference service: a batch is
+    # dispatched when `inference_batch` rows are pending OR the oldest
+    # pending request is `inference_flush_us` microseconds old.
+    inference_batch: int = 64
+    inference_flush_us: int = 1000
+    # Serving precision of the actor params ("f32" only in this port so far).
+    inference_dtype: str = "f32"
+    # Padded-batch bucket ladder: 0 = one fixed pad_rows shape; > 0 =
+    # power-of-two buckets from this floor up to pad_rows.
+    inference_buckets: int = 0
+    # Act-step kernel: "xla" = the unfused module forward (family.act);
+    # "pallas" = the fused act kernel (tpu_rl_torch.ops.fused_act), the name
+    # kept so tpu_rl params files load.
+    act_kernel: str = "xla"
+    # runtime-derived (filled by the runner, not the JSON)
+    obs_shape: tuple[int, ...] = (4,)
+    action_space: int = 2
+    # Keys of a tpu_rl params file this port does not read yet.
+    extra: dict[str, Any] = field(default_factory=dict, compare=False, repr=False)
+
+    @classmethod
+    def from_dict(cls, raw: dict[str, Any]) -> "Config":
+        names = {f.name for f in dataclasses.fields(cls)} - {"extra"}
+        kwargs = {k: v for k, v in raw.items() if k in names}
+        if isinstance(kwargs.get("obs_shape"), list):
+            kwargs["obs_shape"] = tuple(kwargs["obs_shape"])
+        cfg = cls(**kwargs, extra={k: v for k, v in raw.items() if k not in names})
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        assert self.seq_len >= 2, "seq_len must be >= 2 (losses bootstrap from t+1)"
+        assert self.hidden_size >= 1, self.hidden_size
+        assert self.compute_dtype in (
+            "float32",
+            "bfloat16",
+        ), f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype!r}"
+        assert self.model in ("lstm", "transformer"), self.model
+        assert self.worker_num_envs >= 1, self.worker_num_envs
+        assert self.inference_batch >= 1, self.inference_batch
+        assert self.inference_flush_us >= 0, self.inference_flush_us
+        assert self.inference_dtype in ("f32", "bf16", "int8"), self.inference_dtype
+        assert self.inference_buckets >= 0, self.inference_buckets
+        assert self.act_kernel in ("xla", "pallas"), self.act_kernel
+        if self.inference_dtype != "f32":
+            raise NotImplementedError(
+                f"inference_dtype={self.inference_dtype!r}: bf16/int8 serving "
+                "(models/quant.py) comes with the quantized-serving slice of "
+                "the port; this slice serves f32 only"
+            )
+
+    def replace(self, **kw: Any) -> "Config":
+        new = dataclasses.replace(self, **kw)
+        new.validate()
+        return new

@@ -1,0 +1,64 @@
+"""Recurrent cells — the port of ``tpu_rl.models.cells.LSTMCell``, single step.
+
+Parameters keep flax's layout so weights bridge one to one: ``x_proj`` is an
+``nn.Linear(in, 4H)`` with bias (flax ``Dense``, transposed by the bridge)
+and ``recurrent_kernel`` an ``(H, 4H)`` parameter used as ``h @ kernel``.
+Gates are i, f, g, o. ``torch.nn.LSTMCell`` is not used: it has two biases
+and another weight layout. The sequence unroll comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+Carry = tuple[torch.Tensor, torch.Tensor]
+
+# Standard deviation of a unit normal truncated to [-2, 2]; flax's
+# lecun_normal divides by it so the truncated draw keeps variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(
+    t: torch.Tensor, fan_in: int, generator: torch.Generator | None = None
+) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal with variance ``1/fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def init_dense_(layer: nn.Linear, generator: torch.Generator | None = None) -> None:
+    """flax ``Dense`` init: lecun_normal kernel, zero bias."""
+    lecun_normal_(layer.weight, layer.in_features, generator)
+    with torch.no_grad():
+        layer.bias.zero_()
+
+
+def lstm_gates(z: torch.Tensor, c: torch.Tensor) -> Carry:
+    """``z`` (B, 4H) pre-activations in gate order i, f, g, o ->
+    ``(h', c')`` with ``c' = σ(f)·c + σ(i)·tanh(g)``, ``h' = σ(o)·tanh(c')``."""
+    i, f, g, o = torch.chunk(z, 4, dim=-1)
+    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h2 = torch.sigmoid(o) * torch.tanh(c2)
+    return h2, c2
+
+
+class LSTMCell(nn.Module):
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.x_proj = nn.Linear(in_features, 4 * hidden)
+        self.recurrent_kernel = nn.Parameter(torch.empty(hidden, 4 * hidden))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        init_dense_(self.x_proj, generator)
+        lecun_normal_(self.recurrent_kernel, self.hidden, generator)
+
+    def forward(self, carry: Carry, x: torch.Tensor) -> tuple[Carry, torch.Tensor]:
+        h, c = carry
+        z = self.x_proj(x) + h @ self.recurrent_kernel
+        h2, c2 = lstm_gates(z, c)
+        return (h2, c2), h2

@@ -1,0 +1,51 @@
+"""Policy modules — the port of ``tpu_rl.models.policies.DiscreteActorCritic``
+(act step only; the sequence unroll comes with the training slice).
+
+Modules return distribution parameters (log-softmax logits); sampling lives
+in :mod:`tpu_rl_torch.ops.distributions` with explicit generators.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tpu_rl_torch.models.cells import Carry, LSTMCell, init_dense_
+
+
+class DiscreteActorCritic(nn.Module):
+    """Shared-torso categorical actor-critic: Dense+relu torso, LSTM cell, a
+    logits head and a value head. Submodule names (``body``, ``cell``,
+    ``logits``, ``value``) are the flax names, so the state_dict keys follow
+    the flax tree paths."""
+
+    def __init__(
+        self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True
+    ):
+        super().__init__()
+        self.n_actions = n_actions
+        self.hidden = hidden
+        self.reset_on_first = reset_on_first
+        self.body = nn.Linear(obs_dim, hidden)
+        self.cell = LSTMCell(hidden, hidden)
+        self.logits = nn.Linear(hidden, n_actions)
+        self.value = nn.Linear(hidden, 1)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """flax's init: lecun_normal kernels, zero biases, drawn in the
+        module order body, cell, logits, value."""
+        init_dense_(self.body, generator)
+        self.cell.reset_parameters(generator)
+        init_dense_(self.logits, generator)
+        init_dense_(self.value, generator)
+
+    def act(self, obs: torch.Tensor, carry: Carry):
+        """Single-step inference. Returns (log-softmax logits, value, new
+        carry); sampling is external."""
+        x = torch.relu(self.body(obs))
+        carry, h = self.cell(carry, x)
+        return torch.log_softmax(self.logits(h), dim=-1), self.value(h), carry
+
+    # The act step is this slice's only forward; torch.func.functional_call
+    # calls forward, so the family's act goes through it.
+    forward = act
