@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-It drives the port's serving path end to end and holds every hand-written
-kernel of that path against its plain PyTorch version:
+It drives the port's serving path and its colocated training path end to
+end and holds every hand-written kernel of those paths against its plain
+PyTorch version:
 
 1. device check: a CUDA card is required (else exit 1, no result printed);
    prints the card's name and power limit as nvidia-smi reports them and
@@ -20,7 +21,22 @@ kernel of that path against its plain PyTorch version:
    64 clients x 4 envs x 100 acts; asserts every request is answered, the
    kernel ran exactly once per warm-up and per flush, the carry persists on
    the server and a parameter swap is served with its version;
-5. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
+5. LSTM kernels vs plain: B1 (``lstm_fwd``) and B2 (``lstm_bwd``) at
+   (B,S,H) = (128,5,64) the training path, (32,5,64) the learning run,
+   (100,5,64) ragged, (256,16,256) and (1024,16,1024), on seeded inputs with
+   a keep mask that resets; per shape the max abs error of hs, cs, acts,
+   dxp, dh0, dc0 and of the whole autograd Function's dwh, the kernel's and
+   the plain version's times, and the bound;
+6. training: the default config (PPO, CartPole, H=64, S=5, 128 envs)
+   through ``ColocatedLoop.program``, 5 warm-up then 200 timed updates:
+   transitions/s, ms per update, its rollout/train split, the device busy
+   share over a 10-update profiler window, and B1/B2 launch counts equal to
+   updates x K_epoch with no fused-act launch;
+7. learning: ``ColocatedLoop.run`` on tpu_rl's colocated smoke recipe
+   (batch 32, lr 3e-4, entropy 1e-3, seed 0) for 1800 updates, one line per
+   200-update window; fails unless the best window's mean return is >= 60
+   over >= 100 episodes;
+8. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
 Times are CUDA-event medians on this card; each is printed beside the card's
@@ -54,6 +70,25 @@ SERVE_CFG = dict(
     inference_batch=256, inference_flush_us=500, inference_buckets=8,
     inference_dtype="f32", act_kernel="pallas", worker_num_envs=4,
 )
+
+# The training config: tpu_rl's defaults (PPO, CartPole-v1, H=64, S=5,
+# K_epoch=1, lr 1e-4, guard and learn_diag on) at bench.py's reference
+# quantum of 128 envs.
+TRAIN_CFG = dict(env="CartPole-v1", env_mode="colocated", algo="PPO", colocated_envs=128)
+TRAIN_WARMUP, TRAIN_UPDATES = 5, 200
+# examples/colocated_smoke.py's learning recipe and bar.
+LEARN_CFG = dict(
+    env="CartPole-v1", env_mode="colocated", algo="PPO", batch_size=32, buffer_size=32,
+    seq_len=5, lr=3e-4, entropy_coef=1e-3, reward_scale=0.1, time_horizon=500,
+    loss_log_interval=200,
+)
+LEARN_UPDATES, LEARN_BAR, LEARN_EPISODES = 1800, 60.0, 100
+
+# (B, S, H) at which B1 and B2 are held against the plain versions: the
+# training path, the learning run, a ragged batch, and two wide shapes
+# (tpu_rl's IMPALA@wide-lstm is the last, bench.py:241-246).
+LSTM_SHAPES = [(128, 5, 64), (32, 5, 64), (100, 5, 64), (256, 16, 256), (1024, 16, 1024)]
+LSTM_FWD_TOL, LSTM_GRAD_TOL = 1e-5, 3e-5
 
 # (rows, D, H, A) checked against the plain version.
 SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
@@ -321,6 +356,228 @@ def serve_phase(device: str = "cuda") -> dict:
         n_rejected_payload=svc.n_rejected_payload, carry_err=carry_err, swap_err=swap_err,
     )
 
+# ------------------------------------------------------------ LSTM kernels
+def lstm_bounds(B: int, S: int, H: int) -> dict:
+    """Least time (ms) of B1 and B2 on an H100, and what bounds each: the
+    larger of the bytes each must move (inputs read once, outputs written
+    once) over HBM's rate and its recurrent product's multiply-adds
+    (2*B*S*H*4H operations) over the f32 peak."""
+    G = 4 * H
+    seq, rows = B * S, B
+    fwd = 4 * (seq * G + H * G + 2 * rows * H + seq + 2 * seq * H + seq * G)
+    bwd = 4 * (seq * G + 3 * seq * H + rows * H + seq + G * H + seq * G + 2 * rows * H)
+    t_ops = 2 * B * S * H * G / F32_FLOPS_PER_S
+    out = {}
+    for name, nbytes in (("lstm_fwd", fwd), ("lstm_bwd", bwd)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = dict(
+            bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+    return out
+
+
+def max_err(got, want) -> float:
+    return float((got.detach() - want.detach()).abs().max())
+
+
+def lstm_phase() -> list[dict]:
+    """B1 and B2 against their plain versions at LSTM_SHAPES, and the whole
+    autograd Function (both kernels plus the dwh product) against the plain
+    backward. The inputs are at the scales of the training path: lecun-scale
+    wh, unit xp, carries and cotangents, and a keep mask with ~20% resets
+    (every row reset at step 0 on half the rows)."""
+    from tpu_rl_torch.ops import lstm as L
+
+    rows = []
+    for B, S, H in LSTM_SHAPES:
+        g = torch.Generator().manual_seed(B * 7 + S * 3 + H)
+        rnd = lambda *shape: torch.randn(shape, generator=g).cuda()  # noqa: E731
+        xp, h0, c0 = rnd(B, S, 4 * H), rnd(B, H), rnd(B, H)
+        wh = rnd(H, 4 * H) / H**0.5
+        keep = (torch.rand((B, S), generator=g) >= 0.2).float()
+        keep[: B // 2, 0] = 0.0
+        keep = keep.cuda()
+        dhs, dcs = rnd(B, S, H), rnd(B, S, H)
+
+        hs, cs, acts = L.lstm_fwd(xp, wh, h0, c0, keep)
+        dxp, dh0, dc0 = L.lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs)
+        torch.cuda.synchronize()
+        hs_p, cs_p, acts_p = L.lstm_forward_plain(xp, wh, h0, c0, keep)
+        dxp_p, dwh_p, dh0_p, dc0_p = L.lstm_backward_plain(wh, h0, c0, keep, hs_p, cs_p, acts_p, dhs, dcs)
+        fwd_err = max(max_err(hs, hs_p), max_err(cs, cs_p), max_err(acts, acts_p))
+        bwd_err = max(max_err(dxp, dxp_p), max_err(dh0, dh0_p), max_err(dc0, dc0_p))
+
+        # The autograd Function end to end: B1, B2 and the dwh product.
+        leaves = [t.clone().requires_grad_() for t in (xp, wh, h0, c0)]
+        hs_f, cs_f = L.lstm_unroll(*leaves, keep)
+        grads = torch.autograd.grad((hs_f, cs_f), leaves, (dhs, dcs))
+        torch.cuda.synchronize()
+        fn_err = max(
+            max_err(hs_f, hs_p), max_err(grads[0], dxp_p), max_err(grads[2], dh0_p),
+            max_err(grads[3], dc0_p),
+        )
+        dwh_err = max_err(grads[1], dwh_p)
+        # dwh is a (B*S)-deep contraction, summed in another order by the
+        # product and by the plain per-step loop: its rounding grows with
+        # its magnitude, so its tolerance is relative to its largest entry.
+        dwh_scale = max(1.0, float(dwh_p.abs().max()))
+        dwh_tol = LSTM_GRAD_TOL * dwh_scale
+        finite = all(bool(torch.isfinite(t).all()) for t in (hs, cs, acts, dxp, dh0, dc0, grads[1]))
+        if not (finite and fwd_err <= LSTM_FWD_TOL and bwd_err <= LSTM_GRAD_TOL
+                and fn_err <= LSTM_GRAD_TOL and dwh_err <= dwh_tol):
+            fail(
+                f"LSTM kernels vs plain at (B,S,H)={(B, S, H)}: fwd {fwd_err} (tol {LSTM_FWD_TOL}), "
+                f"bwd {bwd_err} / Function {fn_err} (tol {LSTM_GRAD_TOL}), dwh {dwh_err} "
+                f"(tol {dwh_tol}), finite {finite}"
+            )
+
+        iters = 100 if B * S * H <= 100_000 else 10
+        fwd_ms = device_ms(lambda: L.lstm_fwd(xp, wh, h0, c0, keep), iters=iters)
+        fwd_plain_ms = device_ms(lambda: L.lstm_forward_plain(xp, wh, h0, c0, keep), iters=iters)
+        bwd_ms = device_ms(lambda: L.lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs), iters=iters)
+        bwd_plain_ms = device_ms(
+            lambda: L.lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs), iters=iters
+        )
+        bounds = lstm_bounds(B, S, H)
+        row = dict(
+            shape=dict(B=B, S=S, H=H),
+            fwd_err=fwd_err, bwd_err=bwd_err, function_err=fn_err, dwh_err=dwh_err, dwh_tol=dwh_tol,
+            lstm_fwd=dict(ms=fwd_ms, plain_ms=fwd_plain_ms, **bounds["lstm_fwd"]),
+            lstm_bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, **bounds["lstm_bwd"]),
+        )
+        rows.append(row)
+        for name in ("lstm_fwd", "lstm_bwd"):
+            r = row[name]
+            print(
+                f"{name} B={B} S={S} H={H}: kernel_ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+                f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, {r['bytes']} bytes)",
+                flush=True,
+            )
+        print(
+            f"lstm B={B} S={S} H={H}: max_abs_err hs/cs/acts {fwd_err:.3e} (tol {LSTM_FWD_TOL:g}), "
+            f"dxp/dh0/dc0 {bwd_err:.3e} (tol {LSTM_GRAD_TOL:g}), Function {fn_err:.3e}, "
+            f"dwh {dwh_err:.3e} (tol {dwh_tol:.3e})",
+            flush=True,
+        )
+    return rows
+
+
+# ---------------------------------------------------------------- training
+def train_phase(card: str) -> dict:
+    """The main training path: ColocatedLoop.program at the default config,
+    TRAIN_WARMUP untimed then TRAIN_UPDATES timed updates. The launch
+    counters are zeroed just before the timed updates and read just after."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import fused_act as FA
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop, act_params
+
+    cfg = Config(**TRAIN_CFG)
+    loop = ColocatedLoop(cfg, seed=0, device="cuda")
+    n, s = loop.cfg.batch_size, loop.cfg.seq_len
+    state, carry, stats = loop.state, loop.init_carry(), loop.init_stats()
+    for _ in range(TRAIN_WARMUP):
+        state, carry, stats, metrics = loop.program(state, carry, stats)
+    torch.cuda.synchronize()
+    fa0 = FA.LAUNCHES
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_UPDATES):
+        state, carry, stats, metrics = loop.program(state, carry, stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    want = TRAIN_UPDATES * cfg.K_epoch
+    if fwd != want or bwd != want:
+        fail(f"training launched lstm_fwd {fwd} and lstm_bwd {bwd} times, want {want} each")
+    if FA.LAUNCHES != fa0:
+        fail("the colocated loop launched the fused act kernel")
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+        fail(f"training metrics not finite: {host}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.params["actor"].values()):
+        fail("training params not finite")
+
+    # Where one update's time goes: the rollout and the train step apart,
+    # each closed by a synchronize, on the host clock.
+    roll, train = [], []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        carry, batch, _done, _ret = loop.rollout(act_params(state), carry)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state, _m = loop.train_step(state, batch)
+        torch.cuda.synchronize()
+        roll.append(t2 - t1)
+        train.append(time.perf_counter() - t2)
+
+    # Device busy share and kernels per update over a few updates, from the
+    # profiler's device events.
+    busy = kernels_per_update = None
+    n_prof = 10
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t3 = time.perf_counter()
+            for _ in range(n_prof):
+                state, carry, stats, _m = loop.program(state, carry, stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t3
+        device = [
+            e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+        ]
+        device_us = sum(e.self_device_time_total for e in device)
+        if device_us > 0:
+            busy = device_us / 1e6 / wall
+            kernels_per_update = sum(e.count for e in device) / n_prof
+    except (RuntimeError, AttributeError) as e:
+        print(f"training profile: not measured ({e!r})", flush=True)
+
+    out = dict(
+        updates=TRAIN_UPDATES, batch=n, seq=s, hidden=cfg.hidden_size,
+        ms_per_update=dt / TRAIN_UPDATES * 1e3, transitions_per_s=TRAIN_UPDATES * n * s / dt,
+        rollout_ms=statistics.median(roll) * 1e3, train_step_ms=statistics.median(train) * 1e3,
+        lstm_fwd_launches=fwd, lstm_bwd_launches=bwd, device_busy=busy,
+        device_events_per_update=kernels_per_update,
+        episodes=int(stats["episodes"]), loss=host["loss"],
+    )
+    print(
+        f"training PPO CartPole B={n} S={s} H={cfg.hidden_size}: {TRAIN_UPDATES} updates, "
+        f"ms/update={out['ms_per_update']:.4f} transitions/s={out['transitions_per_s']:.1f} "
+        f"rollout_ms={out['rollout_ms']:.4f} train_step_ms={out['train_step_ms']:.4f} "
+        f"device_busy={'not measured' if busy is None else f'{busy:.4f}'} "
+        f"device_events/update={kernels_per_update} "
+        f"lstm_fwd launches={fwd} lstm_bwd launches={bwd} (= updates x K_epoch {cfg.K_epoch}) "
+        f"fused_act launches +0 [{card}]",
+        flush=True,
+    )
+    return out
+
+
+def learn_phase(card: str) -> dict:
+    """tpu_rl's colocated learning check through ColocatedLoop.run."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    loop = ColocatedLoop(Config(**LEARN_CFG), seed=0, max_updates=LEARN_UPDATES, device="cuda")
+    out = loop.run(log=True)
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    print(
+        f"learning: {out['updates']} updates, {out['episodes']} episodes, best-window mean return "
+        f"{out['mean_return_best_window']:.1f} (bar {LEARN_BAR}), {out['elapsed_s']:.1f} s, "
+        f"{out['transitions_per_s']:.1f} transitions/s, lstm launches {fwd}/{bwd} [{card}]",
+        flush=True,
+    )
+    if out["mean_return_best_window"] < LEARN_BAR or out["episodes"] < LEARN_EPISODES:
+        fail(f"no learning: {out}")
+    if fwd != out["updates"] or bwd != out["updates"]:
+        fail(f"learning run launched lstm_fwd {fwd} / lstm_bwd {bwd} for {out['updates']} updates")
+    return out
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -382,6 +639,10 @@ def main() -> None:
     if serving["launches"] == 0:
         fail("the main path never launched the fused act kernel")
 
+    lstm_rows = lstm_phase()
+    training = train_phase(card)
+    learning = learn_phase(card)
+
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
     kernels = [dict(
@@ -402,6 +663,37 @@ def main() -> None:
         card=card,
         shapes=shapes,
     )]
+    lstm_main = lstm_rows[0]  # (128, 5, 64), the training path's shape
+    for name, replaces, launches in (
+        ("lstm_fwd", "tpu_rl/ops/pallas_lstm.py:99", training["lstm_fwd_launches"]),
+        ("lstm_bwd", "tpu_rl/ops/pallas_lstm.py:373", training["lstm_bwd_launches"]),
+    ):
+        r = lstm_main[name]
+        kernels.append(dict(
+            name=name,
+            route="cuda",
+            source=f"tpu_rl_torch/csrc/{name}.cu",
+            replaces=replaces,
+            launches=launches,
+            max_abs_err=max(
+                (x["fwd_err"] if name == "lstm_fwd" else max(x["bwd_err"], x["function_err"]))
+                for x in lstm_rows
+            ),
+            ms=r["ms"],
+            plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            # No single PyTorch call computes a keep-masked LSTM with
+            # per-row, per-step carry resets (cuDNN's LSTM resets nothing
+            # and has two biases).
+            library_ms=None,
+            at=lstm_main["shape"],
+            card=card,
+            shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
+        ))
+    print(json.dumps({"training": training, "learning": {
+        k: v for k, v in learning.items() if k != "scalars"
+    }}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -127,10 +127,16 @@ class TestDispatch:
         assert make_act_fn(cfg.replace(act_kernel="pallas"), fam) is not fam.act
 
     def test_out_of_scope_family_falls_back(self):
+        """The fallback this test is named for is gone: for a family the
+        fused kernel does not cover, ``act_kernel="pallas"`` raises instead
+        of quietly serving ``family.act``."""
         *_, cfg, fam, _params, _x = _setup(32, 6, 3, 16)
         other = replace(fam, actor=torch.nn.Linear(6, 3))
-        assert make_fused_act(other) is None
-        assert make_act_fn(cfg.replace(act_kernel="pallas"), other) is other.act
+        with pytest.raises(NotImplementedError, match="other-algorithms slice"):
+            make_fused_act(other)
+        with pytest.raises(NotImplementedError, match="other-algorithms slice"):
+            make_act_fn(cfg.replace(act_kernel="pallas"), other)
+        assert make_act_fn(cfg, other) is other.act
 
     def test_cpu_pallas_path_equals_unfused(self):
         """On CPU tensors the fused path is the plain version: the same

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 import tpu_rl_torch
+from tpu_rl_torch.algos.registry import get_algo
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.models.families import build_family
+from tpu_rl_torch.runtime.colocated import ColocatedLoop
 from tpu_rl_torch.runtime.inference_service import InferenceService
 from tpu_rl_torch.runtime.local_router import LocalRouter
 
@@ -49,6 +51,11 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.models.families", "tpu_rl_torch.models.quant",
         "tpu_rl_torch.kernels.build", "tpu_rl_torch.runtime.protocol",
         "tpu_rl_torch.runtime.local_router", "tpu_rl_torch.runtime.inference_service",
+        "tpu_rl_torch.types", "tpu_rl_torch.ops.lstm", "tpu_rl_torch.ops.returns",
+        "tpu_rl_torch.ops.losses", "tpu_rl_torch.heal.guards", "tpu_rl_torch.obs.learn",
+        "tpu_rl_torch.algos.base", "tpu_rl_torch.algos.ppo", "tpu_rl_torch.algos.registry",
+        "tpu_rl_torch.envs", "tpu_rl_torch.envs.core", "tpu_rl_torch.envs.cartpole",
+        "tpu_rl_torch.runtime.colocated",
     ):
         assert name in doc["imported"], name
 
@@ -69,12 +76,18 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
     params = family.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceService(cfg, family, params, LocalRouter())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_algo("PPO").build(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ColocatedLoop(Config(env_mode="colocated", hidden_size=16))
 
 
 def test_config_keeps_unknown_keys_and_refuses_later_slices():
-    cfg = Config.from_dict({"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4})
-    assert cfg.obs_shape == (6,) and cfg.hidden_size == 32
-    assert cfg.extra == {"chaos_spec": None, "lr": 3e-4}
+    cfg = Config.from_dict(
+        {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4, "n_heads": 8}
+    )
+    assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
+    assert cfg.extra == {"chaos_spec": None, "n_heads": 8}
     with pytest.raises(NotImplementedError, match="quantized-serving slice"):
         Config.from_dict({"inference_dtype": "bf16"})
     with pytest.raises(AssertionError):
@@ -84,7 +97,7 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     for kw, slice_name in (
         ({"algo": "SAC"}, "other-algorithms"),
         ({"model": "transformer"}, "last slice"),
-        ({"compute_dtype": "bfloat16"}, "training slice"),
+        ({"compute_dtype": "bfloat16"}, "bf16-compute slice"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             build_family(Config.from_dict(kw), device="cpu")

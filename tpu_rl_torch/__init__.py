@@ -5,7 +5,9 @@ find, but it imports only ``torch`` (and numpy): never ``jax`` and never a
 module of ``tpu_rl``. What it needs from ``tpu_rl`` it keeps as its own copy.
 
 Entry points (:func:`tpu_rl_torch.models.families.build_family`,
-:class:`tpu_rl_torch.runtime.inference_service.InferenceService`) run on
+:class:`tpu_rl_torch.runtime.inference_service.InferenceService`,
+``tpu_rl_torch.algos.registry.get_algo(...).build``,
+:class:`tpu_rl_torch.runtime.colocated.ColocatedLoop`) run on
 ``device="cuda"`` unless the caller passes ``device="cpu"``; on a machine
 without CUDA they raise instead of quietly running on the CPU. Each
 hand-written CUDA kernel keeps a plain PyTorch version beside it, which is

@@ -1,0 +1,141 @@
+"""PPO (discrete) train step — the port of ``tpu_rl.algos.ppo``.
+
+The clipped-surrogate update with GAE advantages masked by
+``(1 - is_fir[:, 1:])``, a smooth-L1 value loss against a no-grad TD
+target, an entropy bonus, a global-norm gradient clip and RMSprop;
+``K_epoch`` epochs per step. The whole step stays on the device: metrics
+come back as 0-d tensors, and the update guard selects with
+``torch.where``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_rl_torch.algos.base import TrainState, rmsprop
+from tpu_rl_torch.config import Config
+from tpu_rl_torch.heal.guards import guarded, update_ok
+from tpu_rl_torch.obs.learn import module_grad_norms, rows_mean, tree_delta_norm, tree_norm
+from tpu_rl_torch.ops import distributions as D
+from tpu_rl_torch.ops.losses import clip_subtree_by_global_norm, smooth_l1
+from tpu_rl_torch.ops.returns import gae
+from tpu_rl_torch.types import Batch
+
+
+def policy_outputs(family, params, batch: Batch):
+    """Shared-torso forward. Returns (log_probs (B,S,1), entropy (B,S,1),
+    value (B,S,1), logits (B,S,A))."""
+    carry0 = (batch.hx[:, 0], batch.cx[:, 0])
+    logits, value, _ = family.actor_unroll(params["actor"], batch.obs, carry0, batch.is_fir)
+    log_probs = D.categorical_log_prob(logits, batch.act[..., 0])[..., None]
+    entropy = D.categorical_entropy(logits)[..., None]
+    return log_probs, entropy, value, logits
+
+
+def td_target_and_gae(cfg: Config, batch: Batch, value: torch.Tensor):
+    """No-grad TD target and GAE advantages."""
+    v = value.detach()
+    td_target = batch.rew[:, :-1] + cfg.gamma * (1.0 - batch.is_fir[:, 1:]) * v[:, 1:]
+    delta = td_target - v[:, :-1]
+    return td_target, gae(delta, cfg.gamma, cfg.lmbda)
+
+
+def make_train_step(cfg: Config, family):
+    """``train_step(state, batch) -> (state, metrics)``."""
+    opt = rmsprop(cfg)
+
+    def loss_fn(params, batch: Batch):
+        log_probs, entropy, value, _ = policy_outputs(family, params, batch)
+        td_target, advantage = td_target_and_gae(cfg, batch, value)
+
+        ratio = torch.exp(log_probs[:, :-1] - batch.log_prob[:, :-1])
+        surr1 = ratio * advantage
+        surr2 = torch.clamp(ratio, 1.0 - cfg.eps_clip, 1.0 + cfg.eps_clip) * advantage
+        loss_policy = -torch.mean(torch.minimum(surr1, surr2))
+        loss_value = smooth_l1(value[:, :-1], td_target)
+        policy_entropy = torch.mean(entropy[:, :-1])
+
+        loss = (
+            cfg.policy_loss_coef * loss_policy
+            + cfg.value_loss_coef * loss_value
+            - cfg.entropy_coef * policy_entropy
+        )
+        metrics = {
+            "loss": loss,
+            "policy-loss": loss_policy,
+            "value-loss": loss_value,
+            "policy-entropy": policy_entropy,
+            "min-ratio": torch.min(ratio),
+            "max-ratio": torch.max(ratio),
+            "avg-ratio": torch.mean(ratio),
+        }
+        if cfg.learn_diag:
+            # Per-row means of quantities the loss already computed, all
+            # detached: they never feed back into the update.
+            lr = (log_probs[:, :-1] - batch.log_prob[:, :-1]).detach()
+            w = torch.exp(lr)
+            ent = entropy[:, :-1].detach()
+            err = td_target - value[:, :-1].detach()
+            metrics["diag"] = {
+                "rows": {
+                    "ent": rows_mean(ent),
+                    # k1 approx-KL estimator: E[logp_behav - logp_new]
+                    "kl": rows_mean(-lr),
+                    "clip": rows_mean((torch.abs(w - 1.0) > cfg.eps_clip).float()),
+                    "w": rows_mean(w),
+                    "w2": rows_mean(torch.square(w)),
+                    "adv": rows_mean(advantage),
+                    "adv2": rows_mean(torch.square(advantage)),
+                    "ret": rows_mean(td_target),
+                    "ret2": rows_mean(torch.square(td_target)),
+                    "err": rows_mean(err),
+                    "err2": rows_mean(torch.square(err)),
+                },
+                "scalars": {},
+            }
+        return loss, metrics
+
+    def value_and_grad(params, batch: Batch):
+        leaves = {k: {n: p.detach().requires_grad_() for n, p in g.items()} for k, g in params.items()}
+        loss, metrics = loss_fn(leaves, batch)
+        flat = [p for g in leaves.values() for p in g.values()]
+        grads_flat = torch.autograd.grad(loss, flat)
+        it = iter(grads_flat)
+        grads = {k: {n: next(it) for n in g} for k, g in leaves.items()}
+        metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
+        return metrics, grads
+
+    guard = cfg.update_guard
+
+    def train_step(state: TrainState, batch: Batch):
+        params0 = state.params
+        metrics: dict = {}
+        grads = None
+        nf = None
+        for _ in range(cfg.K_epoch):
+            metrics, grads = value_and_grad(state.params, batch)
+            grads, gnorm = clip_subtree_by_global_norm(grads, cfg.max_grad_norm)
+            if guard:
+                ok = update_ok(metrics["loss"], gnorm)
+                params, opt_state = guarded(
+                    ok,
+                    lambda grads=grads, state=state: opt.apply(grads, state.opt_state, state.params),
+                    (state.params, state.opt_state),
+                )
+                skipped = 1.0 - ok.float()
+                nf = skipped if nf is None else nf + skipped
+            else:
+                params, opt_state = opt.apply(grads, state.opt_state, state.params)
+            state = state.replace(params=params, opt_state=opt_state)
+            metrics["grad-norm"] = gnorm
+        if guard:
+            metrics["nonfinite-updates"] = nf
+        if cfg.learn_diag:
+            metrics["diag"]["scalars"].update(
+                {f"grad-norm-{k}": v for k, v in module_grad_norms(grads).items()}
+            )
+            metrics["diag"]["scalars"]["update-norm"] = tree_delta_norm(state.params, params0)
+            metrics["diag"]["scalars"]["param-norm"] = tree_norm(state.params)
+        return state.replace(step=state.step + 1), metrics
+
+    return train_step

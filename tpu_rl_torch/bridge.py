@@ -9,6 +9,10 @@ and back), so neither package imports the other.
   ``params/body`` -> ``body.*``, ``params/cell/x_proj`` -> ``cell.x_proj.*``,
   ``params/cell/recurrent_kernel`` -> ``cell.recurrent_kernel``,
   ``params/logits`` -> ``logits.*``, ``params/value`` -> ``value.*``.
+
+:func:`train_state_from_flax` carries a whole ``tpu_rl`` ``TrainState``
+(step, params, optax RMSprop state) into the port's
+:class:`~tpu_rl_torch.algos.base.TrainState`.
 """
 
 from __future__ import annotations
@@ -58,3 +62,18 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
         else:  # a Dense bias, or a leaf kept as it is (recurrent_kernel)
             node[leaf] = arr.copy()
     return {"params": root}
+
+
+def train_state_from_flax(state: Any):
+    """A ``tpu_rl`` ``TrainState`` with numpy leaves (``jax.device_get``)
+    -> the port's ``TrainState`` on the CPU. ``params["actor"]`` and optax's
+    RMSprop ``nu`` tree go through the same mapping (a Dense kernel's ``nu``
+    is transposed like the kernel); ``step`` is copied."""
+    from tpu_rl_torch.algos.base import TrainState
+
+    nu = next(s.nu for s in state.opt_state if hasattr(s, "nu"))
+    return TrainState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        params={"actor": flax_to_state_dict(state.params["actor"])},
+        opt_state={"nu": {"actor": flax_to_state_dict(nu["actor"])}},
+    )

@@ -1,9 +1,9 @@
 """Typed configuration — the port's own copy of ``tpu_rl.config.Config``.
 
-It holds the fields the serving slice reads, with ``tpu_rl``'s names and
-defaults, so an existing params file loads unchanged. Keys the port does not
-know yet are kept in ``extra`` and otherwise ignored: a full ``tpu_rl``
-params file still loads.
+It holds the fields the serving and training slices read, with ``tpu_rl``'s
+names and defaults, so an existing params file loads unchanged. Keys the
+port does not know yet are kept in ``extra`` and otherwise ignored: a full
+``tpu_rl`` params file still loads.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Any
 
 @dataclass
 class Config:
+    # experiment
+    env: str = "CartPole-v1"
     algo: str = "PPO"
     # model
     hidden_size: int = 64
@@ -40,9 +42,39 @@ class Config:
     # "pallas" = the fused act kernel (tpu_rl_torch.ops.fused_act), the name
     # kept so tpu_rl params files load.
     act_kernel: str = "xla"
+    # rollout
+    time_horizon: int = 500
+    reward_scale: float = 0.1
+    batch_size: int = 128
+    buffer_size: int = 10240
+    # returns / losses
+    gamma: float = 0.99
+    lmbda: float = 0.95
+    eps_clip: float = 0.1
+    policy_loss_coef: float = 1.0
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.00005
+    # optimization
+    K_epoch: int = 1
+    lr: float = 0.0001
+    max_grad_norm: float = 40.0
+    # Skip an update whose loss or global grad-norm is not finite, keeping
+    # params and optimizer state; counted in the "nonfinite-updates" metric.
+    update_guard: bool = True
+    # The train step also returns the learning-dynamics "diag" dict.
+    learn_diag: bool = True
+    # Updates between two host reads of the run's metrics.
+    loss_log_interval: int = 50
+    # "distributed" (workers, the reference topology) or "colocated" (envs
+    # stepped on the device inside the training loop; runtime/colocated.py).
+    env_mode: str = "distributed"
+    # Env batch of the colocated loop; 0 = batch_size (the env batch IS the
+    # train batch).
+    colocated_envs: int = 0
     # runtime-derived (filled by the runner, not the JSON)
     obs_shape: tuple[int, ...] = (4,)
     action_space: int = 2
+    is_continuous: bool = False
     # Keys of a tpu_rl params file this port does not read yet.
     extra: dict[str, Any] = field(default_factory=dict, compare=False, repr=False)
 
@@ -58,7 +90,20 @@ class Config:
 
     def validate(self) -> None:
         assert self.seq_len >= 2, "seq_len must be >= 2 (losses bootstrap from t+1)"
+        assert self.batch_size >= 1
+        assert self.buffer_size >= self.batch_size
+        assert 0.0 <= self.gamma <= 1.0
+        assert 0.0 <= self.lmbda <= 1.0
         assert self.hidden_size >= 1, self.hidden_size
+        assert self.time_horizon >= 1, self.time_horizon
+        assert self.reward_scale != 0.0, "reward_scale 0 zeroes every reward"
+        assert self.eps_clip > 0, self.eps_clip
+        assert self.K_epoch >= 1, self.K_epoch
+        assert self.lr > 0, self.lr
+        assert self.max_grad_norm > 0, self.max_grad_norm
+        assert self.loss_log_interval >= 1, self.loss_log_interval
+        assert self.env_mode in ("distributed", "colocated"), self.env_mode
+        assert self.colocated_envs >= 0, self.colocated_envs
         assert self.compute_dtype in (
             "float32",
             "bfloat16",

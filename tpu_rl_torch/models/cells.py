@@ -1,10 +1,12 @@
-"""Recurrent cells — the port of ``tpu_rl.models.cells.LSTMCell``, single step.
+"""Recurrent cells — the port of ``tpu_rl.models.cells.LSTMCell``.
 
 Parameters keep flax's layout so weights bridge one to one: ``x_proj`` is an
 ``nn.Linear(in, 4H)`` with bias (flax ``Dense``, transposed by the bridge)
 and ``recurrent_kernel`` an ``(H, 4H)`` parameter used as ``h @ kernel``.
 Gates are i, f, g, o. ``torch.nn.LSTMCell`` is not used: it has two biases
-and another weight layout. The sequence unroll comes with the training slice.
+and another weight layout. ``forward`` is one step (the act path),
+``unroll`` the whole sequence (the training path, through the LSTM kernels
+of :mod:`tpu_rl_torch.ops.lstm`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from tpu_rl_torch.ops.lstm import lstm_unroll
 
 Carry = tuple[torch.Tensor, torch.Tensor]
 
@@ -62,3 +66,23 @@ class LSTMCell(nn.Module):
         z = self.x_proj(x) + h @ self.recurrent_kernel
         h2, c2 = lstm_gates(z, c)
         return (h2, c2), h2
+
+    def unroll(
+        self, x: torch.Tensor, carry0: Carry, firsts: torch.Tensor, reset_on_first: bool
+    ) -> tuple[Carry, torch.Tensor]:
+        """x (B, S, in), carry0 ((B,H),(B,H)), firsts (B, S, 1) ->
+        (final carry, hs (B, S, H)). The input projection of every step is
+        one product; the carry is zeroed before the steps ``firsts`` flags
+        when ``reset_on_first``."""
+        B, S = x.shape[0], x.shape[1]
+        xp = self.x_proj(x)
+        keep = (
+            1.0 - firsts[..., 0]
+            if reset_on_first
+            else torch.ones((B, S), dtype=x.dtype, device=x.device)
+        )
+        hs, cs = lstm_unroll(
+            xp.contiguous(), self.recurrent_kernel.contiguous(),
+            carry0[0].contiguous(), carry0[1].contiguous(), keep.contiguous(),
+        )
+        return (hs[:, -1], cs[:, -1]), hs

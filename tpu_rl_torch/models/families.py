@@ -4,7 +4,9 @@ A family bundles the module with plain functions over a separate parameter
 dict, ``{"actor": state_dict}``, so a server can swap one params reference
 without touching the module. ``act(params, obs, h, c, generator=None,
 gumbel=None)`` returns ``(action f32 (B,1), log-softmax logits (B,A),
-log_prob (B,1), h', c')``, the contract of ``tpu_rl``'s ``family.act``.
+log_prob (B,1), h', c')``, the contract of ``tpu_rl``'s ``family.act``;
+``actor_unroll(actor_params, obs, carry0, firsts)`` returns the sequence
+forward ``(logits (B,S,A), value (B,S,1), carry)`` for the learner.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ class ModelFamily:
             "actor": {k: v.detach().to(self.device) for k, v in module.state_dict().items()}
         }
 
+    def actor_unroll(self, actor_params, obs, carry0, firsts):
+        return functional_call(self.actor, actor_params, (obs, carry0, firsts))
+
 
 def _act_discrete_ac(
     actor: DiscreteActorCritic,
@@ -80,8 +85,8 @@ def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> Mod
         )
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: bf16 compute comes with the "
-            "training slice of the port (slice 2)"
+            f"compute_dtype={cfg.compute_dtype!r}: bf16 compute (mixed_dot, "
+            "LSTMCell.dtype) comes with the bf16-compute slice of the port"
         )
     if cfg.algo not in ("PPO", "IMPALA", "V-MPO"):
         raise NotImplementedError(

@@ -1,5 +1,4 @@
-"""Policy modules — the port of ``tpu_rl.models.policies.DiscreteActorCritic``
-(act step only; the sequence unroll comes with the training slice).
+"""Policy modules — the port of ``tpu_rl.models.policies.DiscreteActorCritic``.
 
 Modules return distribution parameters (log-softmax logits); sampling lives
 in :mod:`tpu_rl_torch.ops.distributions` with explicit generators.
@@ -46,6 +45,18 @@ class DiscreteActorCritic(nn.Module):
         carry, h = self.cell(carry, x)
         return torch.log_softmax(self.logits(h), dim=-1), self.value(h), carry
 
-    # The act step is this slice's only forward; torch.func.functional_call
-    # calls forward, so the family's act goes through it.
-    forward = act
+    def unroll(self, obs: torch.Tensor, carry0: Carry, firsts: torch.Tensor):
+        """Batched sequence forward: obs (B, S, D), carry0 ((B,H),(B,H)),
+        firsts (B, S, 1) -> (logits (B,S,A) log-softmax, value (B,S,1),
+        carry)."""
+        x = torch.relu(self.body(obs))
+        carry, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
+        return torch.log_softmax(self.logits(hs), dim=-1), self.value(hs), carry
+
+    def forward(self, obs: torch.Tensor, carry: Carry, firsts: torch.Tensor | None = None):
+        """``torch.func.functional_call`` calls ``forward``, so the family's
+        functions go through it: one act step without ``firsts``, the
+        sequence unroll with them (flax's ``apply(..., method=)``)."""
+        if firsts is None:
+            return self.act(obs, carry)
+        return self.unroll(obs, carry, firsts)

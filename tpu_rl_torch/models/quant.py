@@ -10,12 +10,11 @@ from __future__ import annotations
 def make_act_fn(cfg, family):
     """Resolve ``Config.act_kernel`` to the act callable serving consumers
     run. ``"xla"`` -> ``family.act`` (the unfused module forward);
-    ``"pallas"`` -> the fused act kernel (:mod:`tpu_rl_torch.ops.fused_act`)
-    for the discrete LSTM family, ``family.act`` for a family out of its
-    scope. The name ``"pallas"`` is kept so ``tpu_rl`` params files load."""
+    ``"pallas"`` -> the fused act kernel (:mod:`tpu_rl_torch.ops.fused_act`),
+    which raises for a family out of its scope. The name ``"pallas"`` is
+    kept so ``tpu_rl`` params files load."""
     if cfg.act_kernel != "pallas":
         return family.act
     from tpu_rl_torch.ops.fused_act import make_fused_act
 
-    fused = make_fused_act(family)
-    return fused if fused is not None else family.act
+    return make_fused_act(family)

@@ -1,1 +1,1 @@
-"""Tensor ops of the port: distribution math and the hand-written kernels' wrappers."""
+"""Tensor ops of the port: distribution math, returns, losses and the hand-written kernels' wrappers."""

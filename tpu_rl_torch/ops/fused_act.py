@@ -128,12 +128,17 @@ def fused_act_step(actor_params, obs, h, c):
 
 def make_fused_act(family):
     """Fused replacement for ``family.act`` with the same signature and
-    return contract, or None when the family is out of scope (anything but
-    the discrete LSTM actor-critic)."""
+    return contract. Raises for a family the kernel does not cover
+    (anything but the discrete LSTM actor-critic), so that the fused path
+    is never quietly served by the unfused one."""
     from tpu_rl_torch.models.policies import DiscreteActorCritic
 
     if not isinstance(family.actor, DiscreteActorCritic):
-        return None
+        raise NotImplementedError(
+            f"act_kernel='pallas' for {type(family.actor).__name__}: the fused act "
+            "kernel covers the discrete LSTM actor-critic; other families come "
+            "with the other-algorithms slice of the port"
+        )
 
     def act(params, obs, h, c, generator=None, gumbel=None):
         logits, h2, c2 = fused_act_step(params["actor"], obs, h, c)

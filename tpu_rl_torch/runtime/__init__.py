@@ -1,1 +1,1 @@
-"""Serving runtime of the port."""
+"""Runtime of the port: the serving service and the colocated training loop."""
