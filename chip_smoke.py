@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-It drives the port's serving path and its colocated training path end to
-end and holds every hand-written kernel of those paths against its plain
-PyTorch version:
+It drives the port's serving path, its colocated LSTM training path and the
+transformer's PPO training (its train step at full width, and its colocated
+loop) end to end, and holds every hand-written kernel of those paths against
+its plain PyTorch version:
 
 1. device check: a CUDA card is required (else exit 1, no result printed);
    prints the card's name and power limit as nvidia-smi reports them and
    turns TF32 off everywhere;
-2. build: every ``tpu_rl_torch/csrc/*.cu`` with nvcc (``kernels/build.py``);
+2. build: every ``tpu_rl_torch/csrc/*.cu`` with nvcc (``kernels/build.py``),
+   printing ptxas's registers and spill stores for every kernel instance;
 3. kernel vs plain: the fused act kernel at the serving ladder, ragged row
    counts, the default model and the wide model, on seeded inputs and the
    port's own init with seeded nonzero biases; per shape the max abs error, the kernel's, the plain
@@ -36,7 +38,28 @@ PyTorch version:
    (batch 32, lr 3e-4, entropy 1e-3, seed 0) for 1800 updates, one line per
    200-update window; fails unless the best window's mean return is >= 60
    over >= 100 episodes;
-8. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
+8. B4 (``flash_attn_fwd``/``flash_attn_bwd``) vs plain: the main path's
+   (B,T,H,D) = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32)
+   bf16, (2,2048,8,64) f32 with ~1000-key segments, a ragged f32
+   (3,1000,4,64) with many segments and a small f32 shape, q/k/v as strided
+   views of one qkv tensor; per shape the max abs error of o, lse, dq, dk
+   and dv beside its tolerance (bf16: element by element) and the median
+   |ref|, the kernels', the plain versions' and
+   ``scaled_dot_product_attention``'s times (the same mask as a boolean
+   attn_mask), and the bound;
+9. transformer training: a small f32 train step on the card against the
+   CPU's plain path (loss, grad norm), then ``get_algo("PPO").build`` at
+   bench.py's ``PPO-transformer@longctx-flash`` model (d512, 8 heads, 4
+   layers, bf16, flash; its build must leave bf16 products reducing in f32)
+   on a seeded 16 x 2048 batch with seams, 2 warm-up
+   then 10 timed updates: ms per update, transitions/s, peak memory, B4's
+   share of device time over a profiler window, finite loss, and B4 launch
+   counts equal to n_layers x K_epoch x updates;
+10. the transformer's colocated loop: ``ColocatedLoop.program`` on
+   ``configs/longcontext_singlechip.example.json`` with the flash impl
+   (CartPole, KV-cached acting, 8 x 4096) for 2 updates, finite metrics and
+   the launches as counted;
+11. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
 Times are CUDA-event medians on this card; each is printed beside the card's
@@ -58,10 +81,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-# CUDA-core FLOP/s (the kernel does plain f32 FMAs, no tensor cores).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32
+# CUDA-core FLOP/s and dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # Serving configuration: the model of tpu_rl's serving benchmark
 # (bench.py:1058-1082), f32 weights through the fused act kernel.
@@ -90,6 +114,36 @@ LEARN_UPDATES, LEARN_BAR, LEARN_EPISODES = 1800, 60.0, 100
 LSTM_SHAPES = [(128, 5, 64), (32, 5, 64), (100, 5, 64), (256, 16, 256), (1024, 16, 1024)]
 LSTM_FWD_TOL, LSTM_GRAD_TOL = 1e-5, 3e-5
 
+# (B, T, H, D, dtype, mean seams per row) at which B4 is held against its
+# plain versions: the main path (bench.py's PPO-transformer@longctx-flash;
+# one seam per row, as the training batch below has), the
+# colocated config (configs/longcontext_singlechip.example.json), the main
+# path's row length in f32 (segments of ~1000 keys: the long online-softmax
+# and backward walks over many tiles at the f32 tolerance), a ragged f32
+# shape with many segments and a small f32 shape.
+ATTN_SHAPES = [
+    (16, 2048, 8, 64, torch.bfloat16, 1), (8, 4096, 8, 32, torch.bfloat16, 16),
+    (2, 2048, 8, 64, torch.float32, 1), (3, 1000, 4, 64, torch.float32, 50),
+    (2, 200, 3, 32, torch.float32, 5),
+]
+# f32: the kernel and the plain version sum in another order; absolute
+# tolerances (o and lse, gradients). bf16: both compute in f32 from the same
+# bf16 inputs and round once, so an element may differ by one bf16 ulp of
+# itself (at most 2**-7 * |ref|), checked element by element, plus a floor of
+# 2**-16 * max|ref| for the f32 sums' order near zero; lse is f32 either way.
+ATTN_F32_TOL = (2e-5, 1e-4)
+BF16_ULP, BF16_FLOOR = 2.0**-7, 2.0**-16
+
+# bench.py's PPO-transformer@longctx-flash row (bench.py:291-300): the
+# transformer's full-width model and batch.
+TF_TRAIN_CFG = dict(
+    algo="PPO", model="transformer", compute_dtype="bfloat16", attention_impl="flash",
+    batch_size=16, seq_len=2048, hidden_size=512, n_heads=8, n_layers=4, obs_shape=(64,),
+    action_space=8,
+)
+TF_WARMUP, TF_UPDATES, TF_PROFILE = 2, 10, 2
+TF_COLOCATED_UPDATES = 2
+
 # (rows, D, H, A) checked against the plain version.
 SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
 RAGGED = [(b, 4, 256, 2) for b in (1, 3, 100)]
@@ -111,12 +165,12 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def device_ms(fn, iters: int = 100, reps: int = 7) -> float:
+def device_ms(fn, iters: int = 100, reps: int = 7, warmup: int = 10) -> float:
     """Median device time of one ``fn()`` call, in ms. A busy-wait kernel is
     queued first so that the host has enqueued all ``iters`` calls before
     the card reaches the start event: the events then time the card's work
     back to back, not Python's launch overhead."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -378,7 +432,7 @@ def lstm_bounds(B: int, S: int, H: int) -> dict:
 
 
 def max_err(got, want) -> float:
-    return float((got.detach() - want.detach()).abs().max())
+    return float((got.detach().float() - want.detach().float()).abs().max())
 
 
 def lstm_phase() -> list[dict]:
@@ -579,6 +633,378 @@ def learn_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- attention (B4)
+def attn_inputs(B, T, H, D, dtype, seams, seed):
+    """Seeded q, k, v as strided views of one (B,T,3,H,D) qkv tensor (as the
+    model hands them to the kernel), int32 segment ids with ~``seams``
+    seams per row, and an output cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, T, 3, H, D), generator=g).to(dtype).cuda()
+    firsts = (torch.rand((B, T), generator=g) < seams / T).to(torch.int32)
+    firsts[:, 0] = 1
+    seg = torch.cumsum(firsts, 1, dtype=torch.int32).cuda()
+    do = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg, do
+
+
+def visible_pairs(seg: torch.Tensor) -> int:
+    """Query-key pairs B4's mask keeps in this run's data: the segment ids
+    come from a cumsum, so each segment is one run of L rows and keeps
+    L(L+1)/2 pairs."""
+    runs = [torch.unique_consecutive(row, return_counts=True)[1] for row in seg]
+    return int(sum(int((c * (c + 1) // 2).sum()) for c in runs))
+
+
+def attn_bounds(B: int, T: int, H: int, D: int, elt: int, pairs: int) -> dict:
+    """Least time (ms) of B4's forward and backward on an H100: the larger of
+    the bytes each must move (q, k, v, seg and the forward's o and lse, and
+    do, read once; o, lse, dq, dk, dv written once) over HBM's rate, and
+    its operations over the dtype's peak. The operations count the pairs
+    this run's mask keeps, per head 2*D for each of the products that
+    touch a pair: 2 forward (s, o) and 5 backward (s, dp, dv, dq, dk); with
+    one segment per row that is 2*B*H*T^2*D and 5*B*H*T^2*D."""
+    n = B * T * H * D * elt
+    small = 4 * B * T + 4 * B * H * T  # seg, lse
+    peak = BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S
+    out = {}
+    for name, nbytes, products in (("flash_attn_fwd", 4 * n + small, 2),
+                                   ("flash_attn_bwd", 8 * n + small, 5)):
+        flops = products * 2 * D * H * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        out[name] = dict(
+            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+    return out
+
+
+def attn_check(got: dict, want: dict, dtype: torch.dtype) -> dict:
+    """For each output: its max abs error, the median and max |ref|, the
+    tolerance and the share of it used (at most 1 passes). f32 outputs and
+    lse: ATTN_F32_TOL, absolute. bf16 o and gradients: element by element,
+    BF16_ULP * |ref| + BF16_FLOOR * max|ref|."""
+    out = {}
+    for n in got:
+        err = (got[n].float() - want[n].float()).abs()
+        ref = want[n].float().abs()
+        top = float(ref.max())
+        if dtype == torch.float32 or n == "lse":
+            tol = ATTN_F32_TOL[0] if n in ("o", "lse") else ATTN_F32_TOL[1]
+            used, tol_text = float(err.max()) / tol, f"{tol:g}"
+        else:
+            floor = BF16_FLOOR * top
+            used = float((err / (BF16_ULP * ref + floor)).max())
+            tol_text = f"2^-7|ref|+{floor:.3e}"
+        out[n] = dict(err=float(err.max()), median_ref=float(ref.median()), max_ref=top,
+                      tol=tol_text, used=used)
+    return out
+
+
+def attention_phase() -> list[dict]:
+    """B4's forward and backward kernels against their plain versions at
+    ATTN_SHAPES, with their times beside the plain versions',
+    scaled_dot_product_attention's (the library call for the same function,
+    timed here, never called by the port) and the bound."""
+    import torch.nn.functional as F
+
+    from tpu_rl_torch.ops import attention as A
+
+    rows = []
+    for B, T, H, D, dtype, seams in ATTN_SHAPES:
+        q, k, v, seg, do = attn_inputs(B, T, H, D, dtype, seams, B * T + D)
+        o, lse = A.flash_fwd(q, k, v, seg)
+        dq, dk, dv = A.flash_bwd(q, k, v, seg, o, lse, do)
+        torch.cuda.synchronize()
+        o_p, lse_p = A.flash_attention_forward_plain(q, k, v, seg)
+        grads_p = A.flash_attention_backward_plain(q, k, v, seg, o, lse, do)
+        got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+        want = dict(o=o_p, lse=lse_p, dq=grads_p[0], dk=grads_p[1], dv=grads_p[2])
+        checks = attn_check(got, want, dtype)
+        errs = {n: c["err"] for n, c in checks.items()}
+        finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+        if not finite or any(c["used"] > 1.0 for c in checks.values()):
+            fail(f"B4 vs plain at {(B, T, H, D, dtype)}: {checks}, finite {finite}")
+
+        big = B * H * T * T > 2**30
+        kw = dict(iters=3, reps=3, warmup=2) if big else dict(iters=20, reps=5, warmup=3)
+        fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg), **kw)
+        bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o, lse, do), **kw)
+        fwd_plain_ms = device_ms(lambda: A.flash_attention_forward_plain(q, k, v, seg), **kw)
+        bwd_plain_ms = device_ms(
+            lambda: A.flash_attention_backward_plain(q, k, v, seg, o, lse, do), **kw
+        )
+        # The library call: SDPA over (B,H,T,D) views with the same mask as
+        # a boolean attn_mask, forward alone and the backward of one graph.
+        idx = torch.arange(T, device=seg.device)
+        mask = ((idx[None, :] <= idx[:, None])[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_err = max_err(out.transpose(1, 2), o_p)
+        lib_fwd_ms = device_ms(sdpa, **kw)
+        lib_bwd_ms = device_ms(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+            **kw,
+        )
+        bounds = attn_bounds(B, T, H, D, q.element_size(), visible_pairs(seg))
+        row = dict(
+            shape=dict(B=B, T=T, H=H, D=D, dtype=str(dtype).split(".")[-1], seams=seams),
+            errs=errs, checks=checks, sdpa_err=lib_err,
+            flash_attn_fwd=dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
+                                **bounds["flash_attn_fwd"]),
+            flash_attn_bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                                **bounds["flash_attn_bwd"]),
+        )
+        rows.append(row)
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            r = row[name]
+            print(
+                f"{name} B={B} T={T} H={H} D={D} {row['shape']['dtype']}: kernel_ms={r['ms']:.6f} "
+                f"plain_ms={r['plain_ms']:.6f} sdpa_ms={r['library_ms']:.6f} "
+                f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, {r['bytes']} bytes, "
+                f"{r['flops']} flops)",
+                flush=True,
+            )
+        print(
+            f"flash_attn B={B} T={T} H={H} D={D} {row['shape']['dtype']}: max_abs_err "
+            + ", ".join(f"{n} {c['err']:.3e} (tol {c['tol']}, used {c['used']:.3f}; |ref| "
+                        f"median {c['median_ref']:.3e} max {c['max_ref']:.3e})"
+                        for n, c in checks.items())
+            + f"; sdpa vs plain {lib_err:.3e}",
+            flush=True,
+        )
+        del q, k, v, seg, do, o, lse, dq, dk, dv, o_p, lse_p, grads_p, got, want, out, mask
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------ transformer training
+def tf_batch(cfg, seed: int, device: str = "cuda"):
+    """A seeded batch at ``cfg``'s shape as tests/test_transformer.py builds
+    one: every row starts an episode and has one more seam mid-window;
+    uniform behaviour logits; 1-wide carry placeholders."""
+    from tpu_rl_torch.types import Batch
+
+    rng = np.random.default_rng(seed)
+    B, S, A, D = cfg.batch_size, cfg.seq_len, cfg.action_space, int(cfg.obs_shape[0])
+    firsts = np.zeros((B, S, 1), np.float32)
+    firsts[:, 0] = 1.0
+    firsts[np.arange(B), rng.integers(1, S, size=B)] = 1.0
+    return Batch.from_mapping(dict(
+        obs=rng.normal(size=(B, S, D)).astype(np.float32),
+        act=rng.integers(0, A, size=(B, S, 1)).astype(np.float32),
+        rew=(0.1 * rng.normal(size=(B, S, 1))).astype(np.float32),
+        logits=np.full((B, S, A), -np.log(A), np.float32),
+        log_prob=np.full((B, S, 1), -np.log(A), np.float32),
+        is_fir=firsts, hx=np.zeros((B, S, 1), np.float32), cx=np.zeros((B, S, 1), np.float32),
+    ), device=device)
+
+
+def on_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: on_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def tf_reference_check() -> dict:
+    """One f32 PPO step of a small transformer (flash impl, D=32, T=200 with
+    seams) on the card, through B4's kernels, against the same step from the
+    same state on the CPU, through B4's plain versions. f32 on both sides,
+    summed in other orders over 800 transitions: loss and grad norm at rtol
+    1e-4."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+
+    cfg = Config.from_dict(dict(TF_TRAIN_CFG, compute_dtype="float32", batch_size=4, seq_len=200,
+                                hidden_size=64, n_heads=2, n_layers=2))
+    _f, state, step_cpu = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _f, _s, step_dev = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cuda")
+    _new, want = step_cpu(state, tf_batch(cfg, 1, "cpu"))
+    dev_state = state.replace(step=state.step.cuda(), params=on_device(state.params, "cuda"),
+                              opt_state=on_device(state.opt_state, "cuda"))
+    _new, got = step_dev(dev_state, tf_batch(cfg, 1, "cuda"))
+    out = {k: (float(got[k]), float(want[k])) for k in ("loss", "grad-norm")}
+    for k, (g, w) in out.items():
+        if not (np.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
+            fail(f"transformer train step on the card vs the CPU: {k} {g} vs {w}")
+    print(f"transformer f32 step on the card vs the CPU: " + " ".join(
+        f"{k} {g:.8f} vs {w:.8f}" for k, (g, w) in out.items()), flush=True)
+    return out
+
+
+def tf_train_phase(card: str) -> dict:
+    """The transformer's learner path at full width: get_algo("PPO").build
+    and its train_step on one seeded 16 x 2048 batch, TF_WARMUP untimed then
+    TF_UPDATES timed updates. The B4 launch counters are zeroed just before
+    the timed updates and read just after."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import attention as A
+
+    reference = tf_reference_check()
+    cfg = Config.from_dict(TF_TRAIN_CFG)
+    _family, state, train_step = get_algo("PPO").build(
+        cfg, torch.Generator().manual_seed(0), device="cuda"
+    )
+    # the bf16 model's build makes its products reduce in f32, as tpu_rl's do
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        fail("building the bf16 transformer left cuBLAS free to reduce bf16 products in bf16")
+    batch = tf_batch(cfg, 0, "cuda")
+    for _ in range(TF_WARMUP):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    enqueue = []  # host time until train_step returns: what the host spends issuing it
+    t0 = time.perf_counter()
+    for _ in range(TF_UPDATES):
+        t1 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        enqueue.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * cfg.K_epoch * TF_UPDATES
+    if fwd != want or bwd != want:
+        fail(f"transformer training launched flash_attn_fwd {fwd} and flash_attn_bwd {bwd} "
+             f"times, want {want} each")
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+        fail(f"transformer training metrics not finite: {host}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.params["actor"].values()):
+        fail("transformer training params not finite")
+
+    # B4's share of device time, device time per update and the device
+    # busy share over a few updates.
+    b4_share = busy = device_ms_per_update = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(TF_PROFILE):
+                state, _m = train_step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        if device_us > 0:
+            busy = device_us / 1e6 / wall
+            b4_share = sum(e.self_device_time_total for e in events if "flash_" in e.key) / device_us
+            device_ms_per_update = device_us / 1e3 / TF_PROFILE
+    except (RuntimeError, AttributeError) as e:
+        print(f"transformer profile: not measured ({e!r})", flush=True)
+
+    n, s = cfg.batch_size, cfg.seq_len
+    out = dict(
+        updates=TF_UPDATES, batch=n, seq=s, hidden=cfg.hidden_size, heads=cfg.n_heads,
+        layers=cfg.n_layers, dtype=cfg.compute_dtype, ms_per_update=dt / TF_UPDATES * 1e3,
+        transitions_per_s=TF_UPDATES * n * s / dt, max_memory_allocated=peak,
+        enqueue_ms=statistics.median(enqueue) * 1e3, device_ms_per_update=device_ms_per_update,
+        b4_device_share=b4_share, device_busy=busy, flash_attn_fwd_launches=fwd,
+        flash_attn_bwd_launches=bwd, loss=host["loss"], reference=reference,
+    )
+    print(
+        f"transformer training PPO B={n} T={s} d={cfg.hidden_size} heads={cfg.n_heads} "
+        f"layers={cfg.n_layers} {cfg.compute_dtype} flash: {TF_UPDATES} updates, "
+        f"ms/update={out['ms_per_update']:.4f} transitions/s={out['transitions_per_s']:.1f} "
+        f"host enqueue ms/update={out['enqueue_ms']:.4f} device ms/update="
+        f"{'not measured' if device_ms_per_update is None else f'{device_ms_per_update:.4f}'} "
+        f"max_memory_allocated={peak} B4 share of device time="
+        f"{'not measured' if b4_share is None else f'{b4_share:.4f}'} device_busy="
+        f"{'not measured' if busy is None else f'{busy:.4f}'} loss={host['loss']:.6f} "
+        f"flash_attn_fwd launches={fwd} flash_attn_bwd launches={bwd} "
+        f"(= n_layers x K_epoch x updates {want}) [{card}]",
+        flush=True,
+    )
+    return out
+
+
+def tf_colocated_phase(card: str) -> dict:
+    """The transformer's colocated loop: ColocatedLoop.program on
+    configs/longcontext_singlechip.example.json with the flash impl for
+    TF_COLOCATED_UPDATES updates (KV-cached acting, training through B4)."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import attention as A
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    raw = json.loads((ROOT / "configs" / "longcontext_singlechip.example.json").read_text())
+    raw.update(attention_impl="flash", env_mode="colocated")
+    cfg = Config.from_dict(raw)
+    loop = ColocatedLoop(cfg, seed=0, device="cuda")
+    state, carry, stats = loop.state, loop.init_carry(), loop.init_stats()
+    torch.cuda.synchronize()
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(TF_COLOCATED_UPDATES):
+        state, carry, stats, metrics = loop.program(state, carry, stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
+    want = cfg.n_layers * cfg.K_epoch * TF_COLOCATED_UPDATES
+    if fwd != want or bwd != want:
+        fail(f"transformer colocated loop launched flash_attn_fwd {fwd} and flash_attn_bwd "
+             f"{bwd} times, want {want} each")
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+        fail(f"transformer colocated metrics not finite: {host}")
+    episodes = int(stats["episodes"])
+    if episodes < 1:
+        fail("the transformer colocated loop finished no episode")
+
+    # One acting tick (decode, sampling, env step), where the rollout's time
+    # goes: host clock over 32 ticks, device time over 8 in the profiler.
+    params = {"actor": state.params["actor"]}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(32):
+            carry, _ys = loop._tick(params, carry, loop.generator)
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t1) / 32 * 1e3
+        tick_device_ms = tick_events = None
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(8):
+                    carry, _ys = loop._tick(params, carry, loop.generator)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            if events:
+                tick_device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 8
+                tick_events = sum(e.count for e in events) / 8
+        except (RuntimeError, AttributeError) as e:
+            print(f"tick profile: not measured ({e!r})", flush=True)
+    n, s = loop.cfg.batch_size, loop.cfg.seq_len
+    out = dict(
+        updates=TF_COLOCATED_UPDATES, batch=n, seq=s, act_ctx=cfg.effective_act_ctx,
+        ms_per_update=dt / TF_COLOCATED_UPDATES * 1e3,
+        transitions_per_s=TF_COLOCATED_UPDATES * n * s / dt, episodes=episodes,
+        mean_return=float(stats["ret_sum"]) / episodes, loss=host["loss"],
+        flash_attn_fwd_launches=fwd, flash_attn_bwd_launches=bwd, tick_ms=tick_ms,
+        tick_device_ms=tick_device_ms, tick_device_events=tick_events,
+    )
+    print(
+        f"transformer colocated PPO CartPole B={n} T={s} act_ctx={cfg.effective_act_ctx} "
+        f"d={cfg.hidden_size} {cfg.compute_dtype} flash: {TF_COLOCATED_UPDATES} updates, "
+        f"ms/update={out['ms_per_update']:.1f} transitions/s={out['transitions_per_s']:.1f} "
+        f"episodes={episodes} mean_return={out['mean_return']:.2f} loss={host['loss']:.6f} "
+        f"flash launches {fwd}/{bwd} (= {want}); one tick {tick_ms:.4f} ms, device "
+        f"{'not measured' if tick_device_ms is None else f'{tick_device_ms:.4f}'} ms in "
+        f"{tick_events} device events [{card}]",
+        flush=True,
+    )
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs one CUDA card")
@@ -608,6 +1034,8 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.3f} s", flush=True)
+    for line in build.resource_usage():
+        print(f"ptxas: {line}", flush=True)
 
     shapes = kernel_phase()
     serving = serve_phase()
@@ -642,6 +1070,9 @@ def main() -> None:
     lstm_rows = lstm_phase()
     training = train_phase(card)
     learning = learn_phase(card)
+    attn_rows = attention_phase()
+    tf_training = tf_train_phase(card)
+    tf_colocated = tf_colocated_phase(card)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -691,9 +1122,31 @@ def main() -> None:
             card=card,
             shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
         ))
+    attn_main = attn_rows[0]  # (16, 2048, 8, 64) bf16, the transformer's main path
+    for name, errs in (("flash_attn_fwd", ("o", "lse")), ("flash_attn_bwd", ("dq", "dk", "dv"))):
+        r = attn_main[name]
+        kernels.append(dict(
+            name=name,
+            route="cuda",
+            source=f"tpu_rl_torch/csrc/{name}.cu",
+            replaces="tpu_rl/parallel/sequence.py:608",
+            launches=tf_training[f"{name}_launches"],
+            max_abs_err=max(x["errs"][e] for x in attn_rows for e in errs),
+            ms=r["ms"],
+            plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            # scaled_dot_product_attention with the causal-and-segment mask
+            # as a boolean attn_mask (forward; or the backward of its graph)
+            library_ms=r["library_ms"],
+            at=attn_main["shape"],
+            card=card,
+            shapes=[dict(shape=x["shape"], checks=x["checks"], **x[name])
+                    for x in attn_rows],
+        ))
     print(json.dumps({"training": training, "learning": {
         k: v for k, v in learning.items() if k != "scalars"
-    }}), flush=True)
+    }, "transformer_training": tf_training, "transformer_colocated": tf_colocated}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

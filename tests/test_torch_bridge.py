@@ -76,3 +76,43 @@ def test_port_init_matches_flax_statistics():
         assert np.abs(w).max() <= 2.0 / 0.87962566103423978 / np.sqrt(fan_in) + 1e-6
     for key in ("body.bias", "cell.x_proj.bias", "logits.bias", "value.bias"):
         assert not own[key].any()
+
+
+def _jax_transformer_tree(seed=0):
+    cfg = small_config(model="transformer", hidden_size=32, n_heads=4, n_layers=2, seq_len=8,
+                       obs_shape=(6,), action_space=3)
+    params = jax_build_family(cfg).init_params(jax.random.key(seed), seq_len=cfg.seq_len)
+    return with_random_biases(jax.tree_util.tree_map(np.asarray, params["actor"]), seed + 1)
+
+
+def test_transformer_roundtrip_keeps_layer_norm_untransposed():
+    """The transformer's tree (Dense and LayerNorm nodes) round-trips
+    exactly; a LayerNorm scale becomes a 1-D ``.weight`` and comes back as
+    ``scale``, not as a transposed ``kernel``; the state_dict loads into the
+    port's module, whose own init has the same keys and shapes."""
+    tree = _jax_transformer_tree()
+    sd = flax_to_state_dict(tree)
+    back = state_dict_to_flax(sd)
+    flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
+    flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (path, a), (_, b) in zip(flat_a, flat_b, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b)
+    p = tree["params"]
+    assert set(p["block1"]["ln2"]) == {"scale", "bias"}
+    np.testing.assert_array_equal(sd["block1.ln2.weight"].numpy(), p["block1"]["ln2"]["scale"])
+    np.testing.assert_array_equal(sd["ln_f.bias"].numpy(), p["ln_f"]["bias"])
+    np.testing.assert_array_equal(
+        sd["block0.attn.qkv.weight"].numpy(), p["block0"]["attn"]["qkv"]["kernel"].T
+    )
+    assert sd["block0.attn.qkv.weight"].shape == (96, 32) and sd["embed.weight"].shape == (32, 6)
+    cfg = Config.from_dict({"model": "transformer", "hidden_size": 32, "n_heads": 4, "n_layers": 2,
+                            "obs_shape": (6,), "action_space": 3})
+    family = build_family(cfg, device="cpu")
+    family.actor.load_state_dict(sd, strict=True)
+    own = family.init_params(torch.Generator().manual_seed(0))["actor"]
+    assert {k: tuple(v.shape) for k, v in own.items()} == {k: tuple(v.shape) for k, v in sd.items()}
+    assert (own["block0.ln1.weight"] == 1.0).all() and not own["ln_f.bias"].any()
+    w = own["block1.ff1.weight"].numpy()
+    assert abs(w.var() * 32 - 1.0) < 0.1  # lecun_normal over fan_in 32

@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.ops.losses", "tpu_rl_torch.heal.guards", "tpu_rl_torch.obs.learn",
         "tpu_rl_torch.algos.base", "tpu_rl_torch.algos.ppo", "tpu_rl_torch.algos.registry",
         "tpu_rl_torch.envs", "tpu_rl_torch.envs.core", "tpu_rl_torch.envs.cartpole",
-        "tpu_rl_torch.runtime.colocated",
+        "tpu_rl_torch.runtime.colocated", "tpu_rl_torch.ops.attention",
+        "tpu_rl_torch.parallel", "tpu_rl_torch.parallel.sequence",
+        "tpu_rl_torch.models.transformer",
     ):
         assert name in doc["imported"], name
 
@@ -84,10 +86,10 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 
 def test_config_keeps_unknown_keys_and_refuses_later_slices():
     cfg = Config.from_dict(
-        {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4, "n_heads": 8}
+        {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4, "mesh_seq": 2}
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
-    assert cfg.extra == {"chaos_spec": None, "n_heads": 8}
+    assert cfg.extra == {"chaos_spec": None, "mesh_seq": 2}
     with pytest.raises(NotImplementedError, match="quantized-serving slice"):
         Config.from_dict({"inference_dtype": "bf16"})
     with pytest.raises(AssertionError):
@@ -96,7 +98,10 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
         Config().replace(inference_buckets=-1)
     for kw, slice_name in (
         ({"algo": "SAC"}, "other-algorithms"),
-        ({"model": "transformer"}, "last slice"),
+        ({"model": "transformer", "attention_impl": "ring"}, "sequence-parallel slice"),
+        ({"model": "transformer", "attention_impl": "ulysses"}, "sequence-parallel slice"),
+        ({"model": "transformer", "attention_impl": "blockwise"}, "blockwise-attention slice"),
+        # bf16 compute: the transformer takes it, the LSTM not yet
         ({"compute_dtype": "bfloat16"}, "bf16-compute slice"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):

@@ -45,7 +45,7 @@ def _close(got, want, what, atol=ATOL, rtol=0.0):
 
 
 # ----------------------------------------------------------- small pieces
-@pytest.mark.parametrize("shape", [(8, 4, 1), (3, 9, 2)])
+@pytest.mark.parametrize("shape", [(8, 4, 1), (3, 9, 2), (4, 2047, 1)])
 def test_gae_matches(shape):
     d = np.random.default_rng(0).normal(size=shape).astype(np.float32)
     _close(gae(torch.from_numpy(d), 0.99, 0.95), jax_gae(jnp.asarray(d), 0.99, 0.95), "gae")

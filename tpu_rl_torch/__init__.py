@@ -30,3 +30,20 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_card(fn: str, t: torch.Tensor) -> bool:
+    """Where the kernel wrapper ``fn`` runs for ``t``: False for a CPU tensor
+    (its plain version), True for a CUDA tensor on the current device (the
+    kernel: a C entry launches on the calling thread's current device). Any
+    other device, or another card than the current one, raises: a wrapper
+    never falls back."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{fn}: tensors on {t.device}, current device is cuda:{torch.cuda.current_device()}"
+        )
+    return True

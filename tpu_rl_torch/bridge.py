@@ -4,14 +4,21 @@ and back), so neither package imports the other.
 
 - A flax ``Dense`` (a dict holding ``kernel (in, out)`` and ``bias``) becomes
   ``<path>.weight (out, in)`` — transposed — and ``<path>.bias``.
+- A flax ``LayerNorm`` (``scale (C,)`` and ``bias``) becomes
+  ``<path>.weight`` and ``<path>.bias``, untransposed. Back from a
+  state_dict the two are told apart by ``ndim``: a 1-D ``.weight`` is a
+  LayerNorm ``scale``, a 2-D one a Dense ``kernel``.
 - Any other leaf (``cell/recurrent_kernel (H, 4H)``) is copied as it is.
-- The flax collection ``params`` is the top of the tree:
+- The flax collection ``params`` is the top of the tree. LSTM:
   ``params/body`` -> ``body.*``, ``params/cell/x_proj`` -> ``cell.x_proj.*``,
   ``params/cell/recurrent_kernel`` -> ``cell.recurrent_kernel``,
   ``params/logits`` -> ``logits.*``, ``params/value`` -> ``value.*``.
+  Transformer: ``params/embed``, ``params/block{i}/attn/{qkv,out}``,
+  ``params/block{i}/{ln1,ln2,ff1,ff2}``, ``params/ln_f``, ``params/logits``
+  and ``params/value``, each to the same dotted path.
 
 :func:`train_state_from_flax` carries a whole ``tpu_rl`` ``TrainState``
-(step, params, optax RMSprop state) into the port's
+(step, params, optax RMSprop state) of either family into the port's
 :class:`~tpu_rl_torch.algos.base.TrainState`.
 """
 
@@ -28,6 +35,10 @@ def _is_dense(node: Any) -> bool:
     return isinstance(node, Mapping) and set(node) == {"kernel", "bias"}
 
 
+def _is_layer_norm(node: Any) -> bool:
+    return isinstance(node, Mapping) and set(node) == {"scale", "bias"}
+
+
 def flax_to_state_dict(actor_tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``{"params": {...}}`` (numpy leaves) -> ``state_dict`` of CPU tensors."""
     out: dict[str, torch.Tensor] = {}
@@ -37,6 +48,9 @@ def flax_to_state_dict(actor_tree: Mapping[str, Any]) -> dict[str, torch.Tensor]
             path = f"{prefix}{name}"
             if _is_dense(child):
                 out[f"{path}.weight"] = torch.tensor(np.asarray(child["kernel"]).T)
+                out[f"{path}.bias"] = torch.tensor(np.asarray(child["bias"]))
+            elif _is_layer_norm(child):
+                out[f"{path}.weight"] = torch.tensor(np.asarray(child["scale"]))
                 out[f"{path}.bias"] = torch.tensor(np.asarray(child["bias"]))
             elif isinstance(child, Mapping):
                 walk(child, f"{path}.")
@@ -57,9 +71,11 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
         node = root
         for p in parents:
             node = node.setdefault(p, {})
-        if leaf == "weight":
+        if leaf == "weight" and arr.ndim == 1:  # a LayerNorm scale
+            node["scale"] = arr.copy()
+        elif leaf == "weight":
             node["kernel"] = np.ascontiguousarray(arr.T)
-        else:  # a Dense bias, or a leaf kept as it is (recurrent_kernel)
+        else:  # a bias, or a leaf kept as it is (recurrent_kernel)
             node[leaf] = arr.copy()
     return {"params": root}
 
@@ -68,7 +84,8 @@ def train_state_from_flax(state: Any):
     """A ``tpu_rl`` ``TrainState`` with numpy leaves (``jax.device_get``)
     -> the port's ``TrainState`` on the CPU. ``params["actor"]`` and optax's
     RMSprop ``nu`` tree go through the same mapping (a Dense kernel's ``nu``
-    is transposed like the kernel); ``step`` is copied."""
+    is transposed like the kernel, a LayerNorm scale's is not); ``step`` is
+    copied."""
     from tpu_rl_torch.algos.base import TrainState
 
     nu = next(s.nu for s in state.opt_state if hasattr(s, "nu"))

@@ -20,11 +20,20 @@ class Config:
     algo: str = "PPO"
     # model
     hidden_size: int = 64
+    # Policy backbone: "lstm" or "transformer" (on-policy algos only).
     model: str = "lstm"
+    n_heads: int = 4
+    n_layers: int = 2
+    # Attention of the transformer: "full" (materialized scores) or "flash"
+    # (kernel B4). tpu_rl's "blockwise", "ring" and "ulysses" come later.
+    attention_impl: str = "full"
+    # Acting context (KV-cache length) of the transformer; 0 = seq_len.
+    act_ctx: int = 0
     seq_len: int = 5
     # Reset the LSTM carry at in-sequence episode seams (tpu_rl default).
     reset_carry_on_first: bool = True
-    # Compute dtype of the train step ("float32" or "bfloat16").
+    # Compute dtype of the train step ("float32" or "bfloat16"; bfloat16 for
+    # the transformer only in this port so far).
     compute_dtype: str = "float32"
     # Number of envs one worker steps per tick (one batched act per tick).
     worker_num_envs: int = 1
@@ -95,6 +104,8 @@ class Config:
         assert 0.0 <= self.gamma <= 1.0
         assert 0.0 <= self.lmbda <= 1.0
         assert self.hidden_size >= 1, self.hidden_size
+        assert self.n_heads >= 1 and self.n_layers >= 1, (self.n_heads, self.n_layers)
+        assert self.act_ctx >= 0, self.act_ctx
         assert self.time_horizon >= 1, self.time_horizon
         assert self.reward_scale != 0.0, "reward_scale 0 zeroes every reward"
         assert self.eps_clip > 0, self.eps_clip
@@ -109,6 +120,22 @@ class Config:
             "bfloat16",
         ), f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype!r}"
         assert self.model in ("lstm", "transformer"), self.model
+        assert self.attention_impl in ("full", "blockwise", "flash", "ring", "ulysses")
+        if self.attention_impl == "blockwise":
+            raise NotImplementedError(
+                "attention_impl='blockwise': blockwise attention comes with the "
+                "blockwise-attention slice of the port"
+            )
+        if self.attention_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attention_impl={self.attention_impl!r}: ring and Ulysses attention "
+                "on torch.distributed come with the multi-GPU sequence-parallel slice "
+                "of the port"
+            )
+        if self.model == "transformer":
+            assert self.algo not in ("SAC", "SAC-Continuous"), (
+                "transformer backbone supports the on-policy algorithms"
+            )
         assert self.worker_num_envs >= 1, self.worker_num_envs
         assert self.inference_batch >= 1, self.inference_batch
         assert self.inference_flush_us >= 0, self.inference_flush_us
@@ -121,6 +148,10 @@ class Config:
                 "(models/quant.py) comes with the quantized-serving slice of "
                 "the port; this slice serves f32 only"
             )
+
+    @property
+    def effective_act_ctx(self) -> int:
+        return self.act_ctx or self.seq_len
 
     def replace(self, **kw: Any) -> "Config":
         new = dataclasses.replace(self, **kw)

@@ -38,7 +38,11 @@ def module_grad_norms(grads: dict) -> dict[str, torch.Tensor]:
                     kind = "cell"
                     break
             parts[kind].append(leaf.float())
-    return {k: global_norm(ts) for k, ts in parts.items()}
+    # A group with no leaves (the transformer has no torso or cell) is 0.
+    device = next(t.device for ts in parts.values() for t in ts)
+    return {
+        k: global_norm(ts) if ts else torch.zeros((), device=device) for k, ts in parts.items()
+    }
 
 
 def tree_delta_norm(new: dict, old: dict) -> torch.Tensor:

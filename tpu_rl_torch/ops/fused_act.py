@@ -20,6 +20,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from tpu_rl_torch import on_card
+from tpu_rl_torch.kernels import build
 from tpu_rl_torch.models.cells import lstm_gates
 from tpu_rl_torch.ops import distributions as D
 
@@ -56,31 +58,11 @@ def _expected_shapes(B: int, D_: int, H: int, A: int) -> dict[str, tuple[int, ..
     }
 
 
-_LIB: ctypes.CDLL | None = None
-
-
-def _bind() -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signatures set."""
-    global _LIB
-    if _LIB is None:
-        from tpu_rl_torch.kernels import build
-
-        lib = build.load("fused_act")
-        lib.fused_act_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.fused_act_launch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def fused_act_step(actor_params, obs, h, c):
     """``actor_params`` is the actor state_dict (``body.weight`` ...). CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
-    if obs.device.type == "cpu":
+    if not on_card("fused_act_step", obs):
         return fused_act_step_plain(actor_params, obs, h, c)
-    if obs.device.type != "cuda":
-        raise ValueError(f"fused_act_step: unsupported device {obs.device}")
     if obs.dim() != 2 or h.dim() != 2 or obs.shape[0] < 1:
         raise ValueError(f"fused_act_step: obs {tuple(obs.shape)}, h {tuple(h.shape)}")
     B, D_ = obs.shape
@@ -97,13 +79,6 @@ def fused_act_step(actor_params, obs, h, c):
             raise ValueError(f"fused_act_step: {name} has shape {tuple(t.shape)}, want {want}")
         if not t.is_contiguous():
             raise ValueError(f"fused_act_step: {name} is not contiguous")
-    # The C entry launches on the calling thread's current device.
-    if obs.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"fused_act_step: tensors on {obs.device}, current device is "
-            f"cuda:{torch.cuda.current_device()}"
-        )
-    lib = _bind()
     logits = torch.empty((B, A), dtype=torch.float32, device=obs.device)
     h2 = torch.empty((B, H), dtype=torch.float32, device=obs.device)
     c2 = torch.empty((B, H), dtype=torch.float32, device=obs.device)
@@ -112,7 +87,9 @@ def fused_act_step(actor_params, obs, h, c):
     # only, which runs after the kernel, so no reference needs holding here.
     # A tile too wide for one block's shared memory comes back as the error
     # of the C entry's cudaFuncSetAttribute.
-    err = lib.fused_act_launch(
+    err = build.bind(
+        "fused_act", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )(
         *(t.data_ptr() for t in inputs.values()),
         logits.data_ptr(), h2.data_ptr(), c2.data_ptr(),
         B, D_, H, A, torch.cuda.current_stream(obs.device).cuda_stream,

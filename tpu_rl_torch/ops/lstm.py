@@ -30,6 +30,9 @@ import ctypes
 
 import torch
 
+from tpu_rl_torch import on_card
+from tpu_rl_torch.kernels import build
+
 # Kernel launches made through lstm_fwd / lstm_bwd (plain-version calls
 # excluded).
 LSTM_FWD_LAUNCHES = 0
@@ -97,22 +100,10 @@ def lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs):
 
 
 # ------------------------------------------------------------------ binding
-_LIBS: dict[str, ctypes.CDLL] = {}
-
-
-def _bind(name: str, n_ptrs: int) -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signature set:
-    ``n_ptrs`` pointers, then B, S, H, then the stream."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        from tpu_rl_torch.kernels import build
-
-        lib = build.load(name)
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+def _entry(name: str, n_ptrs: int):
+    """The kernel's C entry: ``n_ptrs`` pointers, then B, S, H, then the
+    stream."""
+    return build.bind(name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _check(fn: str, device: torch.device, tensors: dict, shapes: dict) -> None:
@@ -127,27 +118,13 @@ def _check(fn: str, device: torch.device, tensors: dict, shapes: dict) -> None:
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, want {want}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} is not contiguous")
-    # The C entry launches on the calling thread's current device.
-    if device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"{fn}: tensors on {device}, current device is cuda:{torch.cuda.current_device()}"
-        )
-
-
-def _device(fn: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {t.device}")
-    return True
 
 
 # ----------------------------------------------------------------- wrappers
 def lstm_fwd(xp, wh, h0, c0, keep):
     """Kernel B1: ``(hs, cs, acts)``. CPU tensors take
     :func:`lstm_forward_plain`; CUDA tensors launch the kernel."""
-    if not _device("lstm_fwd", xp):
+    if not on_card("lstm_fwd", xp):
         return lstm_forward_plain(xp, wh, h0, c0, keep)
     if xp.dim() != 3 or xp.shape[0] < 1 or xp.shape[1] < 1:
         raise ValueError(f"lstm_fwd: xp {tuple(xp.shape)}")
@@ -158,13 +135,12 @@ def lstm_fwd(xp, wh, h0, c0, keep):
         {"xp": xp, "wh": wh, "h0": h0, "c0": c0, "keep": keep},
         {"xp": (B, S, 4 * H), "wh": (H, 4 * H), "h0": (B, H), "c0": (B, H), "keep": (B, S)},
     )
-    lib = _bind("lstm_fwd", 8)
     hs = torch.empty((B, S, H), dtype=torch.float32, device=xp.device)
     cs = torch.empty_like(hs)
     acts = torch.empty((B, S, G), dtype=torch.float32, device=xp.device)
     # Asynchronous on the current stream; the caching allocator hands an
     # input's memory to later work on that stream only, after the kernel.
-    err = lib.lstm_fwd_launch(
+    err = _entry("lstm_fwd", 8)(
         xp.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), keep.data_ptr(),
         hs.data_ptr(), cs.data_ptr(), acts.data_ptr(),
         B, S, H, torch.cuda.current_stream(xp.device).cuda_stream,
@@ -182,7 +158,7 @@ def lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs):
     :func:`lstm_backward_plain`; CUDA tensors launch the kernel, which reads
     ``whᵀ`` (4H, H), transposed here once per call so that neighbouring
     threads read neighbouring addresses."""
-    if not _device("lstm_bwd", acts):
+    if not on_card("lstm_bwd", acts):
         dxp, _dwh, dh0, dc0 = lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs)
         return dxp, dh0, dc0
     B, S, H = cs.shape
@@ -194,11 +170,10 @@ def lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs):
         {"acts": (B, S, G), "cs": (B, S, H), "c0": (B, H), "keep": (B, S),
          "dhs": (B, S, H), "dcs": (B, S, H), "wh_t": (G, H)},
     )
-    lib = _bind("lstm_bwd", 10)
     dxp = torch.empty((B, S, G), dtype=torch.float32, device=acts.device)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=acts.device)
     dc0 = torch.empty_like(dh0)
-    err = lib.lstm_bwd_launch(
+    err = _entry("lstm_bwd", 10)(
         acts.data_ptr(), cs.data_ptr(), c0.data_ptr(), keep.data_ptr(), dhs.data_ptr(),
         dcs.data_ptr(), wh_t.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
         B, S, H, torch.cuda.current_stream(acts.device).cuda_stream,

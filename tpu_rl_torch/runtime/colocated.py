@@ -6,7 +6,8 @@ no ZMQ, no shared-memory ring. One iteration (:meth:`ColocatedLoop.program`):
 
 1. :meth:`~ColocatedLoop.rollout`: ``cfg.seq_len`` acting ticks. Each tick
    keeps the worker's tick semantics: store the pre-step obs, pre-step carry
-   and pre-tick ``is_fir``, act (``family.act``), step the vectorized env
+   (zero placeholders for the transformer, which acts from KV caches it
+   never stores) and pre-tick ``is_fir``, act (``family.act``), step the vectorized env
    (auto-reset and the ``time_horizon`` truncation live in
    :func:`~tpu_rl_torch.envs.make_vec_env`), scale the reward, zero the
    carry on done with ``torch.where`` (never a multiply: a NaN carry must
@@ -15,7 +16,8 @@ no ZMQ, no shared-memory ring. One iteration (:meth:`ColocatedLoop.program`):
    :class:`~tpu_rl_torch.types.Batch`.
 2. The algorithm's ``train_step(state, batch)`` on that batch while it is
    still on the device; its LSTM unroll runs the kernels of
-   :mod:`tpu_rl_torch.ops.lstm`.
+   :mod:`tpu_rl_torch.ops.lstm`, the transformer's attention kernel B4
+   (:mod:`tpu_rl_torch.ops.attention`) with ``attention_impl="flash"``.
 
 Episode counts and return sums accumulate on the device; the host reads
 them, and the metrics, only every ``cfg.loss_log_interval`` updates.
@@ -124,6 +126,12 @@ class ColocatedLoop:
         a, logits, log_prob, h2, c2 = self.family.act(params, cr["obs"], cr["h"], cr["c"], generator)
         env, obs2, rew, done = self._v_step(cr["env"], a, generator)
         ret2 = cr["ret"] + rew
+        if self.family.store_carry:
+            hx, cx = cr["h"], cr["c"]
+        else:  # transformer: zero placeholders, not the caches
+            n = self.cfg.batch_size
+            hx, cx = (torch.zeros((n, w), dtype=torch.float32, device=self.device)
+                      for w in self.family.stored_carry_widths)
         ys = dict(
             obs=cr["obs"],
             act=a,
@@ -131,8 +139,8 @@ class ColocatedLoop:
             logits=logits,
             log_prob=log_prob,
             is_fir=cr["is_fir"][:, None],
-            hx=cr["h"],
-            cx=cr["c"],
+            hx=hx,
+            cx=cx,
             done=done,
             # Completed-episode raw return, on the terminal tick.
             ep_ret=torch.where(done, ret2, 0.0),

@@ -118,6 +118,11 @@ class InferenceService:
         device: str | torch.device | None = "cuda",
     ):
         self.device = resolve_device(device)
+        if cfg.model != "lstm":
+            raise NotImplementedError(
+                f"model={cfg.model!r}: serving the transformer comes with the "
+                "transformer-serving slice of the port"
+            )
         self.cfg = cfg
         self.family = family
         self.router = router

@@ -47,6 +47,7 @@ class Batch:
     log_prob : (B, S, 1) behaviour log-prob
     is_fir   : (B, S, 1) 1.0 at episode-first steps
     hx, cx   : (B, S, H) pre-step LSTM states; training uses [:, 0]
+               ((B, S, 1) zero placeholders for the transformer)
     """
 
     obs: torch.Tensor
