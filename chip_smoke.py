@@ -38,17 +38,20 @@ its plain PyTorch version:
    (batch 32, lr 3e-4, entropy 1e-3, seed 0) for 1800 updates, one line per
    200-update window; fails unless the best window's mean return is >= 60
    over >= 100 episodes;
-8. B4 (``flash_attn_fwd``/``flash_attn_bwd``) vs plain: the main path's
-   (B,T,H,D) = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32)
-   bf16, (2,2048,8,64) f32 with ~1000-key segments, a ragged f32
-   (3,1000,4,64) with many segments and a small f32 shape, q/k/v as strided
-   views of one qkv tensor; per shape the max abs error of o, lse, dq, dk
-   and dv beside its tolerance (bf16: element by element) and the median
-   |ref|, the kernels', the plain versions' and
-   ``scaled_dot_product_attention``'s times (the same mask as a boolean
-   attn_mask), and the bound;
-9. transformer training: a small f32 train step on the card against the
-   CPU's plain path (loss, grad norm), then ``get_algo("PPO").build`` at
+8. B4 (``flash_attn_fwd``/``flash_attn_bwd``: bf16 on the tensor-core
+   kernels, f32 on the CUDA-core ones) vs plain: the main path's (B,T,H,D)
+   = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32) bf16, bf16
+   rows with long segments over many tiles, many seams on a ragged T, a
+   small D=32 shape and shuffled (non-monotone) segment ids, and f32 rows
+   (one with ~1000-key segments), q/k/v as strided views of one qkv tensor;
+   per shape the tile pairs the bf16 kernels visit beside the causal ones,
+   the max abs error of o, lse, dq, dk and dv beside its tolerance (bf16:
+   element by element) and the median |ref|, the kernels', the plain
+   versions' and ``scaled_dot_product_attention``'s times (the same mask as
+   a boolean attn_mask), and the bound;
+9. transformer training: small f32 and bf16 train steps on the card
+   against the CPU's plain path (loss, grad norm), then
+   ``get_algo("PPO").build`` at
    bench.py's ``PPO-transformer@longctx-flash`` model (d512, 8 heads, 4
    layers, bf16, flash; its build must leave bf16 products reducing in f32)
    on a seeded 16 x 2048 batch with seams, 2 warm-up
@@ -114,17 +117,24 @@ LEARN_UPDATES, LEARN_BAR, LEARN_EPISODES = 1800, 60.0, 100
 LSTM_SHAPES = [(128, 5, 64), (32, 5, 64), (100, 5, 64), (256, 16, 256), (1024, 16, 1024)]
 LSTM_FWD_TOL, LSTM_GRAD_TOL = 1e-5, 3e-5
 
-# (B, T, H, D, dtype, mean seams per row) at which B4 is held against its
-# plain versions: the main path (bench.py's PPO-transformer@longctx-flash;
-# one seam per row, as the training batch below has), the
-# colocated config (configs/longcontext_singlechip.example.json), the main
-# path's row length in f32 (segments of ~1000 keys: the long online-softmax
-# and backward walks over many tiles at the f32 tolerance), a ragged f32
-# shape with many segments and a small f32 shape.
+# (B, T, H, D, dtype, mean seams per row, shuffled ids) at which B4 is held
+# against its plain versions: the main path (bench.py's
+# PPO-transformer@longctx-flash; one seam per row, as the training batch
+# below has), the colocated config (configs/longcontext_singlechip.example
+# .json); for the bf16 tensor-core kernels, the main path's row length with
+# ~1 seam (long segments: the online softmax and the backward walks over
+# many tiles, most of them unmasked), a ragged T with ~50 seams (most tile
+# pairs skipped, the rest masked), a small D=32 shape, and shuffled segment
+# ids (not monotone: the skip rule visits every causal tile and the element
+# mask does the work); the f32 CUDA-core kernels at the main path's row
+# length (segments of ~1000 keys), a ragged shape with many segments and a
+# small shape.
 ATTN_SHAPES = [
-    (16, 2048, 8, 64, torch.bfloat16, 1), (8, 4096, 8, 32, torch.bfloat16, 16),
-    (2, 2048, 8, 64, torch.float32, 1), (3, 1000, 4, 64, torch.float32, 50),
-    (2, 200, 3, 32, torch.float32, 5),
+    (16, 2048, 8, 64, torch.bfloat16, 1, False), (8, 4096, 8, 32, torch.bfloat16, 16, False),
+    (2, 2048, 8, 64, torch.bfloat16, 1, False), (3, 1000, 4, 64, torch.bfloat16, 50, False),
+    (2, 200, 3, 32, torch.bfloat16, 5, False), (2, 512, 4, 64, torch.bfloat16, 8, True),
+    (2, 2048, 8, 64, torch.float32, 1, False), (3, 1000, 4, 64, torch.float32, 50, False),
+    (2, 200, 3, 32, torch.float32, 5, False),
 ]
 # f32: the kernel and the plain version sum in another order; absolute
 # tolerances (o and lse, gradients). bf16: both compute in f32 from the same
@@ -634,25 +644,39 @@ def learn_phase(card: str) -> dict:
 
 
 # ---------------------------------------------------------- attention (B4)
-def attn_inputs(B, T, H, D, dtype, seams, seed):
+def attn_inputs(B, T, H, D, dtype, seams, seed, shuffled=False, device="cuda"):
     """Seeded q, k, v as strided views of one (B,T,3,H,D) qkv tensor (as the
     model hands them to the kernel), int32 segment ids with ~``seams``
-    seams per row, and an output cotangent."""
+    seams per row, and an output cotangent. ``shuffled`` permutes each
+    row's ids: segments then interleave and the ids are not monotone, which
+    the tile-skip rule must also get right."""
     g = torch.Generator().manual_seed(seed)
-    qkv = torch.randn((B, T, 3, H, D), generator=g).to(dtype).cuda()
+    qkv = torch.randn((B, T, 3, H, D), generator=g).to(dtype).to(device)
     firsts = (torch.rand((B, T), generator=g) < seams / T).to(torch.int32)
     firsts[:, 0] = 1
-    seg = torch.cumsum(firsts, 1, dtype=torch.int32).cuda()
-    do = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
-    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg, do
+    seg = torch.cumsum(firsts, 1, dtype=torch.int32)
+    if shuffled:
+        seg = torch.stack([row[torch.randperm(T, generator=g)] for row in seg])
+    do = torch.randn((B, T, H, D), generator=g).to(dtype).to(device)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg.contiguous().to(device), do
 
 
 def visible_pairs(seg: torch.Tensor) -> int:
-    """Query-key pairs B4's mask keeps in this run's data: the segment ids
-    come from a cumsum, so each segment is one run of L rows and keeps
-    L(L+1)/2 pairs."""
-    runs = [torch.unique_consecutive(row, return_counts=True)[1] for row in seg]
-    return int(sum(int((c * (c + 1) // 2).sum()) for c in runs))
+    """Query-key pairs B4's mask keeps in this run's data: a segment id that
+    occurs c times in a row keeps c(c+1)/2 (query, key) pairs, wherever its
+    rows lie."""
+    counts = [torch.unique(row, return_counts=True)[1] for row in seg]
+    return int(sum(int((c * (c + 1) // 2).sum()) for c in counts))
+
+
+def tile_visits(seg: torch.Tensor) -> tuple[int, int]:
+    """(tile pairs the bf16 kernels visit, causal tile pairs) per head, by
+    the kernels' own skip rule (``ops.attention.visited_tiles``)."""
+    from tpu_rl_torch.ops import attention as A
+
+    r = A.tile_ranges(seg)
+    n = r[0].shape[1]
+    return int(A.visited_tiles(r, r).sum()), seg.shape[0] * n * (n + 1) // 2
 
 
 def attn_bounds(B: int, T: int, H: int, D: int, elt: int, pairs: int) -> dict:
@@ -710,10 +734,14 @@ def attention_phase() -> list[dict]:
     from tpu_rl_torch.ops import attention as A
 
     rows = []
-    for B, T, H, D, dtype, seams in ATTN_SHAPES:
-        q, k, v, seg, do = attn_inputs(B, T, H, D, dtype, seams, B * T + D)
-        o, lse = A.flash_fwd(q, k, v, seg)
-        dq, dk, dv = A.flash_bwd(q, k, v, seg, o, lse, do)
+    for B, T, H, D, dtype, seams, shuffled in ATTN_SHAPES:
+        q, k, v, seg, do = attn_inputs(B, T, H, D, dtype, seams, B * T + D, shuffled)
+        # the bf16 kernels' tile plan, made once per forward on the main path
+        # and timed apart from the kernels
+        plan = A.tile_plan(seg) if dtype == torch.bfloat16 else None
+        visited, causal = tile_visits(seg)
+        o, lse = A.flash_fwd(q, k, v, seg, plan)
+        dq, dk, dv = A.flash_bwd(q, k, v, seg, o, lse, do, plan)
         torch.cuda.synchronize()
         o_p, lse_p = A.flash_attention_forward_plain(q, k, v, seg)
         grads_p = A.flash_attention_backward_plain(q, k, v, seg, o, lse, do)
@@ -727,8 +755,9 @@ def attention_phase() -> list[dict]:
 
         big = B * H * T * T > 2**30
         kw = dict(iters=3, reps=3, warmup=2) if big else dict(iters=20, reps=5, warmup=3)
-        fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg), **kw)
-        bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o, lse, do), **kw)
+        fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg, plan), **kw)
+        bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o, lse, do, plan), **kw)
+        plan_ms = None if plan is None else device_ms(lambda: A.tile_plan(seg), **kw)
         fwd_plain_ms = device_ms(lambda: A.flash_attention_forward_plain(q, k, v, seg), **kw)
         bwd_plain_ms = device_ms(
             lambda: A.flash_attention_backward_plain(q, k, v, seg, o, lse, do), **kw
@@ -752,8 +781,10 @@ def attention_phase() -> list[dict]:
         )
         bounds = attn_bounds(B, T, H, D, q.element_size(), visible_pairs(seg))
         row = dict(
-            shape=dict(B=B, T=T, H=H, D=D, dtype=str(dtype).split(".")[-1], seams=seams),
-            errs=errs, checks=checks, sdpa_err=lib_err,
+            shape=dict(B=B, T=T, H=H, D=D, dtype=str(dtype).split(".")[-1], seams=seams,
+                       shuffled=shuffled),
+            errs=errs, checks=checks, sdpa_err=lib_err, tiles_visited=visited,
+            tiles_causal=causal, plan_ms=plan_ms,
             flash_attn_fwd=dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
                                 **bounds["flash_attn_fwd"]),
             flash_attn_bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
@@ -770,6 +801,13 @@ def attention_phase() -> list[dict]:
                 flush=True,
             )
         print(
+            f"flash_attn B={B} T={T} H={H} D={D} {row['shape']['dtype']}"
+            f"{' shuffled ids' if shuffled else ''}: tile pairs visited {visited} of "
+            f"{causal} causal (per head; the bf16 kernels' skip rule)"
+            + ("" if plan_ms is None else f", tile plan {plan_ms:.6f} ms"),
+            flush=True,
+        )
+        print(
             f"flash_attn B={B} T={T} H={H} D={D} {row['shape']['dtype']}: max_abs_err "
             + ", ".join(f"{n} {c['err']:.3e} (tol {c['tol']}, used {c['used']:.3f}; |ref| "
                         f"median {c['median_ref']:.3e} max {c['max_ref']:.3e})"
@@ -777,7 +815,7 @@ def attention_phase() -> list[dict]:
             + f"; sdpa vs plain {lib_err:.3e}",
             flush=True,
         )
-        del q, k, v, seg, do, o, lse, dq, dk, dv, o_p, lse_p, grads_p, got, want, out, mask
+        del q, k, v, seg, do, o, lse, dq, dk, dv, o_p, lse_p, grads_p, got, want, out, mask, plan
         del qt, kt, vt
         torch.cuda.empty_cache()
     return rows
@@ -811,30 +849,52 @@ def on_device(tree, device):
     return tree.to(device)
 
 
-def tf_reference_check() -> dict:
-    """One f32 PPO step of a small transformer (flash impl, D=32, T=200 with
-    seams) on the card, through B4's kernels, against the same step from the
-    same state on the CPU, through B4's plain versions. f32 on both sides,
-    summed in other orders over 800 transitions: loss and grad norm at rtol
-    1e-4."""
+def tf_reference_check(dtype: str) -> dict:
+    """One PPO step of a small transformer (flash impl, T=200 with seams) on
+    the card, through B4's kernels, against the same step from the same
+    state on the CPU, through B4's plain versions.
+
+    float32 (D=32, the CUDA-core kernels): f32 on both sides, summed in
+    other orders over 800 transitions: loss and grad norm at rtol 1e-4.
+    bfloat16 (D=64, the tensor-core kernels): both sides round activations
+    to bf16 at every layer, at other places (cuBLAS and the CPU's GEMMs
+    round their f32 sums once; B4's kernels and plain versions differ by
+    at most one bf16 ulp per element), so loss and grad norm are held at
+    rtol 2e-3, the size of bf16's own effect: the CPU's bf16 step differs
+    from its f32 step by about that much, printed beside."""
     from tpu_rl_torch.algos.registry import get_algo
     from tpu_rl_torch.config import Config
 
-    cfg = Config.from_dict(dict(TF_TRAIN_CFG, compute_dtype="float32", batch_size=4, seq_len=200,
-                                hidden_size=64, n_heads=2, n_layers=2))
+    small = dict(batch_size=4, seq_len=200, n_layers=2, n_heads=2)
+    if dtype == "float32":
+        cfg = Config.from_dict(dict(TF_TRAIN_CFG, compute_dtype=dtype, hidden_size=64, **small))
+        rtol = 1e-4
+    else:
+        cfg = Config.from_dict(dict(TF_TRAIN_CFG, compute_dtype=dtype, hidden_size=128, **small))
+        rtol = 2e-3
     _f, state, step_cpu = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cpu")
     _f, _s, step_dev = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cuda")
     _new, want = step_cpu(state, tf_batch(cfg, 1, "cpu"))
     dev_state = state.replace(step=state.step.cuda(), params=on_device(state.params, "cuda"),
                               opt_state=on_device(state.opt_state, "cuda"))
     _new, got = step_dev(dev_state, tf_batch(cfg, 1, "cuda"))
-    out = {k: (float(got[k]), float(want[k])) for k in ("loss", "grad-norm")}
+    keys = ("loss", "grad-norm")
+    out = {k: (float(got[k]), float(want[k])) for k in keys}
+    gap = ""
+    if dtype != "float32":
+        f32 = cfg.replace(compute_dtype="float32")
+        _f, state32, step32 = get_algo("PPO").build(f32, torch.Generator().manual_seed(0), device="cpu")
+        _new, m32 = step32(state32, tf_batch(f32, 1, "cpu"))
+        gap = "; the CPU's bf16 step vs its f32 step: " + " ".join(
+            f"{k} {abs(out[k][1] - float(m32[k])) / abs(float(m32[k])):.3e}" for k in keys)
     for k, (g, w) in out.items():
-        if not (np.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
-            fail(f"transformer train step on the card vs the CPU: {k} {g} vs {w}")
-    print(f"transformer f32 step on the card vs the CPU: " + " ".join(
-        f"{k} {g:.8f} vs {w:.8f}" for k, (g, w) in out.items()), flush=True)
-    return out
+        if not (np.isfinite(g) and abs(g - w) <= rtol * abs(w)):
+            fail(f"transformer {dtype} train step on the card vs the CPU: {k} {g} vs {w} "
+                 f"(rtol {rtol:g})")
+    print(f"transformer {dtype} step (D={cfg.hidden_size // cfg.n_heads}) on the card vs the CPU: "
+          + " ".join(f"{k} {g:.8f} vs {w:.8f} (rel {abs(g - w) / abs(w):.3e}, rtol {rtol:g})"
+                     for k, (g, w) in out.items()) + gap, flush=True)
+    return {k: dict(card=g, cpu=w, rtol=rtol) for k, (g, w) in out.items()}
 
 
 def tf_train_phase(card: str) -> dict:
@@ -846,7 +906,7 @@ def tf_train_phase(card: str) -> dict:
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import attention as A
 
-    reference = tf_reference_check()
+    reference = {dt: tf_reference_check(dt) for dt in ("float32", "bfloat16")}
     cfg = Config.from_dict(TF_TRAIN_CFG)
     _family, state, train_step = get_algo("PPO").build(
         cfg, torch.Generator().manual_seed(0), device="cuda"
@@ -1128,7 +1188,8 @@ def main() -> None:
         kernels.append(dict(
             name=name,
             route="cuda",
-            source=f"tpu_rl_torch/csrc/{name}.cu",
+            # the bf16 main path's tensor-core kernel; f32 takes csrc/{name}.cu
+            source=f"tpu_rl_torch/csrc/{name.replace('flash_attn', 'flash_attn_tc')}.cu",
             replaces="tpu_rl/parallel/sequence.py:608",
             launches=tf_training[f"{name}_launches"],
             max_abs_err=max(x["errs"][e] for x in attn_rows for e in errs),
@@ -1140,8 +1201,12 @@ def main() -> None:
             # as a boolean attn_mask (forward; or the backward of its graph)
             library_ms=r["library_ms"],
             at=attn_main["shape"],
+            tiles_visited=attn_main["tiles_visited"],
+            tiles_causal=attn_main["tiles_causal"],
+            plan_ms=attn_main["plan_ms"],
             card=card,
-            shapes=[dict(shape=x["shape"], checks=x["checks"], **x[name])
+            shapes=[dict(shape=x["shape"], checks=x["checks"], tiles_visited=x["tiles_visited"],
+                         tiles_causal=x["tiles_causal"], **x[name])
                     for x in attn_rows],
         ))
     print(json.dumps({"training": training, "learning": {

@@ -102,7 +102,7 @@ def test_program_step_matches_tpu_rl_standalone_train_step(monkeypatch):
 
     loop = ColocatedLoop(Config(**_kw(time_horizon=4)), device="cpu")
     state = train_state_from_flax(jax.device_get(jstate))
-    batch = Batch.from_mapping({f: np.array(getattr(jbatch, f)) for f in BATCH_FIELDS})
+    batch = Batch.from_mapping({f: np.array(getattr(jbatch, f)) for f in BATCH_FIELDS}, device="cpu")
     done = torch.from_numpy(np.array(jdone))
     ep_ret = torch.from_numpy(np.array(jret))
     monkeypatch.setattr(loop, "rollout", lambda params, carry, generator=None: (carry, batch, done, ep_ret))

@@ -182,7 +182,7 @@ def _setup_step(k_epoch, nan_logp=False):
     batch_np = _batch_np(jcfg, 21)
     if nan_logp:
         batch_np["log_prob"][0, 0, 0] = np.nan
-    return jstate, jstep, JaxBatch.from_mapping(batch_np), train_state_from_flax(jstate), step, Batch.from_mapping(batch_np)
+    return jstate, jstep, JaxBatch.from_mapping(batch_np), train_state_from_flax(jstate), step, Batch.from_mapping(batch_np, device="cpu")
 
 
 def _assert_states_close(state, jstate):

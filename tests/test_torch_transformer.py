@@ -190,7 +190,7 @@ def test_train_step_matches_tpu_rl(impl, k_epoch):
     _f, _s, step = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cpu")
     state = train_state_from_flax(jstate)
     assert "block0.ln1.weight" in state.opt_state["nu"]["actor"]
-    new, metrics = step(state, Batch.from_mapping(batch_np))
+    new, metrics = step(state, Batch.from_mapping(batch_np, device="cpu"))
     _assert_metrics_close(metrics, jax.device_get(jmetrics))
     _assert_states_close(new, jax.device_get(jnew))
     assert float(metrics["nonfinite-updates"]) == 0.0
@@ -234,7 +234,7 @@ def test_colocated_program_matches_tpu_rl(monkeypatch):
 
     loop = ColocatedLoop(Config(**COLOCATED), device="cpu")
     state = train_state_from_flax(jax.device_get(jstate))
-    batch = Batch.from_mapping({f: np.array(getattr(jbatch, f)) for f in BATCH_FIELDS})
+    batch = Batch.from_mapping({f: np.array(getattr(jbatch, f)) for f in BATCH_FIELDS}, device="cpu")
     done, ep_ret = torch.from_numpy(np.array(jdone)), torch.from_numpy(np.array(jret))
     monkeypatch.setattr(loop, "rollout", lambda params, carry, generator=None: (carry, batch, done, ep_ret))
     new, _carry, stats, metrics = loop.program(state, loop.init_carry(), loop.init_stats())

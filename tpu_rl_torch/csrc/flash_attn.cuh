@@ -1,6 +1,7 @@
-// Tiles, loads and the two tile products shared by the forward
+// Tiles, loads and the two tile products shared by the float32 forward
 // (flash_attn_fwd.cu) and backward (flash_attn_bwd.cu) kernels of B4, the
-// causal, segment-masked flash attention.
+// causal, segment-masked flash attention, on the CUDA cores. (bf16 inputs
+// take the tensor-core kernels, flash_attn_tc.cuh.)
 //
 // A block runs kThreads = 256 threads as a 16 x 16 grid (ty, tx). Every
 // tile is kTile = 64 rows; the thread owns rows ty + 16*i (i < 4) and
@@ -9,11 +10,10 @@
 // sixteen neighbouring rows or columns of the other. Tiles live in shared
 // memory as f32 with a row pitch of D + 1 (or kTile + 1) floats: rows ty and
 // ty + 1 then fall into different banks, and so do the sixteen rows tx.
-// All arithmetic is f32, whatever the type loaded (float or bf16).
+// All arithmetic is plain f32 FMAs.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -25,29 +25,17 @@ constexpr int kThreads = 256;    // 16 x 16 threads
 constexpr int kPitchP = kTile + 1;
 constexpr float kNegInf = -1e30f;  // tpu_rl's finite -inf (_NEG_INF)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Rows t0 .. t0 + kTile - 1 of one (batch row, head) of x into a kTile x
-// (D + 1) f32 tile. ``base`` points at (b, t = 0, h, d = 0); rows are ``st``
+// (D + 1) tile. ``base`` points at (b, t = 0, h, d = 0); rows are ``st``
 // elements apart and d is dense. Rows at or past T are zeros, so that a
 // masked entry's 0 weight never meets a NaN left in shared memory.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ base, long long st,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ base, long long st,
                                           int t0, int T_len) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, c = e - (e / D) * D;
     const int t = t0 + r;
-    dst[r * (D + 1) + c] = t < T_len ? to_f32(base[(long long)t * st + c]) : 0.0f;
+    dst[r * (D + 1) + c] = t < T_len ? base[(long long)t * st + c] : 0.0f;
   }
 }
 

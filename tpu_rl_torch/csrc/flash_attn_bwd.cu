@@ -1,5 +1,6 @@
-// Flash attention, backward (kernel B4), causal and segment-masked, f32 or
-// bf16 in, f32 arithmetic, for sm_90a.
+// Flash attention, backward (kernel B4), causal and segment-masked, float32
+// in, f32 arithmetic on the CUDA cores, for sm_90a. (bf16 inputs take the
+// tensor-core kernels, flash_attn_tc_bwd.cu.)
 //
 // Replaces: the backward of tpu_rl/parallel/sequence.py, flash_attention_tpu
 // (the custom VJP of JAX's Pallas TPU flash-attention kernel). From the
@@ -14,13 +15,12 @@
 //   dq_i    = sum_j ds_ij k_j          dk_j = sum_i ds_ij q_i
 //
 // as tpu_rl's own flash backward (_ring_vjp_bwd) recomputes it. dq, dk, dv
-// come back contiguous in the input type.
+// come back contiguous.
 //
-// What bounds it on an H100. At (16,2048,8,64) bf16 it reads q, k, v, o, do
-// (33.6 MB each), lse and seg and writes dq, dk, dv: ~270 MB, ~0.08 ms at
-// 3.35 TB/s. Under the causal mask it does 5*B*H*T^2*D = 172 GFLOP (five
-// products of half the scores: s and dp twice, dv, dq, dk), ~0.17 ms at the
-// 989 TFLOP/s bf16 peak: bound by operations.
+// What bounds it on an H100. At (2,2048,8,64) f32 it reads q, k, v, o, do,
+// lse and seg and writes dq, dk, dv: ~68 MB, ~0.02 ms at 3.35 TB/s. Under
+// the causal mask it does 5*B*H*T^2*D = 21 GFLOP (five products of half the
+// scores), ~0.32 ms at the 67 TFLOP/s f32 peak: bound by operations.
 //
 // What this first design does about it. Simple and exact, plain f32 FMAs on
 // the CUDA cores, as the forward. Three launches and no atomics, so the sums
@@ -42,17 +42,18 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
+                float* __restrict__ delta,
                 int T_len, int H, long long rows) {
   const long long row = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;  // whole warps leave together
-  const T* orow = o + row * D;
-  const T* drow = dout + row * D;
+  const float* orow = o + row * D;
+  const float* drow = dout + row * D;
   float sum = 0.0f;
-  for (int d = lane; d < D; d += 32) sum = fmaf(to_f32(drow[d]), to_f32(orow[d]), sum);
+  for (int d = lane; d < D; d += 32) sum = fmaf(drow[d], orow[d], sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) {
@@ -76,12 +77,12 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* delta_s,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const int* __restrict__ seg, const float* __restrict__ lse,
-               const float* __restrict__ delta, const T* __restrict__ dout, T* __restrict__ dk,
-               T* __restrict__ dv, int T_len, int H, long long sb, long long st, float scale) {
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ seg,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv, int T_len, int H, long long sb, long long st, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;                       // kTile x (D+1)
   float* Vs = Ks + kTile * (D + 1);
@@ -106,8 +107,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const float* lse_bh = lse + ((long long)b * H + h) * T_len;
   const float* delta_bh = delta + ((long long)b * H + h) * T_len;
 
-  load_tile<T, D>(Ks, k + base, st, k0, T_len);
-  load_tile<T, D>(Vs, v + base, st, k0, T_len);
+  load_tile<D>(Ks, k + base, st, k0, T_len);
+  load_tile<D>(Vs, v + base, st, k0, T_len);
   load_seg(seg_k, seg_b, k0, T_len);
 
   float dk_acc[4][D / 16], dv_acc[4][D / 16];
@@ -118,8 +119,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   for (int qt = kt; qt < n_tiles; ++qt) {
     const int q0 = qt * kTile;
-    load_tile<T, D>(Qs, q + base, st, q0, T_len);
-    load_tile<T, D>(dOs, dout + dense_base, dense_st, q0, T_len);
+    load_tile<D>(Qs, q + base, st, q0, T_len);
+    load_tile<D>(dOs, dout + dense_base, dense_st, q0, T_len);
     load_seg(seg_q, seg_b, q0, T_len);
     load_stats(lse_s, delta_s, lse_bh, delta_bh, q0, T_len);
     __syncthreads();
@@ -154,17 +155,18 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const long long off = dense_base + (long long)t * dense_st;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dk[off + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[off + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+      dk[off + tx + 16 * j] = dk_acc[i][j];
+      dv[off + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const int* __restrict__ seg, const float* __restrict__ lse,
-             const float* __restrict__ delta, const T* __restrict__ dout, T* __restrict__ dq,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ seg,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const float* __restrict__ dout, float* __restrict__ dq,
              int T_len, int H, long long sb, long long st, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // kTile x (D+1)
@@ -186,8 +188,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const long long dense_st = (long long)H * D;
   const int* seg_b = seg + (long long)b * T_len;
 
-  load_tile<T, D>(Qs, q + base, st, q0, T_len);
-  load_tile<T, D>(dOs, dout + dense_base, dense_st, q0, T_len);
+  load_tile<D>(Qs, q + base, st, q0, T_len);
+  load_tile<D>(dOs, dout + dense_base, dense_st, q0, T_len);
   load_seg(seg_q, seg_b, q0, T_len);
   load_stats(lse_s, delta_s, lse + ((long long)b * H + h) * T_len,
              delta + ((long long)b * H + h) * T_len, q0, T_len);
@@ -200,8 +202,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kTile;
-    load_tile<T, D>(Ks, k + base, st, k0, T_len);
-    load_tile<T, D>(Vs, v + base, st, k0, T_len);
+    load_tile<D>(Ks, k + base, st, k0, T_len);
+    load_tile<D>(Vs, v + base, st, k0, T_len);
     load_seg(seg_k, seg_b, k0, T_len);
     __syncthreads();
 
@@ -232,18 +234,18 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     if (t >= T_len) continue;
     const long long off = dense_base + (long long)t * dense_st;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) dq[off + tx + 16 * j] = from_f32<T>(dq_acc[i][j]);
+    for (int j = 0; j < D / 16; ++j) dq[off + tx + 16 * j] = dq_acc[i][j];
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* seg, const void* o,
            const void* lse, const void* dout, void* delta, void* dq, void* dk, void* dv, int B,
            int T_len, int H, long long sb, long long st, float scale, cudaStream_t stream) {
   const long long rows = (long long)B * T_len * H;
   const int warps = kThreads / 32;
-  flash_bwd_delta<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), T_len,
+  flash_bwd_delta<D><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), static_cast<float*>(delta), T_len,
       H, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -253,60 +255,50 @@ int launch(const void* q, const void* k, const void* v, const void* seg, const v
   const size_t stats = sizeof(float) * 2 * kTile + sizeof(int) * 2 * kTile;
   const size_t smem_dkdv =
       sizeof(float) * (4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kPitchP) + stats;
-  err = allow_smem(flash_bwd_dkdv<T, D>, smem_dkdv);
+  err = allow_smem(flash_bwd_dkdv<D>, smem_dkdv);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv<T, D><<<grid, kThreads, smem_dkdv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_bwd_dkdv<D><<<grid, kThreads, smem_dkdv, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(seg), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const T*>(dout), static_cast<T*>(dk),
-      static_cast<T*>(dv), T_len, H, sb, st, scale);
+      static_cast<const float*>(delta), static_cast<const float*>(dout), static_cast<float*>(dk),
+      static_cast<float*>(dv), T_len, H, sb, st, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem_dq =
       sizeof(float) * (4 * (size_t)kTile * (D + 1) + (size_t)kTile * kPitchP) + stats;
-  err = allow_smem(flash_bwd_dq<T, D>, smem_dq);
+  err = allow_smem(flash_bwd_dq<D>, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq<T, D><<<grid, kThreads, smem_dq, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_bwd_dq<D><<<grid, kThreads, smem_dq, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(seg), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const T*>(dout), static_cast<T*>(dq), T_len,
+      static_cast<const float*>(delta), static_cast<const float*>(dout), static_cast<float*>(dq), T_len,
       H, sb, st, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, const void* seg, const void* o,
-             const void* lse, const void* dout, void* delta, void* dq, void* dk, void* dv, int B,
-             int T_len, int H, long long sb, long long st, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, seg, o, lse, dout, delta, dq, dk, dv, B, T_len, H, sb, st,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, seg, o, lse, dout, delta, dq, dk, dv, B, T_len, H, sb, st,
-                           scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes: every pointer and the stream are void*.
-// q, k, v share the element strides sb and st; seg, o, lse, do, the f32
-// scratch delta (B,H,T) and the outputs dq, dk, dv are contiguous. Launches
-// the three kernels in order on ``stream``. Returns the first launch error
-// (0 = all launched), or cudaErrorInvalidValue for an unbuilt head width.
+// q, k, v (float32) share the element strides sb and st; seg, o, lse, do,
+// the f32 scratch delta (B,H,T) and the outputs dq, dk, dv are contiguous.
+// Launches the three kernels in order on ``stream``. Returns the first
+// launch error (0 = all launched), or cudaErrorInvalidValue for an unbuilt
+// head width.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                                      const void* seg, const void* o, const void* lse,
                                      const void* dout, void* delta, void* dq, void* dk, void* dv,
                                      int B, int T_len, int H, int D, long long sb, long long st,
-                                     float scale, int is_bf16, void* stream) {
+                                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, seg, o, lse, dout, delta, dq, dk, dv, B, T_len,
-                                   H, sb, st, scale, s);
-  return launch_d<float>(D, q, k, v, seg, o, lse, dout, delta, dq, dk, dv, B, T_len, H, sb, st,
-                         scale, s);
+  switch (D) {
+    case 32:
+      return launch<32>(q, k, v, seg, o, lse, dout, delta, dq, dk, dv, B, T_len, H, sb, st,
+                        scale, s);
+    case 64:
+      return launch<64>(q, k, v, seg, o, lse, dout, delta, dq, dk, dv, B, T_len, H, sb, st,
+                        scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,5 +1,7 @@
-// Flash attention, forward (kernel B4), causal and segment-masked, f32 or
-// bf16 in, f32 arithmetic, for sm_90a.
+// Flash attention, forward (kernel B4), causal and segment-masked, float32
+// in, f32 arithmetic on the CUDA cores, for sm_90a. (bf16 inputs take the
+// tensor-core kernel, flash_attn_tc_fwd.cu: TF32 products would miss the
+// f32 path's 2e-5 bar.)
 //
 // Replaces: tpu_rl/parallel/sequence.py, flash_attention_tpu (the Pallas TPU
 // flash-attention kernel that ships with JAX, called with SegmentIds and
@@ -11,18 +13,15 @@
 //
 // q, k, v are (B,T,H,D) in tpu_rl's layout, read in place: they may be
 // strided views (q = qkv[:, :, 0] has rows 3*H*D apart), with d dense and
-// heads D apart; the three share their strides. o is (B,T,H,D) contiguous,
-// rounded to the input type (__float2bfloat16_rn for bf16).
+// heads D apart; the three share their strides. o is (B,T,H,D) contiguous.
 //
-// What bounds it on an H100. At the main path's (16,2048,8,64) bf16 it moves
-// ~135 MB (q, k, v and o 33.6 MB each, seg, lse), ~0.04 ms at 3.35 TB/s, and
-// does 2*B*H*T^2*D = 68.7 GFLOP under the causal mask (two products of half
-// the T x T scores), ~0.07 ms at the 989 TFLOP/s bf16 tensor-core peak:
-// bound by operations.
+// What bounds it on an H100. At (2,2048,8,64) f32 it moves ~34 MB (q, k, v,
+// o, seg, lse), ~0.01 ms at 3.35 TB/s, and does 2*B*H*T^2*D = 8.6 GFLOP
+// under the causal mask (two products of half the T x T scores), ~0.13 ms
+// at the 67 TFLOP/s f32 peak: bound by operations.
 //
 // What this first design does about it. It is simple and exact rather than
-// fast: plain f32 FMAs on the CUDA cores, no tensor cores (mma/wgmma), no
-// TMA, no pipelining, so ~1 ms is its f32 floor at that shape. One block
+// fast: plain f32 FMAs on the CUDA cores, no TMA, no pipelining. One block
 // per (query tile of 64 rows, h, b); the block walks the key/value tiles up
 // to the diagonal and skips the tiles that causality masks entirely. Q, the
 // current K and V tiles and the tile's probabilities sit in shared memory as
@@ -38,11 +37,12 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, T* __restrict__ o, float* __restrict__ lse,
-                 int T_len, int H, long long sb, long long st, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ seg,
+                 float* __restrict__ o, float* __restrict__ lse, int T_len, int H, long long sb,
+                 long long st, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // kTile x (D+1)
   float* Ks = Qs + kTile * (D + 1);       // kTile x (D+1)
@@ -58,7 +58,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const long long base = (long long)b * sb + (long long)h * D;
   const int* seg_b = seg + (long long)b * T_len;
 
-  load_tile<T, D>(Qs, q + base, st, q0, T_len);
+  load_tile<D>(Qs, q + base, st, q0, T_len);
   load_seg(seg_q, seg_b, q0, T_len);
 
   float m[4], l[4], acc[4][D / 16];
@@ -72,8 +72,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kTile;
-    load_tile<T, D>(Ks, k + base, st, k0, T_len);
-    load_tile<T, D>(Vs, v + base, st, k0, T_len);
+    load_tile<D>(Ks, k + base, st, k0, T_len);
+    load_tile<D>(Vs, v + base, st, k0, T_len);
     load_seg(seg_k, seg_b, k0, T_len);
     __syncthreads();
 
@@ -120,53 +120,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int t = q0 + ty + 16 * i;
     if (t >= T_len) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * T_len + t) * H + h) * D;
+    float* orow = o + (((long long)b * T_len + t) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / li);
+    for (int j = 0; j < D / 16; ++j) orow[tx + 16 * j] = acc[i][j] / li;
     if (tx == 0) lse[((long long)b * H + h) * T_len + t] = m[i] + logf(li);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
            int B, int T_len, int H, long long sb, long long st, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (3 * (size_t)kTile * (D + 1) + (size_t)kTile * kPitchP) +
       sizeof(int) * 2 * kTile;
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + kTile - 1) / kTile, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(seg), static_cast<T*>(o), static_cast<float*>(lse), T_len, H, sb,
-      st, scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(seg), static_cast<float*>(o), static_cast<float*>(lse), T_len, H,
+      sb, st, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, const void* seg, void* o,
-             void* lse, int B, int T_len, int H, long long sb, long long st, float scale,
-             cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, seg, o, lse, B, T_len, H, sb, st, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, seg, o, lse, B, T_len, H, sb, st, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes: every pointer and the stream are void*.
-// q, k, v share the element strides sb (batch) and st (time); seg (B,T)
-// int32, o (B,T,H,D) and lse (B,H,T) f32 are contiguous. is_bf16 selects
-// the load type. Returns cudaGetLastError() after the launch (0 = launched),
-// or cudaErrorInvalidValue for a head width it was not built for.
+// q, k, v (float32) share the element strides sb (batch) and st (time); seg
+// (B,T) int32, o (B,T,H,D) and lse (B,H,T) f32 are contiguous. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a head width it was not built for.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
                                      const void* seg, void* o, void* lse, int B, int T_len,
                                      int H, int D, long long sb, long long st, float scale,
-                                     int is_bf16, void* stream) {
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, seg, o, lse, B, T_len, H, sb, st, scale, s);
-  return launch_d<float>(D, q, k, v, seg, o, lse, B, T_len, H, sb, st, scale, s);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, seg, o, lse, B, T_len, H, sb, st, scale, s);
+    case 64: return launch<64>(q, k, v, seg, o, lse, B, T_len, H, sb, st, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

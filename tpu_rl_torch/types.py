@@ -7,6 +7,8 @@ from typing import Any, Mapping
 
 import torch
 
+from tpu_rl_torch import resolve_device
+
 # The eight per-step fields of a training batch, in canonical order.
 BATCH_FIELDS = ("obs", "act", "rew", "logits", "log_prob", "is_fir", "hx", "cx")
 
@@ -61,11 +63,13 @@ class Batch:
 
     @classmethod
     def from_mapping(
-        cls, m: Mapping[str, Any], device: str | torch.device = "cpu"
+        cls, m: Mapping[str, Any], device: str | torch.device = "cuda"
     ) -> "Batch":
         """Float32 copies of ``m``'s fields (numpy arrays or tensors) on
-        ``device``."""
+        ``device``: the card unless the caller passes ``device="cpu"``, as
+        ``tpu_rl``'s ``jnp.asarray`` puts a batch on the accelerator."""
+        dev = resolve_device(device)
         return cls(**{
-            k: torch.as_tensor(m[k]).to(device=device, dtype=torch.float32, copy=True)
+            k: torch.as_tensor(m[k]).to(device=dev, dtype=torch.float32, copy=True)
             for k in BATCH_FIELDS
         })
