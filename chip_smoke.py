@@ -14,15 +14,23 @@ its plain PyTorch version:
 2. build: every ``tpu_rl_torch/csrc/*.cu`` with nvcc (``kernels/build.py``),
    printing ptxas's registers and spill stores for every kernel instance;
 3. kernel vs plain: the fused act kernel at the serving ladder, ragged row
-   counts, the default model and the wide model, on seeded inputs and the
-   port's own init with seeded nonzero biases; per shape the max abs error, the kernel's, the plain
-   version's and the unfused act's (``family.act``) times, and the bound;
+   counts, the default model, the wide model and two edge widths (ragged
+   unit slices; H not a multiple of 4), on seeded inputs and the
+   port's own init with seeded nonzero biases; per shape the launch plan
+   (``ops.fused_act.act_launch_plan``: rows and units per block, cluster
+   size, and how many such clusters the card holds at once), the max abs
+   error, the kernel's, the plain version's and the unfused act's
+   (``family.act``) times, and the bound;
 4. serving: an ``InferenceService`` (IMPALA ``DiscreteActorCritic``,
    H=256, A=2, inference_batch=256, buckets 8..256, the fused kernel) over
    an in-process ``LocalRouter``, under 2 clients x 4 envs x 1000 acts and
    64 clients x 4 envs x 100 acts; asserts every request is answered, the
    kernel ran exactly once per warm-up and per flush, the carry persists on
-   the server and a parameter swap is served with its version;
+   the server and a parameter swap is served with its version, and B3 ran
+   once per warm-up and flush at each bucket (counted in the wrapper); then
+   the same run again under the profiler, for B3's device time per serving
+   run (beside an estimate: each bucket's kernel-phase time x its
+   launches);
 5. LSTM kernels vs plain: B1 (``lstm_fwd``) and B2 (``lstm_bwd``) at
    (B,S,H) = (128,5,64) the training path, (32,5,64) the learning run,
    (100,5,64) ragged, (256,16,256) and (1024,16,1024), on seeded inputs with
@@ -159,6 +167,9 @@ SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
 RAGGED = [(b, 4, 256, 2) for b in (1, 3, 100)]
 DEFAULT_MODEL = [(b, 4, 64, 2) for b in (8, 128)]
 WIDE_MODEL = [(256, 64, 1024, 8)]
+# Beside those: H=100 (13 unit slices, the last of 4 units) and H=50 (not a
+# multiple of 4: the kernel's 4-byte-copy path; the last slice of 2 units).
+EDGE = [(8, 4, 100, 3), (3, 6, 50, 5)]
 
 
 def fail(msg: str) -> None:
@@ -236,7 +247,7 @@ def kernel_phase() -> list[dict]:
     from tpu_rl_torch.ops import fused_act as FA
 
     rows = []
-    for B, D, H, A in SERVING_LADDER + RAGGED + DEFAULT_MODEL + WIDE_MODEL:
+    for B, D, H, A in SERVING_LADDER + RAGGED + DEFAULT_MODEL + WIDE_MODEL + EDGE:
         cfg = Config.from_dict({"hidden_size": H, "obs_shape": (D,), "action_space": A})
         family = build_family(cfg, device="cuda")
         params = seeded_params(family, 0)
@@ -261,12 +272,27 @@ def kernel_phase() -> list[dict]:
         # the service's whole act step: the kernel, then sampling and log-prob
         act_ms = device_ms(lambda: fused_act(params, obs, h, c, gen))
         bound_ms, bound_by = bound(B, D, H, A)
+        plan = FA.act_launch_plan(B, D, H, A)
+        plan_d = dict(
+            rows=plan.rows, units=plan.units, cluster=plan.cluster, row_tiles=plan.row_tiles,
+            tm=plan.tm, ksplit=plan.ksplit, stages=plan.stages, threads=plan.threads,
+            smem=plan.smem, tma=plan.tma, push=plan.push,
+            max_active_clusters=FA.max_active_clusters(plan),
+        )
         row = dict(
             shape=dict(rows=B, D=D, H=H, A=A), max_abs_err=err, tol=tol,
             kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms, act_ms=act_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, plan=plan_d,
         )
         rows.append(row)
+        print(
+            f"fused_act plan rows={B} D={D} H={H} A={A}: {plan.row_tiles} tiles of "
+            f"R={plan.rows} rows x cluster of {plan.cluster} blocks of U={plan.units} units "
+            f"({plan.blocks} blocks, {plan.threads} threads, tm={plan.tm}, ksplit={plan.ksplit}, "
+            f"{plan.stages} stages, {plan.smem} B shared, tma={plan.tma}, push={plan.push}); "
+            f"card holds {plan_d['max_active_clusters']} such clusters at once",
+            flush=True,
+        )
         print(
             f"fused_act rows={B} D={D} H={H} A={A}: max_abs_err={err:.3e} (tol {tol:g}) "
             f"kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
@@ -341,10 +367,13 @@ def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
     )
 
 
-def serve_phase(device: str = "cuda") -> dict:
+def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
     """The main path: an InferenceService on ``device`` over a LocalRouter.
     Returns the traffic results, the fused kernel's launch count over the
-    whole run and the service's counters."""
+    whole run, in all and by row count, and the service's counters. With
+    ``profile`` the run goes under the profiler (device activity only), and
+    B3's device time over the run is read from its kernel records; the
+    profiler slows the host, so the timed run goes without it."""
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.models.families import build_family
     from tpu_rl_torch.ops import fused_act as FA
@@ -359,7 +388,19 @@ def serve_phase(device: str = "cuda") -> dict:
 
     # A window that holds every flush of a mix, for the mean flush time.
     timer = ExecutionTimer(window=1_000_000)
+    # B3's device time over the whole run: warm-ups, both mixes, the probe.
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        except (RuntimeError, AttributeError) as e:
+            print(f"serving profile: not measured ({e!r})", flush=True)
+            prof = None
     FA.LAUNCHES = 0  # every launch from here on is the main path's
+    FA.LAUNCHES_BY_ROWS.clear()
     svc = InferenceService(cfg, family, params, router, timer, seed=0, device=device).start()
     try:
         if not svc.wait_ready(300.0) or svc.error is not None:
@@ -409,16 +450,84 @@ def serve_phase(device: str = "cuda") -> dict:
             fail(f"swapped policy's logits differ from the plain version by {swap_err}")
     finally:
         svc.close()
-    launches = FA.LAUNCHES
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
+    launches, by_rows = FA.LAUNCHES, dict(sorted(FA.LAUNCHES_BY_ROWS.items()))
     if svc.error is not None:
         fail(f"inference service died: {svc.error!r}")
+    b3_ms = b3_records = None
+    if prof is not None:
+        b3 = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "fused_act_kernel" in e.key]
+        if b3:
+            b3_ms = sum(e.self_device_time_total for e in b3) / 1e3
+            b3_records = sum(e.count for e in b3)
     return dict(
-        mixes=mixes, launches=launches, warmups=len(svc.buckets), flushes=svc.n_batches,
+        mixes=mixes, launches=launches, launches_by_rows=by_rows, b3_device_ms=b3_ms,
+        b3_kernel_records=b3_records, warmups=len(svc.buckets), flushes=svc.n_batches,
         buckets=svc.buckets, n_flush_bucket=dict(sorted(svc.n_flush_bucket.items())),
         n_requests=svc.n_requests, n_replies=svc.n_replies,
         n_flush_full=svc.n_flush_full, n_flush_deadline=svc.n_flush_deadline,
         n_rejected_payload=svc.n_rejected_payload, carry_err=carry_err, swap_err=swap_err,
     )
+
+def serving_checks(serving: dict, tag: str, card: str) -> None:
+    """Print one serving run and fail unless every request was answered
+    with a well-formed reply and B3 launched once per warm-up and flush, at
+    each bucket (counted where the wrapper launches)."""
+    for mix in serving["mixes"]:
+        print(
+            f"{tag} {mix['clients']} clients x {mix['envs']} envs x {mix['acts']} acts: "
+            f"acts/s={mix['acts_per_s']:.1f} p50_ms={mix['p50_ms']:.4f} "
+            f"p99_ms={mix['p99_ms']:.4f} flush_ms={mix['flush_ms']:.4f} "
+            f"flush_rows={mix['flush_rows']:.1f} client_failures={mix['client_failures']} "
+            f"bad_replies={mix['bad_replies']} [{card}]",
+            flush=True,
+        )
+    print(
+        f"{tag} flushes per bucket {serving['n_flush_bucket']} "
+        f"(full {serving['n_flush_full']}, deadline {serving['n_flush_deadline']}); "
+        f"requests {serving['n_requests']} replies {serving['n_replies']}; "
+        f"fused_act launches {serving['launches']} = warm-ups {serving['warmups']} "
+        f"+ flushes {serving['flushes']}, by bucket {serving['launches_by_rows']}; "
+        f"carry err {serving['carry_err']:.3e}, swap err {serving['swap_err']:.3e}",
+        flush=True,
+    )
+    for mix in serving["mixes"]:
+        if mix["client_failures"] or mix["bad_replies"]:
+            fail(f"{tag} mix {mix}: requests unanswered or replies malformed")
+    if serving["n_replies"] != serving["n_requests"] or serving["n_rejected_payload"]:
+        fail(f"{tag}: replies {serving['n_replies']} != requests {serving['n_requests']}")
+    if serving["launches"] != serving["warmups"] + serving["flushes"]:
+        fail(f"{tag}: fused_act.LAUNCHES is not warm-ups plus flushes")
+    if serving["launches"] == 0:
+        fail(f"{tag}: the main path never launched the fused act kernel")
+    by_rows = serving["launches_by_rows"]
+    for rows in serving["buckets"]:
+        if by_rows.get(rows, 0) != serving["n_flush_bucket"].get(rows, 0) + 1:
+            fail(f"{tag}: bucket {rows}: {by_rows.get(rows, 0)} B3 launches, want its "
+                 "flushes + 1 warm-up")
+    if set(by_rows) - set(serving["buckets"]):
+        fail(f"{tag}: B3 launched at row counts that are not buckets: {by_rows}")
+
+
+def serving_b3_time(shapes: list[dict], profiled: dict, card: str) -> None:
+    """B3's device time over the profiled serving run, beside an estimate:
+    each bucket's kernel-phase time x that bucket's launches."""
+    ladder = {r["shape"]["rows"]: r["kernel_ms"] for r in shapes
+              if r["shape"]["H"] == 256 and r["shape"]["D"] == 4}
+    estimate = sum(n * ladder[rows] for rows, n in profiled["launches_by_rows"].items())
+    if profiled["b3_device_ms"] is None:
+        print(f"serving B3 device time: not measured (estimate {estimate:.6f} ms)", flush=True)
+        return
+    if profiled["b3_kernel_records"] != profiled["launches"]:
+        fail(f"the profiler saw {profiled['b3_kernel_records']} B3 kernels, the wrapper "
+             f"counted {profiled['launches']} launches")
+    print(f"serving B3 device time: {profiled['b3_device_ms']:.6f} ms over "
+          f"{profiled['b3_kernel_records']} kernels (profiled run; estimate from the kernel "
+          f"phase {estimate:.6f} ms) [{card}]", flush=True)
+
 
 # ------------------------------------------------------------ LSTM kernels
 def lstm_bounds(B: int, S: int, H: int) -> dict:
@@ -1099,33 +1208,10 @@ def main() -> None:
 
     shapes = kernel_phase()
     serving = serve_phase()
-    for mix in serving["mixes"]:
-        print(
-            f"serving {mix['clients']} clients x {mix['envs']} envs x {mix['acts']} acts: "
-            f"acts/s={mix['acts_per_s']:.1f} p50_ms={mix['p50_ms']:.4f} "
-            f"p99_ms={mix['p99_ms']:.4f} flush_ms={mix['flush_ms']:.4f} "
-            f"flush_rows={mix['flush_rows']:.1f} client_failures={mix['client_failures']} "
-            f"bad_replies={mix['bad_replies']} [{card}]",
-            flush=True,
-        )
-    print(
-        f"serving flushes per bucket {serving['n_flush_bucket']} "
-        f"(full {serving['n_flush_full']}, deadline {serving['n_flush_deadline']}); "
-        f"requests {serving['n_requests']} replies {serving['n_replies']}; "
-        f"fused_act launches {serving['launches']} = warm-ups {serving['warmups']} "
-        f"+ flushes {serving['flushes']}; carry err {serving['carry_err']:.3e}, "
-        f"swap err {serving['swap_err']:.3e}",
-        flush=True,
-    )
-    for mix in serving["mixes"]:
-        if mix["client_failures"] or mix["bad_replies"]:
-            fail(f"serving mix {mix}: requests unanswered or replies malformed")
-    if serving["n_replies"] != serving["n_requests"] or serving["n_rejected_payload"]:
-        fail(f"replies {serving['n_replies']} != requests {serving['n_requests']}")
-    if serving["launches"] != serving["warmups"] + serving["flushes"]:
-        fail("fused_act.LAUNCHES is not warm-ups plus flushes")
-    if serving["launches"] == 0:
-        fail("the main path never launched the fused act kernel")
+    serving_checks(serving, "serving", card)
+    profiled = serve_phase(profile=True)
+    serving_checks(profiled, "serving (profiled)", card)
+    serving_b3_time(shapes, profiled, card)
 
     lstm_rows = lstm_phase()
     training = train_phase(card)
@@ -1136,6 +1222,7 @@ def main() -> None:
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
+    small = next(r for r in main_path if r["shape"]["rows"] == 8)
     kernels = [dict(
         name="fused_act",
         route="cuda",
@@ -1151,6 +1238,17 @@ def main() -> None:
         unfused_ms=top["unfused_ms"],
         act_ms=top["act_ms"],
         at=top["shape"],
+        # the 8-row bucket, where mix 1's deadline-bound flushes land
+        ms_8rows=small["kernel_ms"],
+        plain_ms_8rows=small["plain_ms"],
+        bound_ms_8rows=small["bound_ms"],
+        bound_by_8rows=small["bound_by"],
+        # counted where the wrapper launches; B3's device time over the
+        # profiled serving run and its launches (null if the profiler saw
+        # no kernel)
+        launches_by_bucket=serving["launches_by_rows"],
+        serving_device_ms=profiled["b3_device_ms"],
+        serving_device_launches=profiled["launches"],
         card=card,
         shapes=shapes,
     )]

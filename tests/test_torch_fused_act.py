@@ -3,7 +3,11 @@ the same numpy inputs: ``fused_act_step_plain`` against the Pallas kernel in
 interpret mode, and the port's ``family.act`` / fused act against tpu_rl's.
 Tolerance atol 1e-5 on logits, h2, c2 and log_prob (tpu_rl's own kernel
 parity bar, tests/test_pallas_act.py); actions must be equal under shared
-Gumbel noise. Plus the ``make_act_fn`` dispatch cases."""
+Gumbel noise. Plus the ``make_act_fn`` dispatch cases, the CUDA kernel's
+launch plan (``act_launch_plan``) at every shape tpu_rl's ``act_fits_vmem``
+admits, and a torch emulation of the kernel's arithmetic (unit slices,
+k-sliced f32 FMA chains in the kernel's order, the rank-ordered head)
+against the plain version and the Pallas kernel."""
 
 from dataclasses import replace
 
@@ -18,11 +22,14 @@ from tests.test_torch_bridge import with_random_biases
 from tpu_rl.models import cells as jax_cells
 from tpu_rl.models.families import build_family as jax_build_family
 from tpu_rl.ops.pallas_act import fused_act_step as jax_fused_act_step
+from tpu_rl.ops.pallas_act import act_fits_vmem
 from tpu_rl.ops.pallas_act import make_fused_act as jax_make_fused_act
 from tpu_rl_torch.bridge import flax_to_state_dict
 from tpu_rl_torch.config import Config
+from tpu_rl_torch.models.cells import lstm_gates
 from tpu_rl_torch.models.families import build_family
 from tpu_rl_torch.models.quant import make_act_fn
+from tpu_rl_torch.ops import fused_act as FA
 from tpu_rl_torch.ops.fused_act import fused_act_step, fused_act_step_plain, make_fused_act
 
 ATOL = 1e-5
@@ -147,3 +154,140 @@ class TestDispatch:
         want = fam.act(params, *_t(obs, h, c), torch.Generator().manual_seed(5))
         for g, w in zip(got, want, strict=True):
             np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+# ------------------------------------------------ the CUDA kernel's launch plan
+def _admitted(rows, D, H, A):
+    return act_fits_vmem(rows, D, H, A)
+
+
+def _check_plan(plan, B, H):
+    units = [u for sl in plan.slices(H) for u in sl]
+    assert units == list(range(H)), "every hidden unit exactly once"
+    assert len(plan.slices(H)) == plan.cluster and all(len(sl) > 0 for sl in plan.slices(H))
+    assert 1 <= plan.cluster <= FA.MAX_CLUSTER
+    assert plan.nonportable == (plan.cluster > FA.MAX_CLUSTER_PORTABLE)
+    assert plan.smem <= FA.SMEM_LIMIT and plan.threads <= FA.MAX_THREADS
+    assert plan.threads % 32 == 0 and plan.stages >= 2
+    assert plan.rows % plan.tm == 0 and plan.rows * plan.row_tiles >= B
+    assert (plan.rows // plan.tm) * plan.units * plan.ksplit <= plan.threads
+    assert FA.CHUNK % (4 * plan.ksplit) == 0
+    if plan.tma:
+        assert H % 4 == 0 and plan.units % 4 == 0
+
+
+@pytest.mark.parametrize("D,A", [(1, 2), (4, 2), (64, 8), (17, 33)])
+def test_act_launch_plan_fits_every_admitted_shape(D, A):
+    """Every (rows <= 256, H) that tpu_rl's act_fits_vmem admits gets a plan
+    the kernel can launch: units covered once, cluster <= 16 (non-portable
+    above 8), shared memory <= 227 KB, <= 256 threads; and more blocks work
+    than one per 8-row tile wherever H has 16 units to split."""
+    n_h = 0
+    for H in range(1, 1400):
+        for rows in (1, 3, 8, 100, 256):
+            if not _admitted(rows, D, H, A):
+                continue
+            n_h += 1
+            plan = FA.act_launch_plan(rows, D, H, A)
+            _check_plan(plan, rows, H)
+            if H >= 16:
+                assert plan.blocks > -(-rows // 8)
+    assert n_h > 4000
+
+
+@pytest.mark.parametrize("B,D,H,A", [(8, 4, 256, 2), (256, 4, 256, 2), (256, 64, 1024, 8)])
+def test_act_launch_plan_at_the_checked_shapes(B, D, H, A):
+    plan = FA.act_launch_plan(B, D, H, A)
+    _check_plan(plan, B, H)
+    if H == 256:  # the serving model: 16 slices of 16 units at 8 rows, 8 of 32 at 256
+        assert (plan.cluster, plan.units, plan.blocks) == ((16, 16, 16) if B == 8 else (8, 32, 64))
+
+
+@pytest.mark.parametrize("B,D,H,A", [(0, 4, 256, 2), (8, 0, 256, 2), (8, 4, 256, 0),
+                                     (8, 4, 2.5, 2), (8, 4, 8192, 2)])
+def test_act_launch_plan_refuses_with_a_named_error(B, D, H, A):
+    with pytest.raises(FA.ActPlanError):
+        FA.act_launch_plan(B, D, H, A)
+
+
+# ----------------------------------- a torch emulation of the kernel's arithmetic
+def _fma(a, b, c):
+    """f32 fused multiply-add: the product exact in float64, one rounding
+    to float32 (a double rounding may differ from fmaf by an ulp, rarely)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_kernel(p, obs, h, c, plan):
+    """``csrc/fused_act.cu``'s arithmetic on the CPU, in its order: the torso
+    per (row, unit) over d ascending; per gate column, ``plan.ksplit`` FMA
+    chains, chain s over k in [chunk*32 + s*kq, +kq) of every 32-deep chunk,
+    added in chain order; (x Wx^T + bx) + h Wh; each unit slice's share of
+    the logits as 32 lane chains (j = lane, lane + 32, ..) reduced by the
+    xor-shuffle tree; the slices added in rank order, then the bias and a
+    max-subtracted log-softmax summed over actions in order."""
+    B, D = obs.shape
+    H = h.shape[1]
+    wb, bb = p["body.weight"], p["body.bias"]
+    wx, bx = p["cell.x_proj.weight"], p["cell.x_proj.bias"]
+    wh, wl, bl = p["cell.recurrent_kernel"], p["logits.weight"], p["logits.bias"]
+    A = wl.shape[0]
+
+    acc = torch.zeros(B, H)
+    for d in range(D):
+        acc = _fma(obs[:, d, None], wb[None, :, d], acc)
+    x = torch.relu(acc + bb)
+
+    kq = FA.CHUNK // plan.ksplit
+    chains = [[k for k in range(H) if (k % FA.CHUNK) // kq == s] for s in range(plan.ksplit)]
+
+    def product(v, w_of_k):
+        total = None
+        for ks in chains:
+            z = torch.zeros(B, 4 * H)
+            for k in ks:
+                z = _fma(v[:, k, None], w_of_k(k)[None, :], z)
+            total = z if total is None else total + z
+        return total
+
+    zx = product(x, lambda k: wx[:, k])
+    zh = product(h, lambda k: wh[k, :])
+    z = (zx + bx) + zh
+    h2, c2 = lstm_gates(z, c)
+
+    raw = None
+    for sl in plan.slices(H):
+        lanes = torch.zeros(32, B, A)
+        for lane in range(32):
+            for j in list(sl)[lane::32]:
+                lanes[lane] = _fma(h2[:, j, None], wl[None, :, j], lanes[lane])
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[torch.arange(32) ^ off]
+        raw = lanes[0] if raw is None else raw + lanes[0]
+    raw = raw + bl
+    m = raw.max(dim=-1, keepdim=True).values
+    s = torch.zeros(B, 1)
+    for a in range(A):
+        s = s + torch.exp(raw[:, a:a + 1] - m)
+    return raw - (m + torch.log(s)), h2, c2
+
+
+# (hidden, obs_dim, actions, rows): the 8- and 256-row buckets of the serving
+# model, ragged rows, the default model's H=64, H=100 (13 slices of 8, the
+# last of 4 units) and H=50 (4-byte copies, the last slice of 2 units).
+EMULATED = [(256, 4, 2, 8), (256, 4, 2, 256), (256, 4, 2, 1), (256, 4, 2, 3), (256, 4, 2, 100),
+            (64, 4, 2, 8), (100, 4, 3, 8), (50, 6, 5, 3)]
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_kernel_emulation_matches_plain_and_pallas(shape):
+    hidden, obs_dim, actions, batch = shape
+    *_, jparams, _cfg, _fam, params, (obs, h, c) = _setup(hidden, obs_dim, actions, batch)
+    plan = FA.act_launch_plan(batch, obs_dim, hidden, actions)
+    if hidden == 100:
+        assert hidden % plan.units != 0
+    got = emulate_kernel(params["actor"], *_t(obs, h, c), plan)
+    plain = fused_act_step_plain(params["actor"], *_t(obs, h, c))
+    want = jax_fused_act_step(jparams["actor"], obs, h, c, interpret=True)
+    for g, pl_, w, name in zip(got, plain, want, ("logits", "h2", "c2"), strict=True):
+        np.testing.assert_allclose(g.numpy(), pl_.numpy(), atol=ATOL, rtol=0, err_msg=name)
+        _close(g, w, name)

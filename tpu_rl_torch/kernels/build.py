@@ -119,15 +119,17 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry ``<name>_launch`` of ``csrc/<name>.cu``, built on first
-    use, with ``argtypes`` set and an int return (the CUDA error, 0 =
-    launched). Pointers and the stream must be ``ctypes.c_void_p``: as an
-    int, ctypes would cut them to 32 bits."""
-    fn = _entries.get(name)
+def bind(name: str, argtypes: list, entry: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry ``entry`` (default ``<name>_launch``) of
+    ``csrc/<name>.cu``, built on first use, with ``argtypes`` set and an int
+    return (for a launch, the CUDA error, 0 = launched). Pointers and the
+    stream must be ``ctypes.c_void_p``: as an int, ctypes would cut them to
+    32 bits."""
+    entry = entry or f"{name}_launch"
+    fn = _entries.get(entry)
     if fn is None:
-        fn = getattr(load(name), f"{name}_launch")
+        fn = getattr(load(name), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _entries[name] = fn
+        _entries[entry] = fn
     return fn
