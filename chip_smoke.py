@@ -34,9 +34,13 @@ its plain PyTorch version:
 5. LSTM kernels vs plain: B1 (``lstm_fwd``) and B2 (``lstm_bwd``) at
    (B,S,H) = (128,5,64) the training path, (32,5,64) the learning run,
    (100,5,64) ragged, (256,16,256) and (1024,16,1024), on seeded inputs with
-   a keep mask that resets; per shape the max abs error of hs, cs, acts,
-   dxp, dh0, dc0 and of the whole autograd Function's dwh, the kernel's and
-   the plain version's times, and the bound;
+   a keep mask that resets; per shape the launch plan
+   (``ops.lstm.lstm_launch_plan``: regime, rows and units per block,
+   cluster, and how many such clusters the card holds), the max abs error
+   of hs, cs, acts, dxp, dh0, dc0 and of the whole autograd Function's
+   dwh, the kernel's and the plain version's times, the bound, the
+   Function's forward + backward beside the plain pair's, and cuDNN's LSTM
+   (no resets) as a yardstick;
 6. training: the default config (PPO, CartPole, H=64, S=5, 128 envs)
    through ``ColocatedLoop.program``, 5 warm-up then 200 timed updates:
    transitions/s, ms per update, its rollout/train split, the device busy
@@ -46,7 +50,12 @@ its plain PyTorch version:
    (batch 32, lr 3e-4, entropy 1e-3, seed 0) for 1800 updates, one line per
    200-update window; fails unless the best window's mean return is >= 60
    over >= 100 episodes;
-8. B4 (``flash_attn_fwd``/``flash_attn_bwd``: bf16 on the tensor-core
+8. wide LSTM training: ``get_algo("PPO").build`` and its train step at
+   bench.py's IMPALA@wide-lstm shape (1024 x 16, H=1024, obs 64, 8
+   actions, f32) on a seeded batch with resets, 2 warm-up then 5 timed
+   updates: ms per update, host enqueue and device time, B1 + B2's share of
+   device time, B1/B2 launch counts equal to updates x K_epoch;
+9. B4 (``flash_attn_fwd``/``flash_attn_bwd``: bf16 on the tensor-core
    kernels, f32 on the CUDA-core ones) vs plain: the main path's (B,T,H,D)
    = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32) bf16, bf16
    rows with long segments over many tiles, many seams on a ragged T, a
@@ -57,7 +66,7 @@ its plain PyTorch version:
    element by element) and the median |ref|, the kernels', the plain
    versions' and ``scaled_dot_product_attention``'s times (the same mask as
    a boolean attn_mask), and the bound;
-9. transformer training: small f32 and bf16 train steps on the card
+10. transformer training: small f32 and bf16 train steps on the card
    against the CPU's plain path (loss, grad norm), then
    ``get_algo("PPO").build`` at
    bench.py's ``PPO-transformer@longctx-flash`` model (d512, 8 heads, 4
@@ -66,11 +75,11 @@ its plain PyTorch version:
    then 10 timed updates: ms per update, transitions/s, peak memory, B4's
    share of device time over a profiler window, finite loss, and B4 launch
    counts equal to n_layers x K_epoch x updates;
-10. the transformer's colocated loop: ``ColocatedLoop.program`` on
+11. the transformer's colocated loop: ``ColocatedLoop.program`` on
    ``configs/longcontext_singlechip.example.json`` with the flash impl
    (CartPole, KV-cached acting, 8 x 4096) for 2 updates, finite metrics and
    the launches as counted;
-11. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
+12. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
 Times are CUDA-event medians on this card; each is printed beside the card's
@@ -161,6 +170,12 @@ TF_TRAIN_CFG = dict(
 )
 TF_WARMUP, TF_UPDATES, TF_PROFILE = 2, 10, 2
 TF_COLOCATED_UPDATES = 2
+# bench.py's IMPALA@wide-lstm shape (bench.py:241-246) with the algorithm
+# the port has, PPO: the LSTM learner at its widest.
+WIDE_LSTM_CFG = dict(
+    algo="PPO", batch_size=1024, seq_len=16, hidden_size=1024, obs_shape=(64,), action_space=8,
+)
+WIDE_WARMUP, WIDE_UPDATES, WIDE_PROFILE = 2, 5, 2
 
 # (rows, D, H, A) checked against the plain version.
 SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
@@ -550,6 +565,27 @@ def lstm_bounds(B: int, S: int, H: int) -> dict:
     return out
 
 
+def cudnn_lstm_ms(B: int, S: int, H: int, iters: int) -> dict:
+    """A yardstick, not a ``library_ms``: cuDNN's LSTM (``nn.LSTM``, TF32
+    off) forward and forward + backward on (B, S, H) inputs with no carry
+    resets (no PyTorch call computes the keep-masked LSTM) and its own
+    input projection from H inputs."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(B + S + H)
+    lstm = torch.nn.LSTM(H, H, batch_first=True).cuda()
+    x = torch.randn((B, S, H), generator=g).cuda().requires_grad_()
+    h0, c0 = (torch.randn((1, B, H), generator=g).cuda() for _ in range(2))
+    dy = torch.randn((B, S, H), generator=g).cuda()
+
+    def fwd_bwd():
+        y, _ = lstm(x, (h0, c0))
+        return torch.autograd.grad(y, [x, *lstm.parameters()], dy)
+
+    with torch.no_grad():
+        fwd = device_ms(lambda: lstm(x, (h0, c0)), iters=iters)
+    return dict(fwd_ms=fwd, fwd_bwd_ms=device_ms(fwd_bwd, iters=iters))
+
+
 def max_err(got, want) -> float:
     return float((got.detach().float() - want.detach().float()).abs().max())
 
@@ -612,14 +648,47 @@ def lstm_phase() -> list[dict]:
         bwd_plain_ms = device_ms(
             lambda: L.lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs), iters=iters
         )
+        # The autograd Function's forward + backward (B1, B2 and the dwh
+        # product) beside the plain pair's.
+        fn_ms = device_ms(
+            lambda: torch.autograd.grad(L.lstm_unroll(*leaves, keep), leaves, (dhs, dcs)),
+            iters=iters,
+        )
+
+        def plain_pair():
+            hs_q, cs_q, acts_q = L.lstm_forward_plain(xp, wh, h0, c0, keep)
+            return L.lstm_backward_plain(wh, h0, c0, keep, hs_q, cs_q, acts_q, dhs, dcs)
+
+        pair_ms = device_ms(plain_pair, iters=iters)
+        cudnn = cudnn_lstm_ms(B, S, H, iters)
+        plan = L.lstm_launch_plan(B, S, H)
+        resident = L.max_active_clusters(plan)
         bounds = lstm_bounds(B, S, H)
         row = dict(
             shape=dict(B=B, S=S, H=H),
             fwd_err=fwd_err, bwd_err=bwd_err, function_err=fn_err, dwh_err=dwh_err, dwh_tol=dwh_tol,
             lstm_fwd=dict(ms=fwd_ms, plain_ms=fwd_plain_ms, **bounds["lstm_fwd"]),
             lstm_bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, **bounds["lstm_bwd"]),
+            function_ms=fn_ms, plain_pair_ms=pair_ms, cudnn_yardstick=cudnn,
+            plan=dict(rows=plan.rows, units=plan.units, cluster=plan.cluster,
+                      row_tiles=plan.row_tiles, threads=plan.threads, regime=plan.regime,
+                      clusters_resident=resident),
         )
         rows.append(row)
+        print(
+            f"lstm plan B={B} S={S} H={H}: {plan.regime}, R={plan.rows} rows x U={plan.units} "
+            f"units a block, cluster {plan.cluster}, {plan.row_tiles} clusters, {plan.threads} "
+            f"threads, tile {plan.tm}x{plan.tu}, smem {plan.smem_fwd}/{plan.smem_bwd} bytes, "
+            f"{resident} clusters resident on the card",
+            flush=True,
+        )
+        print(
+            f"lstm Function B={B} S={S} H={H}: forward+backward {fn_ms:.6f} ms, plain pair "
+            f"{pair_ms:.6f} ms; yardstick, not library_ms (no resets, its own input projection): "
+            f"cuDNN LSTM forward {cudnn['fwd_ms']:.6f} ms, forward+backward "
+            f"{cudnn['fwd_bwd_ms']:.6f} ms",
+            flush=True,
+        )
         for name in ("lstm_fwd", "lstm_bwd"):
             r = row[name]
             print(
@@ -749,6 +818,112 @@ def learn_phase(card: str) -> dict:
         fail(f"no learning: {out}")
     if fwd != out["updates"] or bwd != out["updates"]:
         fail(f"learning run launched lstm_fwd {fwd} / lstm_bwd {bwd} for {out['updates']} updates")
+    return out
+
+
+def lstm_batch(cfg, seed: int, device: str = "cuda"):
+    """A seeded LSTM batch at ``cfg``'s shape, as tests/test_torch_ppo.py
+    builds one: behaviour logits and log-probs, episode firsts on ~20% of
+    steps (every row of the first few at step 0), carries at 0.5 scale."""
+    from tpu_rl_torch.types import Batch
+
+    rng = np.random.default_rng(seed)
+    B, S, H, A = cfg.batch_size, cfg.seq_len, cfg.hidden_size, cfg.action_space
+    D = int(cfg.obs_shape[0])
+    logits = rng.normal(size=(B, S, A)).astype(np.float32)
+    logits = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    act = rng.integers(0, A, size=(B, S, 1)).astype(np.float32)
+    log_prob = np.take_along_axis(logits, act.astype(np.int64), -1)
+    is_fir = (rng.random((B, S, 1)) < 0.2).astype(np.float32)
+    is_fir[: B // 8, 0] = 1.0
+    return Batch.from_mapping(dict(
+        obs=rng.normal(size=(B, S, D)).astype(np.float32), act=act,
+        rew=(0.1 * rng.normal(size=(B, S, 1))).astype(np.float32), logits=logits,
+        log_prob=(log_prob + 0.1 * rng.normal(size=log_prob.shape)).astype(np.float32),
+        is_fir=is_fir, hx=(0.5 * rng.normal(size=(B, S, H))).astype(np.float32),
+        cx=(0.5 * rng.normal(size=(B, S, H))).astype(np.float32),
+    ), device=device)
+
+
+def wide_lstm_train_phase(card: str) -> dict:
+    """The LSTM learner at bench.py's IMPALA@wide-lstm shape (bench.py:241-
+    246: batch 1024, seq 16, H 1024, obs 64, 8 actions, f32) with the
+    algorithm the port has, PPO: get_algo("PPO").build and its train_step
+    on one seeded batch with resets, WIDE_WARMUP untimed then WIDE_UPDATES
+    timed updates; then B1 + B2's share of device time over a profiler
+    window. The launch counters are zeroed just before the timed updates
+    and read just after."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+
+    cfg = Config.from_dict(WIDE_LSTM_CFG)
+    _family, state, train_step = get_algo("PPO").build(
+        cfg, torch.Generator().manual_seed(0), device="cuda"
+    )
+    batch = lstm_batch(cfg, 0)
+    for _ in range(WIDE_WARMUP):
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    enqueue = []
+    t0 = time.perf_counter()
+    for _ in range(WIDE_UPDATES):
+        t1 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        enqueue.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    want = cfg.K_epoch * WIDE_UPDATES
+    if fwd != want or bwd != want:
+        fail(f"wide LSTM training launched lstm_fwd {fwd} and lstm_bwd {bwd} times, want {want} each")
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+        fail(f"wide LSTM training metrics not finite: {host}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.params["actor"].values()):
+        fail("wide LSTM training params not finite")
+
+    share = busy = device_ms_per_update = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(WIDE_PROFILE):
+                state, _m = train_step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        if device_us > 0:
+            busy = device_us / 1e6 / wall
+            # B1/B2's kernels: lstm_{fwd,bwd}_{resident,streamed} (PR 2-5's
+            # lstm_{fwd,bwd}_kernel, when lab/b12_lab.py runs another tree)
+            share = sum(e.self_device_time_total for e in events
+                        if "lstm_fwd_" in e.key or "lstm_bwd_" in e.key) / device_us
+            device_ms_per_update = device_us / 1e3 / WIDE_PROFILE
+    except (RuntimeError, AttributeError) as e:
+        print(f"wide LSTM profile: not measured ({e!r})", flush=True)
+    out = dict(
+        updates=WIDE_UPDATES, batch=cfg.batch_size, seq=cfg.seq_len, hidden=cfg.hidden_size,
+        ms_per_update=dt / WIDE_UPDATES * 1e3,
+        transitions_per_s=WIDE_UPDATES * cfg.batch_size * cfg.seq_len / dt,
+        enqueue_ms=statistics.median(enqueue) * 1e3, device_ms_per_update=device_ms_per_update,
+        b1_b2_device_share=share, device_busy=busy, lstm_fwd_launches=fwd,
+        lstm_bwd_launches=bwd, loss=host["loss"],
+    )
+    print(
+        f"wide LSTM training PPO B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} obs "
+        f"{cfg.obs_shape} A={cfg.action_space} f32: {WIDE_UPDATES} updates, ms/update="
+        f"{out['ms_per_update']:.4f} transitions/s={out['transitions_per_s']:.1f} host enqueue "
+        f"ms/update={out['enqueue_ms']:.4f} device ms/update="
+        f"{'not measured' if device_ms_per_update is None else f'{device_ms_per_update:.4f}'} "
+        f"B1+B2 share of device time={'not measured' if share is None else f'{share:.4f}'} "
+        f"device_busy={'not measured' if busy is None else f'{busy:.4f}'} loss={host['loss']:.6f} "
+        f"lstm_fwd launches={fwd} lstm_bwd launches={bwd} (= updates x K_epoch = {want}) [{card}]",
+        flush=True,
+    )
     return out
 
 
@@ -1216,6 +1391,7 @@ def main() -> None:
     lstm_rows = lstm_phase()
     training = train_phase(card)
     learning = learn_phase(card)
+    wide_training = wide_lstm_train_phase(card)
     attn_rows = attention_phase()
     tf_training = tf_train_phase(card)
     tf_colocated = tf_colocated_phase(card)
@@ -1307,7 +1483,7 @@ def main() -> None:
                          tiles_causal=x["tiles_causal"], **x[name])
                     for x in attn_rows],
         ))
-    print(json.dumps({"training": training, "learning": {
+    print(json.dumps({"training": training, "wide_lstm_training": wide_training, "learning": {
         k: v for k, v in learning.items() if k != "scalars"
     }, "transformer_training": tf_training, "transformer_colocated": tf_colocated}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -86,10 +86,11 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 
 def test_config_keeps_unknown_keys_and_refuses_later_slices():
     cfg = Config.from_dict(
-        {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4, "mesh_seq": 2}
+        {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4,
+         "worker_step_sleep": 0.05, "mesh_seq": 1}
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
-    assert cfg.extra == {"chaos_spec": None, "mesh_seq": 2}
+    assert cfg.extra == {"chaos_spec": None, "worker_step_sleep": 0.05, "mesh_seq": 1}
     with pytest.raises(NotImplementedError, match="quantized-serving slice"):
         Config.from_dict({"inference_dtype": "bf16"})
     with pytest.raises(AssertionError):
@@ -106,6 +107,43 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             build_family(Config.from_dict(kw), device="cpu")
+
+
+@pytest.mark.parametrize("key,value,slice_name", [
+    ("model_dir", "/tmp/ckpt", "durability slice"),
+    ("mesh_data", 2, "multi-GPU slice"),
+    ("mesh_seq", 2, "multi-GPU slice"),
+    ("multihost", {"coordinator": "127.0.0.1:1234", "num_processes": 2, "process_id": 0},
+     "multi-GPU slice"),
+    ("chaos_spec", "nan:rollout@p=0.4", "observability slice"),
+    ("inference_replicas", 2, "fleet slice"),
+    ("inference_mesh_data", 2, "fleet slice"),
+    ("telemetry_port", 29900, "observability slice"),
+    ("result_dir", "/tmp/run", "observability slice"),
+])
+def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
+    """A key that makes tpu_rl checkpoint, shard, arm chaos, run replicas or
+    export telemetry is refused away from its default, naming the slice that
+    brings it; at its default (or absent) it loads."""
+    with pytest.raises(NotImplementedError, match=slice_name):
+        Config.from_dict({key: value})
+    default = None if key in ("model_dir", "multihost", "chaos_spec", "result_dir") else (
+        0 if key == "telemetry_port" else 1)
+    assert Config.from_dict({key: default}).extra == {key: default}
+
+
+def test_config_example_files_load_or_refuse():
+    """params.example.json and the single-chip long-context config load
+    (the latter with an attention the port has); the mesh-sharded
+    long-context config is refused for its mesh."""
+    root = Path(__file__).resolve().parent.parent / "configs"
+    raw = json.loads((root / "params.example.json").read_text())
+    assert Config.from_dict(raw).extra["worker_step_sleep"] == 0.05
+    raw = json.loads((root / "longcontext_singlechip.example.json").read_text())
+    assert Config.from_dict(dict(raw, attention_impl="flash")).extra["mesh_seq"] == 1
+    raw = json.loads((root / "longcontext.example.json").read_text())
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        Config.from_dict(dict(raw, attention_impl="flash"))
 
 
 def test_config_loads_a_full_tpu_rl_params_file():

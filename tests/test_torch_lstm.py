@@ -170,3 +170,215 @@ def test_actor_unroll_matches_tpu_rl(hidden, B, S, reset):
     for got, w, name in ((logits, lw, "logits"), (value, vw, "value"), (hN, hw, "h"), (cN, cw, "c")):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(w), atol=FWD_ATOL, rtol=0, err_msg=name)
     assert logits.shape == (B, S, 2) and value.shape == (B, S, 1)
+
+
+# ------------------------------------------------- the CUDA kernels' launch plan
+def _resident_fits(H):
+    """Whether a resident block (one row) fits at any cluster size."""
+    for c in range(1, L.MAX_CLUSTER + 1):
+        U = -(-H // c)
+        if -(-H // U) <= L.MAX_CLUSTER and max(L.resident_smem(H, 1, U, -(-H // U))) <= L.SMEM_LIMIT:
+            return True
+    return False
+
+
+@pytest.mark.parametrize("H", [16, 50, 64, 100, 256, 1024])
+@pytest.mark.parametrize("B", [1, 3, 8, 100, 128, 1024])
+def test_lstm_launch_plan_fits_the_card(B, H):
+    """Every unit once, cluster <= 16 (non-portable above 8), shared memory
+    <= 227 KB for both kernels, the thread tile covering the block, rows
+    covering the batch, and the regime switching where wh's slice no longer
+    fits."""
+    S = 5
+    plan = L.lstm_launch_plan(B, S, H)
+    units = [u for sl in plan.slices(H) for u in sl]
+    assert units == list(range(H)), "every hidden unit exactly once"
+    assert len(plan.slices(H)) == plan.cluster and all(len(sl) > 0 for sl in plan.slices(H))
+    assert 1 <= plan.cluster <= L.MAX_CLUSTER
+    assert plan.nonportable == (plan.cluster > L.MAX_CLUSTER_PORTABLE)
+    assert max(plan.smem_fwd, plan.smem_bwd) <= L.SMEM_LIMIT
+    assert plan.rows % plan.tm == 0 and plan.units % plan.tu == 0
+    assert plan.row_tiles == -(-B // plan.rows)
+    assert plan.resident == _resident_fits(H)
+    if plan.resident:
+        assert (plan.tm, plan.tu) in L.RESIDENT_TILES and plan.threads <= L.MAX_RESIDENT_THREADS
+        assert plan.threads == (plan.rows // plan.tm) * (plan.units // plan.tu)
+        assert (plan.smem_fwd, plan.smem_bwd) == L.resident_smem(H, plan.rows, plan.units, plan.cluster)
+        assert plan.push == (plan.rows * H <= L.PUSH_MAX_FLOATS)
+        assert plan.scratch_floats(H) == (0 if plan.push else
+                                          2 * plan.row_tiles * plan.cluster * H * plan.rows)
+    else:
+        assert (plan.tm, plan.tu) == L.STREAMED_TILE and plan.rows in L.STREAMED_ROWS
+        assert plan.threads == 32 * plan.units // plan.tu <= L.STREAMED_MAX_THREADS
+        assert H % 4 == 0 and plan.units % 16 == 0 and 2 <= plan.stages <= 4
+        sf, sb = L.streamed_stage(plan.rows, plan.units)
+        assert plan.smem_fwd == 4 * max(plan.stages * sf, plan.rows * L.stream_ldw(plan.units))
+        assert plan.smem_bwd == 4 * plan.stages * sb
+        assert (plan.smem_fwd, plan.smem_bwd) == L.streamed_smem(plan.rows, plan.units, plan.stages)
+        assert not plan.push
+        assert plan.scratch_floats(H) == 2 * plan.row_tiles * plan.cluster * H * plan.rows
+    assert plan.regime == ("streamed" if H == 1024 else "resident")
+
+
+@pytest.mark.parametrize("B,S,H,plan", [
+    # the training path, the learning run, a ragged batch: clusters of 8
+    # slices of 8 units, 8-row tiles of one-row, one-unit threads
+    (128, 5, 64, (8, 8, 8, 16, 1)), (32, 5, 64, (8, 8, 8, 4, 1)), (100, 5, 64, (8, 8, 8, 13, 1)),
+    # resident at H=256: 4-row threads on the shortest tiles of one wave,
+    # B2's partials through L2 (above PUSH_MAX_FLOATS)
+    (256, 16, 256, (20, 32, 8, 13, 4)),
+    # streamed: 80-row tiles, 13 clusters of 8 (an H100 holds 15)
+    (1024, 16, 1024, (80, 128, 8, 13, 16)),
+])
+def test_lstm_launch_plan_at_the_checked_shapes(B, S, H, plan):
+    """The plans the card's timings chose (lab/b12_lab.py plans):
+    (rows, units, cluster, row tiles, rows a thread or an m-tile)."""
+    p = L.lstm_launch_plan(B, S, H)
+    assert (p.rows, p.units, p.cluster, p.row_tiles, p.tm) == plan
+    assert p.row_tiles <= L.CLUSTERS_PER_CARD[8] * (1 if H >= 256 else 8)
+    assert p.push == (H == 64) and p.stages == (0 if p.resident else 2)
+
+
+@pytest.mark.parametrize("B,S,H", [(0, 5, 64), (8, 0, 64), (8, 5, 0), (8, 5, 2.5),
+                                   (8, 5, 1026), (8, 5, 8192)])
+def test_lstm_launch_plan_refuses_with_a_named_error(B, S, H):
+    with pytest.raises(L.LstmPlanError):
+        L.lstm_launch_plan(B, S, H)
+
+
+# ----------------------------------- a torch emulation of the kernels' arithmetic
+def _fma(a, b, c):
+    """f32 fused multiply-add: the product exact in float64, one rounding
+    to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _gates(z, c_used, H):
+    sig = lambda v: 1.0 / (1.0 + torch.exp(-v))  # noqa: E731
+    i, f, o = sig(z[:, :H]), sig(z[:, H:2 * H]), sig(z[:, 3 * H:])
+    g = torch.tanh(z[:, 2 * H:3 * H])
+    c2 = f * c_used + i * g
+    return o * torch.tanh(c2), c2, torch.cat([i, f, g, o], -1)
+
+
+def _round(x, bits):
+    """x rounded to ``23 - bits`` mantissa bits, to nearest, ties away from
+    zero, by integer add and mask as the kernels do."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + (1 << (bits - 1))) & -(1 << bits)).view(torch.float32)
+
+
+def _mma_split(acc, a, b):
+    """``acc += a @ b`` over one 8-deep k step as the streamed kernels do it:
+    x = hi + lo with hi x rounded to TF32; the cross terms hi*lo + lo*hi
+    with every value rounded to bf16 (one BF16 mma), then hi*hi (one TF32
+    mma), each summed exactly into a fresh f32 sum, which is then added to
+    acc. The order inside one mma is the card's; it is taken exact here."""
+    ah, bh = _round(a, 13), _round(b, 13)
+    al, bl = a - ah, b - bh
+    bf = lambda x: _round(x, 16).double()  # noqa: E731
+    d = (bf(ah) @ bf(bl) + bf(al) @ bf(bh)).float()
+    d = (d.double() + ah.double() @ bh.double()).float()
+    return acc + d
+
+
+def emulate_lstm_fwd(xp, wh, h0, c0, keep, plan):
+    """``csrc/lstm_fwd.cu``'s arithmetic in its order. Resident: per step
+    one FMA chain per gate column over k ascending, on h with keep[t]
+    applied (as pushed). Streamed: split precision (``_mma_split``) over
+    8-deep k steps ascending on h as read, keep[t] times the product. Then
+    the gates."""
+    B, S, G = xp.shape
+    H = G // 4
+    h, c = h0, c0
+    hs, cs, acts = [], [], []
+    for t in range(S):
+        kp = keep[:, t, None]
+        acc = torch.zeros(B, G)
+        if plan.resident:
+            hin = h * kp
+            for k in range(H):
+                acc = _fma(hin[:, k, None], wh[None, k, :], acc)
+            z = xp[:, t] + acc
+        else:
+            for k in range(0, H, 8):
+                acc = _mma_split(acc, h[:, k:k + 8], wh[k:k + 8])
+            z = xp[:, t] + kp * acc
+        h, c, a = _gates(z, c * kp, H)
+        hs.append(h)
+        cs.append(c)
+        acts.append(a)
+    return torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(acts, 1)
+
+
+def emulate_lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs, plan):
+    """``csrc/lstm_bwd.cu``'s arithmetic in its order: the gate gradients;
+    each unit slice q's partial dh over its own gate columns in the block's
+    order (gate-major, units ascending, a ragged slice padded with zeros):
+    resident, one FMA chain per output; streamed, split precision over 8
+    columns at a time; the slices' partials added in rank order, then keep[t]."""
+    B, S, H = hs.shape
+    U = plan.units
+    dh = torch.zeros(B, H)
+    dc = torch.zeros(B, H)
+    dzs = [None] * S
+    for t in reversed(range(S)):
+        kp = keep[:, t, None]
+        i, f, g, o = torch.chunk(acts[:, t], 4, dim=-1)
+        cp = (cs[:, t - 1] if t > 0 else c0) * kp
+        dh_t = dhs[:, t] + dh
+        tc = torch.tanh(cs[:, t])
+        dc_t = dcs[:, t] + dc + dh_t * o * (1.0 - tc * tc)
+        dz = torch.cat([dc_t * g * i * (1.0 - i), dc_t * cp * f * (1.0 - f),
+                        dc_t * i * (1.0 - g * g), dh_t * tc * o * (1.0 - o)], -1)
+        total = None
+        for sl in plan.slices(H):
+            cols = [gate * H + u for gate in range(4) for u in range(sl.start, sl.start + U)]
+            real = torch.tensor([u < sl.stop for gate in range(4) for u in range(sl.start, sl.start + U)])
+            idx = torch.tensor([c if ok else 0 for c, ok in zip(cols, real.tolist())])
+            dzq = dz[:, idx] * real
+            whq = wh[:, idx] * real
+            part = torch.zeros(B, H)
+            if plan.resident:
+                for c in range(4 * U):
+                    part = _fma(dzq[:, c, None], whq[None, :, c], part)
+            else:
+                for c in range(0, 4 * U, 8):
+                    part = _mma_split(part, dzq[:, c:c + 8], whq[:, c:c + 8].T)
+            total = part if total is None else total + part
+        dh = total * kp
+        dc = dc_t * f * kp
+        dzs[t] = dz
+    return torch.stack(dzs, 1), dh, dc
+
+
+# (B, S, H): the training path's H at 8-row tiles, H=50 (13 slices, the
+# last of 2 units), a one-row tile, and the streamed regime (H=512).
+EMULATED = [(16, 5, 64), (3, 5, 50), (12, 7, 32), (1, 3, 16), (3, 3, 512)]
+
+
+@pytest.mark.parametrize("shape", EMULATED)
+def test_kernel_emulation_matches_plain_and_pallas(shape):
+    B, S, H = shape
+    plan = L.lstm_launch_plan(B, S, H)
+    assert plan.regime == ("streamed" if H == 512 else "resident")
+    xp, wh, h0, c0, keep = _inputs(B, S, H, "resets", seed=6)
+    keep[B // 2:, 0] = 0.0
+    txp, twh, th0, tc0, tkeep = _t(xp, wh, h0, c0, keep)
+    got = emulate_lstm_fwd(txp, twh, th0, tc0, tkeep, plan)
+    plain = L.lstm_forward_plain(txp, twh, th0, tc0, tkeep)
+    want = PL._pallas_forward(xp, wh, h0, c0, keep, True, save_acts=True)
+    for g, p, w, name in zip(got, plain, want, ("hs", "cs", "acts"), strict=True):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), atol=FWD_ATOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FWD_ATOL, rtol=0, err_msg=name)
+
+    hs, cs, acts = (np.asarray(a) for a in want)
+    rng = np.random.default_rng(7)
+    dhs, dcs = (rng.normal(size=(B, S, H)).astype(np.float32) for _ in range(2))
+    args = _t(wh, h0, c0, keep, hs, cs, acts, dhs, dcs)
+    got = emulate_lstm_bwd(*args, plan)
+    dxp, _dwh, dh0, dc0 = L.lstm_backward_plain(*args)
+    want = PL._pallas_backward(wh, h0, c0, keep, hs, cs, acts, dhs, dcs, True)
+    for g, p, w, name in zip(got, (dxp, dh0, dc0), want, ("dxp", "dh0", "dc0"), strict=True):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), atol=GRAD_ATOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=0, err_msg=name)

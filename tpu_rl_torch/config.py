@@ -2,15 +2,34 @@
 
 It holds the fields the serving and training slices read, with ``tpu_rl``'s
 names and defaults, so an existing params file loads unchanged. Keys the
-port does not know yet are kept in ``extra`` and otherwise ignored: a full
-``tpu_rl`` params file still loads.
+port does not know yet are kept in ``extra``: a full ``tpu_rl`` params file
+still loads. Those of them that would make ``tpu_rl`` do something the port
+does not do yet (write checkpoints, build a mesh, arm chaos, run replicas,
+export telemetry) are refused at a value other than their default
+(:data:`LATER_SLICES`), so that a run never silently does less than asked.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
+
+# Keys of a tpu_rl params file that the port keeps in ``extra`` but refuses
+# away from their default: (key, is it set?, the slice of the port that
+# brings it). Defaults as in tpu_rl.config.Config; telemetry_port and
+# result_dir are tpu_rl's ``telemetry_enabled``.
+LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
+    ("model_dir", lambda v: v is not None, "durability slice"),
+    ("mesh_data", lambda v: v > 1, "multi-GPU slice"),
+    ("mesh_seq", lambda v: v > 1, "multi-GPU slice"),
+    ("multihost", lambda v: v is not None, "multi-GPU slice"),
+    ("chaos_spec", lambda v: v is not None, "observability slice"),
+    ("inference_replicas", lambda v: v > 1, "fleet slice"),
+    ("inference_mesh_data", lambda v: v > 1, "fleet slice"),
+    ("telemetry_port", lambda v: v > 0, "observability slice"),
+    ("result_dir", lambda v: v is not None, "observability slice"),
+)
 
 
 @dataclass
@@ -98,6 +117,13 @@ class Config:
         return cfg
 
     def validate(self) -> None:
+        for key, is_set, slice_name in LATER_SLICES:
+            value = self.extra.get(key)
+            if value is not None and is_set(value):
+                raise NotImplementedError(
+                    f"{key}={value!r}: the port does not do this yet; it comes with the "
+                    f"{slice_name} of the port"
+                )
         assert self.seq_len >= 2, "seq_len must be >= 2 (losses bootstrap from t+1)"
         assert self.batch_size >= 1
         assert self.buffer_size >= self.batch_size
