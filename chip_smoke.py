@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-It drives the port's serving path, its colocated LSTM training path and the
-transformer's PPO training (its train step at full width, and its colocated
-loop) end to end, and holds every hand-written kernel of those paths against
-its plain PyTorch version:
+It drives the port's serving path, its colocated LSTM training path, the
+other algorithms' train steps and colocated loops (IMPALA, V-MPO,
+PPO-Continuous, SAC, SAC-Continuous) and the transformer's PPO training (its
+train step at full width, and its colocated loop) end to end, and holds
+every hand-written kernel of those paths against its plain PyTorch version:
 
 1. device check: a CUDA card is required (else exit 1, no result printed);
    prints the card's name and power limit as nvidia-smi reports them and
@@ -50,11 +51,25 @@ its plain PyTorch version:
    (batch 32, lr 3e-4, entropy 1e-3, seed 0) for 1800 updates, one line per
    200-update window; fails unless the best window's mean return is >= 60
    over >= 100 episodes;
-8. wide LSTM training: ``get_algo("PPO").build`` and its train step at
-   bench.py's IMPALA@wide-lstm shape (1024 x 16, H=1024, obs 64, 8
-   actions, f32) on a seeded batch with resets, 2 warm-up then 5 timed
-   updates: ms per update, host enqueue and device time, B1 + B2's share of
-   device time, B1/B2 launch counts equal to updates x K_epoch;
+8. wide LSTM training: ``get_algo(algo).build`` and its train step at
+   bench.py's IMPALA@wide-lstm row (1024 x 16, H=1024, obs 64, 8 actions,
+   f32), with PPO (as in earlier slices) and with the row's IMPALA, on a
+   seeded batch with resets, 2 warm-up then 5 timed updates: ms per
+   update, host enqueue and device time, B1 + B2's share of device time,
+   B1/B2 launch counts equal to updates x K_epoch; for IMPALA V-trace's
+   device time on the step's own inputs and its share;
+8a. the @ref rows of the other algorithms (bench.py:234-239: IMPALA, V-MPO,
+   SAC, PPO-Continuous, SAC-Continuous at 128 x 5, H=64): one train step on
+   the card against the same step on the CPU through the plain versions,
+   from one seeded state, batch and shared noise (loss rtol 1e-5, metrics
+   and params 1e-5, grad norms and optimizer moments 3e-5), then 10 timed
+   updates whose B1/B2 launches must be updates x K_epoch x the path's
+   per-epoch count (1/1; SAC 8/3, SAC-Continuous 8/5);
+8b. colocated IMPALA and V-MPO on CartPole and PPO-Continuous on Pendulum
+   through ``ColocatedLoop.program`` at 128 envs, 1 + 2 updates: ms per
+   update, finite metrics and params, launches = updates x K_epoch; then
+   an IMPALA learning run on step 7's recipe, its best window printed with
+   no bar;
 9. B4 (``flash_attn_fwd``/``flash_attn_bwd``: bf16 on the tensor-core
    kernels, f32 on the CUDA-core ones) vs plain: the main path's (B,T,H,D)
    = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32) bf16, bf16
@@ -170,12 +185,41 @@ TF_TRAIN_CFG = dict(
 )
 TF_WARMUP, TF_UPDATES, TF_PROFILE = 2, 10, 2
 TF_COLOCATED_UPDATES = 2
-# bench.py's IMPALA@wide-lstm shape (bench.py:241-246) with the algorithm
-# the port has, PPO: the LSTM learner at its widest.
+# bench.py's IMPALA@wide-lstm row (bench.py:241-246): the LSTM learner at
+# its widest; run with IMPALA, and with PPO as in earlier slices.
 WIDE_LSTM_CFG = dict(
     algo="PPO", batch_size=1024, seq_len=16, hidden_size=1024, obs_shape=(64,), action_space=8,
 )
 WIDE_WARMUP, WIDE_UPDATES, WIDE_PROFILE = 2, 5, 2
+# bench.py's @ref rows of the other algorithms (bench.py:234-239): the
+# reference quantum, 128 x 5 with H 64; CartPole's spaces for the discrete
+# ones, bench.py's (2,)/1 for the continuous ones.
+_REF = dict(batch_size=128, seq_len=5, hidden_size=64)
+REF_ROWS = {
+    "IMPALA": dict(algo="IMPALA", obs_shape=(4,), action_space=2, **_REF),
+    "V-MPO": dict(algo="V-MPO", obs_shape=(4,), action_space=2, **_REF),
+    "SAC": dict(algo="SAC", obs_shape=(4,), action_space=2, **_REF),
+    "PPO-Continuous": dict(algo="PPO-Continuous", obs_shape=(2,), action_space=1,
+                           is_continuous=True, **_REF),
+    "SAC-Continuous": dict(algo="SAC-Continuous", obs_shape=(2,), action_space=1,
+                           is_continuous=True, **_REF),
+}
+# The card's step against the CPU's: tpu_rl's own bars (loss relative; the
+# metrics absolute up to magnitude 1, relative above; params and moments
+# absolute; 3e-5 where a gradient feeds the value directly).
+REF_TOL = {"loss": 1e-5, "metrics": 1e-5, "grad-norms": 3e-5, "params": 1e-5, "moments": 3e-5}
+REF_UPDATES = 10
+# B1 / B2 launches per epoch of each train step: one unroll and its
+# backward for the shared-torso algorithms; SAC's as counted in
+# tpu_rl_torch/algos/sac.py (the actor twice, the twin critic under the
+# actor loss, the target twin with no grad, the twin critic with grad).
+LAUNCHES_PER_EPOCH = {"PPO": (1, 1), "IMPALA": (1, 1), "V-MPO": (1, 1), "PPO-Continuous": (1, 1),
+                      "SAC": (8, 3), "SAC-Continuous": (8, 5)}
+# The other on-policy algorithms in the colocated loop, at the training
+# phase's 128 envs (Pendulum: gymnasium's 200-step horizon).
+COLOCATED_ALGOS = [("CartPole-v1", "IMPALA", {}), ("CartPole-v1", "V-MPO", {}),
+                   ("Pendulum-v1", "PPO-Continuous", dict(time_horizon=200))]
+COLOCATED_UPDATES = 2
 
 # (rows, D, H, A) checked against the plain version.
 SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
@@ -818,47 +862,87 @@ def learn_phase(card: str) -> dict:
         fail(f"no learning: {out}")
     if fwd != out["updates"] or bwd != out["updates"]:
         fail(f"learning run launched lstm_fwd {fwd} / lstm_bwd {bwd} for {out['updates']} updates")
-    return out
+    return dict(out, lstm_launches={"lstm_fwd": fwd, "lstm_bwd": bwd})
 
 
-def lstm_batch(cfg, seed: int, device: str = "cuda"):
+def lstm_batch(cfg, seed: int, device: str = "cuda", continuous: bool = False):
     """A seeded LSTM batch at ``cfg``'s shape, as tests/test_torch_ppo.py
-    builds one: behaviour logits and log-probs, episode firsts on ~20% of
-    steps (every row of the first few at step 0), carries at 0.5 scale."""
+    builds one: behaviour logits and log-probs (for a Gaussian policy:
+    actions in (-1, 1), per-dimension log-probs, zero logits), episode
+    firsts on ~20% of steps (every row of the first few at step 0), carries
+    at 0.5 scale."""
     from tpu_rl_torch.types import Batch
 
     rng = np.random.default_rng(seed)
     B, S, H, A = cfg.batch_size, cfg.seq_len, cfg.hidden_size, cfg.action_space
     D = int(cfg.obs_shape[0])
-    logits = rng.normal(size=(B, S, A)).astype(np.float32)
-    logits = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
-    act = rng.integers(0, A, size=(B, S, 1)).astype(np.float32)
-    log_prob = np.take_along_axis(logits, act.astype(np.int64), -1)
+    if continuous:
+        act = np.tanh(rng.normal(size=(B, S, A))).astype(np.float32)
+        logits = np.zeros((B, S, A), np.float32)
+        log_prob = (-1.0 + 0.3 * rng.normal(size=(B, S, A))).astype(np.float32)
+    else:
+        logits = rng.normal(size=(B, S, A)).astype(np.float32)
+        logits = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+        act = rng.integers(0, A, size=(B, S, 1)).astype(np.float32)
+        log_prob = np.take_along_axis(logits, act.astype(np.int64), -1)
     is_fir = (rng.random((B, S, 1)) < 0.2).astype(np.float32)
     is_fir[: B // 8, 0] = 1.0
     return Batch.from_mapping(dict(
         obs=rng.normal(size=(B, S, D)).astype(np.float32), act=act,
         rew=(0.1 * rng.normal(size=(B, S, 1))).astype(np.float32), logits=logits,
-        log_prob=(log_prob + 0.1 * rng.normal(size=log_prob.shape)).astype(np.float32),
+        log_prob=log_prob if continuous else
+        (log_prob + 0.1 * rng.normal(size=log_prob.shape)).astype(np.float32),
         is_fir=is_fir, hx=(0.5 * rng.normal(size=(B, S, H))).astype(np.float32),
         cx=(0.5 * rng.normal(size=(B, S, H))).astype(np.float32),
     ), device=device)
 
 
-def wide_lstm_train_phase(card: str) -> dict:
+def vtrace_device_ms(family, state, batch, cfg) -> dict:
+    """V-trace alone on the wide step's own inputs (the learner's log-probs
+    and values of ``batch``): its device time per call (CUDA events, calls
+    queued back to back) and its device kernels per call (profiler)."""
+    from tpu_rl_torch.algos.ppo import policy_outputs
+    from tpu_rl_torch.ops.returns import vtrace
+
+    with torch.no_grad():
+        log_probs, _ent, value, _logits = policy_outputs(family, state.params, batch)
+
+    def call():
+        return vtrace(batch.log_prob, log_probs, batch.is_fir, batch.rew, value, cfg.gamma,
+                      cfg.rho_bar, cfg.rho_min, cfg.c_bar)
+
+    ms = device_ms(call, iters=20)
+    kernels = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    except (RuntimeError, AttributeError) as e:
+        print(f"vtrace profile: not measured ({e!r})", flush=True)
+    return dict(ms=ms, kernels_per_call=kernels)
+
+
+def wide_lstm_train_phase(card: str, algo: str = "PPO") -> dict:
     """The LSTM learner at bench.py's IMPALA@wide-lstm shape (bench.py:241-
-    246: batch 1024, seq 16, H 1024, obs 64, 8 actions, f32) with the
-    algorithm the port has, PPO: get_algo("PPO").build and its train_step
-    on one seeded batch with resets, WIDE_WARMUP untimed then WIDE_UPDATES
-    timed updates; then B1 + B2's share of device time over a profiler
-    window. The launch counters are zeroed just before the timed updates
-    and read just after."""
+    246: batch 1024, seq 16, H 1024, obs 64, 8 actions, f32), with the row's
+    own algorithm (IMPALA) or with PPO (the phase of earlier slices, kept
+    for comparison): get_algo(algo).build and its train_step on one seeded
+    batch with resets, WIDE_WARMUP untimed then WIDE_UPDATES timed updates;
+    then B1 + B2's share of device time over a profiler window, and for
+    IMPALA V-trace's device time beside it. The launch counters are zeroed
+    just before the timed updates and read just after."""
     from tpu_rl_torch.algos.registry import get_algo
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import lstm as L
 
-    cfg = Config.from_dict(WIDE_LSTM_CFG)
-    _family, state, train_step = get_algo("PPO").build(
+    cfg = Config.from_dict(dict(WIDE_LSTM_CFG, algo=algo))
+    family, state, train_step = get_algo(algo).build(
         cfg, torch.Generator().manual_seed(0), device="cuda"
     )
     batch = lstm_batch(cfg, 0)
@@ -884,7 +968,7 @@ def wide_lstm_train_phase(card: str) -> dict:
     if not all(bool(torch.isfinite(p).all()) for p in state.params["actor"].values()):
         fail("wide LSTM training params not finite")
 
-    share = busy = device_ms_per_update = None
+    share = gemm_share = busy = device_ms_per_update = None
     try:
         from torch.profiler import ProfilerActivity, profile
 
@@ -902,29 +986,257 @@ def wide_lstm_train_phase(card: str) -> dict:
             # lstm_{fwd,bwd}_kernel, when lab/b12_lab.py runs another tree)
             share = sum(e.self_device_time_total for e in events
                         if "lstm_fwd_" in e.key or "lstm_bwd_" in e.key) / device_us
+            # cuBLAS's products (the input projection, its two backward
+            # products, dwh, the heads): kernels named *gemm* / *xmma*
+            gemm_share = sum(e.self_device_time_total for e in events
+                             if "gemm" in e.key.lower() or "xmma" in e.key.lower()) / device_us
             device_ms_per_update = device_us / 1e3 / WIDE_PROFILE
     except (RuntimeError, AttributeError) as e:
         print(f"wide LSTM profile: not measured ({e!r})", flush=True)
+    vt = vtrace_share = None
+    if algo == "IMPALA":
+        vt = vtrace_device_ms(family, state, batch, cfg)
+        if device_ms_per_update is not None:
+            vtrace_share = cfg.K_epoch * vt["ms"] / device_ms_per_update
     out = dict(
+        algo=algo, vtrace_ms=None if vt is None else vt["ms"], vtrace_device_share=vtrace_share,
+        vtrace_kernels_per_call=None if vt is None else vt["kernels_per_call"],
         updates=WIDE_UPDATES, batch=cfg.batch_size, seq=cfg.seq_len, hidden=cfg.hidden_size,
         ms_per_update=dt / WIDE_UPDATES * 1e3,
         transitions_per_s=WIDE_UPDATES * cfg.batch_size * cfg.seq_len / dt,
         enqueue_ms=statistics.median(enqueue) * 1e3, device_ms_per_update=device_ms_per_update,
-        b1_b2_device_share=share, device_busy=busy, lstm_fwd_launches=fwd,
+        b1_b2_device_share=share, gemm_device_share=gemm_share, device_busy=busy,
+        lstm_fwd_launches=fwd,
         lstm_bwd_launches=bwd, loss=host["loss"],
     )
+    if vt is not None:
+        print(
+            f"wide LSTM training {algo}: V-trace {vt['ms']:.6f} ms of device time a call "
+            f"({vt['kernels_per_call']} device kernels), "
+            f"{'not measured' if vtrace_share is None else f'{vtrace_share:.4f}'} of the "
+            f"update's device time [{card}]",
+            flush=True,
+        )
     print(
-        f"wide LSTM training PPO B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} obs "
+        f"wide LSTM training {algo} B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} obs "
         f"{cfg.obs_shape} A={cfg.action_space} f32: {WIDE_UPDATES} updates, ms/update="
         f"{out['ms_per_update']:.4f} transitions/s={out['transitions_per_s']:.1f} host enqueue "
         f"ms/update={out['enqueue_ms']:.4f} device ms/update="
         f"{'not measured' if device_ms_per_update is None else f'{device_ms_per_update:.4f}'} "
         f"B1+B2 share of device time={'not measured' if share is None else f'{share:.4f}'} "
+        f"cuBLAS products' share={'not measured' if gemm_share is None else f'{gemm_share:.4f}'} "
         f"device_busy={'not measured' if busy is None else f'{busy:.4f}'} loss={host['loss']:.6f} "
         f"lstm_fwd launches={fwd} lstm_bwd launches={bwd} (= updates x K_epoch = {want}) [{card}]",
         flush=True,
     )
     return out
+
+
+# ------------------------------------------------- the other algorithms
+def state_to(state, device):
+    """A TrainState or SACState with every tensor on ``device``."""
+    import dataclasses
+
+    return type(state)(**{f.name: on_device(getattr(state, f.name), device)
+                          for f in dataclasses.fields(state)})
+
+
+def state_leaves(state) -> dict[str, list]:
+    """A train state's tensors by kind: ``params`` (the trained parameters,
+    the SAC target and ``log_alpha`` included), ``moments`` (RMSprop nu,
+    Adam mu and nu), ``counts`` (the step and Adam counts)."""
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in flat(v)]
+        return [tree]
+
+    if hasattr(state, "params"):
+        return dict(params=flat(state.params), moments=flat(state.opt_state), counts=[state.step])
+    opts = (state.actor_opt, state.critic_opt, state.alpha_opt)
+    return dict(
+        params=flat(state.actor_params) + flat(state.critic_params)
+        + flat(state.target_critic_params) + [state.log_alpha],
+        moments=[x for o in opts for x in flat({"mu": o["mu"], "nu": o["nu"]})],
+        counts=[state.step] + [o["count"] for o in opts],
+    )
+
+
+def metric_leaves(metrics: dict) -> dict[str, torch.Tensor]:
+    out = {k: v for k, v in metrics.items() if k != "diag"}
+    for part in ("rows", "scalars"):
+        out.update({f"diag {part} {k}": v for k, v in metrics.get("diag", {}).get(part, {}).items()})
+    return out
+
+
+def step_noise(name: str, cfg, batch, g: torch.Generator) -> dict:
+    """The shared noise of one train step, drawn on the CPU: V-MPO's unit
+    uniform per epoch, SAC-Continuous's pair of unit normals per epoch."""
+    if name == "V-MPO":
+        return dict(coef_alpha_u=torch.rand((cfg.K_epoch,), generator=g))
+    if name == "SAC-Continuous":
+        shape = tuple(batch.act.shape)
+        return dict(noise=[tuple(torch.randn(shape, generator=g) for _ in range(2))
+                           for _ in range(cfg.K_epoch)])
+    return {}
+
+
+def ref_row_phase(name: str, card: str) -> dict:
+    """One bench.py @ref row (bench.py:234-239: 128 x 5, H 64; CartPole's
+    (4,)/2 for the discrete algorithms, (2,)/1 for the continuous): one
+    train step on the card, through B1/B2, against the same step on the CPU
+    through their plain versions, from the same seeded state, batch and
+    shared noise; then REF_UPDATES timed updates on the card with the
+    launch counters zeroed just before and read just after, which must be
+    updates x K_epoch x the path's launches per epoch."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+
+    cfg = Config.from_dict(REF_ROWS[name])
+    _f, state_cpu, step_cpu = get_algo(name).build(cfg, torch.Generator().manual_seed(0), device="cpu")
+    family, _s, step_dev = get_algo(name).build(cfg, torch.Generator().manual_seed(0), device="cuda")
+    batch_cpu = lstm_batch(cfg, 1, "cpu", family.continuous)
+    batch = lstm_batch(cfg, 1, "cuda", family.continuous)
+    noise = step_noise(name, cfg, batch_cpu, torch.Generator().manual_seed(2))
+    want_state, want = step_cpu(state_cpu, batch_cpu, **noise)
+    got_state, got = step_dev(state_to(state_cpu, "cuda"), batch, **on_device(noise, "cuda"))
+    torch.cuda.synchronize()
+
+    errs = {"loss": 0.0, "metrics": 0.0, "grad-norms": 0.0, "params": 0.0, "moments": 0.0}
+    worst = {}
+    gm, wm = metric_leaves(got), metric_leaves(want)
+    if set(gm) != set(wm):
+        fail(f"{name}@ref: the card's metrics {sorted(gm)} are not the CPU's {sorted(wm)}")
+    finite = True
+    for k, w in wm.items():
+        g = gm[k].cpu()
+        finite &= bool(torch.isfinite(g).all())
+        kind = "loss" if k == "loss" else "grad-norms" if "grad-norm" in k else "metrics"
+        # loss: relative; the rest absolute up to magnitude 1 and relative
+        # above it (an f32 ulp is 1.2e-4 at 1024: the diag w2 rows reach
+        # ~10^3 where the batch's behaviour log-probs lie far below the
+        # learner's)
+        scale = w.abs() if kind == "loss" else w.abs().clamp(min=1.0)
+        err = float(((g - w).abs() / scale).max())
+        if err >= errs[kind]:
+            errs[kind], worst[kind] = err, k
+    gs, ws = state_leaves(got_state), state_leaves(want_state)
+    for kind in ("params", "moments"):
+        for g, w in zip(gs[kind], ws[kind], strict=True):
+            finite &= bool(torch.isfinite(g).all())
+            errs[kind] = max(errs[kind], max_err(g.cpu(), w))
+    counts_equal = [int(g) for g in gs["counts"]] == [int(w) for w in ws["counts"]]
+    if not (finite and counts_equal and all(errs[k] <= REF_TOL[k] for k in errs)):
+        fail(f"{name}@ref train step on the card vs the CPU: {errs} (bars {REF_TOL}; largest at "
+             f"{worst}), finite {finite}, counts equal {counts_equal}")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = got_state
+    for _ in range(2):
+        state, metrics = step_dev(state, batch, gen)
+    torch.cuda.synchronize()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(REF_UPDATES):
+        state, metrics = step_dev(state, batch, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    per_fwd, per_bwd = LAUNCHES_PER_EPOCH[name]
+    want_fwd, want_bwd = (REF_UPDATES * cfg.K_epoch * x for x in (per_fwd, per_bwd))
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        fail(f"{name}@ref launched lstm_fwd {fwd} / lstm_bwd {bwd} times in {REF_UPDATES} "
+             f"updates, want {want_fwd} / {want_bwd}")
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host.get("nonfinite-updates", 0.0) != 0.0:
+        fail(f"{name}@ref metrics not finite: {host}")
+    out = dict(errs=errs, worst=worst, tol=REF_TOL, ms_per_update=dt / REF_UPDATES * 1e3,
+               transitions_per_s=REF_UPDATES * cfg.batch_size * cfg.seq_len / dt,
+               lstm_fwd_launches=fwd, lstm_bwd_launches=bwd, loss=host["loss"])
+    print(
+        f"{name}@ref B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} obs {cfg.obs_shape} "
+        f"A={cfg.action_space}: the card's step vs the CPU's: "
+        + " ".join(f"{k} {v:.3e} (bar {REF_TOL[k]:g}{', ' + worst[k] if k in worst else ''})"
+                   for k, v in errs.items())
+        + f"; {REF_UPDATES} updates, ms/update={out['ms_per_update']:.4f} transitions/s="
+        f"{out['transitions_per_s']:.1f} lstm_fwd launches={fwd} lstm_bwd launches={bwd} "
+        f"(= updates x K_epoch x {per_fwd}/{per_bwd}) [{card}]",
+        flush=True,
+    )
+    return out
+
+
+def colocated_algos_phase(card: str) -> dict:
+    """IMPALA and V-MPO on CartPole and PPO-Continuous on Pendulum through
+    ColocatedLoop.program at 128 envs: one warm-up update, then
+    COLOCATED_UPDATES timed updates with the launch counters zeroed just
+    before and read just after (updates x K_epoch each); finite metrics
+    and params."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop, act_params
+
+    out = {}
+    for env, algo, extra in COLOCATED_ALGOS:
+        cfg = Config(env=env, env_mode="colocated", algo=algo, colocated_envs=128, **extra)
+        loop = ColocatedLoop(cfg, seed=0, device="cuda")
+        state, carry, stats = loop.state, loop.init_carry(), loop.init_stats()
+        state, carry, stats, metrics = loop.program(state, carry, stats)
+        torch.cuda.synchronize()
+        L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(COLOCATED_UPDATES):
+            state, carry, stats, metrics = loop.program(state, carry, stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+        want = COLOCATED_UPDATES * loop.cfg.K_epoch
+        if fwd != want or bwd != want:
+            fail(f"colocated {algo} on {env} launched lstm_fwd {fwd} / lstm_bwd {bwd} times, "
+                 f"want {want} each")
+        host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+        if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+            fail(f"colocated {algo} on {env}: metrics not finite: {host}")
+        if not all(bool(torch.isfinite(p).all()) for p in act_params(state)["actor"].values()):
+            fail(f"colocated {algo} on {env}: params not finite")
+        n, s = loop.cfg.batch_size, loop.cfg.seq_len
+        out[algo] = dict(env=env, ms_per_update=dt / COLOCATED_UPDATES * 1e3,
+                         transitions_per_s=COLOCATED_UPDATES * n * s / dt,
+                         lstm_fwd_launches=fwd, lstm_bwd_launches=bwd, loss=host["loss"])
+        print(
+            f"colocated {algo} {env} B={n} S={s} H={loop.cfg.hidden_size}: {COLOCATED_UPDATES} "
+            f"updates, ms/update={out[algo]['ms_per_update']:.4f} transitions/s="
+            f"{out[algo]['transitions_per_s']:.1f} loss={host['loss']:.6f} lstm_fwd launches="
+            f"{fwd} lstm_bwd launches={bwd} (= updates x K_epoch {want}) [{card}]",
+            flush=True,
+        )
+    return out
+
+
+def impala_learn_phase(card: str) -> dict:
+    """IMPALA through ColocatedLoop.run on learn_phase's recipe (seed 0,
+    LEARN_UPDATES updates): its best window and episodes are printed with no
+    bar (tpu_rl has none for IMPALA); the launches must equal the updates."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    loop = ColocatedLoop(Config(**dict(LEARN_CFG, algo="IMPALA")), seed=0,
+                         max_updates=LEARN_UPDATES, device="cuda")
+    out = loop.run(log=True)
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    print(
+        f"learning IMPALA: {out['updates']} updates, {out['episodes']} episodes, best-window mean "
+        f"return {out['mean_return_best_window']:.1f} (no bar), {out['elapsed_s']:.1f} s, "
+        f"{out['transitions_per_s']:.1f} transitions/s, lstm launches {fwd}/{bwd} [{card}]",
+        flush=True,
+    )
+    if fwd != out["updates"] or bwd != out["updates"]:
+        fail(f"IMPALA learning run launched lstm_fwd {fwd} / lstm_bwd {bwd} for "
+             f"{out['updates']} updates")
+    return dict({k: v for k, v in out.items() if k != "scalars"},
+                lstm_launches={"lstm_fwd": fwd, "lstm_bwd": bwd})
 
 
 # ---------------------------------------------------------- attention (B4)
@@ -1130,6 +1442,8 @@ def tf_batch(cfg, seed: int, device: str = "cuda"):
 def on_device(tree, device):
     if isinstance(tree, dict):
         return {k: on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(on_device(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -1392,6 +1706,10 @@ def main() -> None:
     training = train_phase(card)
     learning = learn_phase(card)
     wide_training = wide_lstm_train_phase(card)
+    wide_impala = wide_lstm_train_phase(card, "IMPALA")
+    ref_rows = {name: ref_row_phase(name, card) for name in REF_ROWS}
+    colocated_algos = colocated_algos_phase(card)
+    impala_learning = impala_learn_phase(card)
     attn_rows = attention_phase()
     tf_training = tf_train_phase(card)
     tf_colocated = tf_colocated_phase(card)
@@ -1453,6 +1771,16 @@ def main() -> None:
             # and has two biases).
             library_ms=None,
             at=lstm_main["shape"],
+            # this kernel's launches on each path of the run, counted the same way
+            launches_by_path={
+                "training PPO": launches,
+                "wide PPO": wide_training[f"{name}_launches"],
+                "wide IMPALA": wide_impala[f"{name}_launches"],
+                **{f"{k}@ref": v[f"{name}_launches"] for k, v in ref_rows.items()},
+                **{f"colocated {k}": v[f"{name}_launches"] for k, v in colocated_algos.items()},
+                "learning PPO": learning["lstm_launches"][name],
+                "learning IMPALA": impala_learning["lstm_launches"][name],
+            },
             card=card,
             shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
         ))
@@ -1485,7 +1813,9 @@ def main() -> None:
         ))
     print(json.dumps({"training": training, "wide_lstm_training": wide_training, "learning": {
         k: v for k, v in learning.items() if k != "scalars"
-    }, "transformer_training": tf_training, "transformer_colocated": tf_colocated}), flush=True)
+    }, "wide_impala_training": wide_impala, "ref_rows": ref_rows,
+        "colocated_algos": colocated_algos, "impala_learning": impala_learning,
+        "transformer_training": tf_training, "transformer_colocated": tf_colocated}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

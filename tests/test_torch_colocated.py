@@ -111,3 +111,73 @@ def test_program_step_matches_tpu_rl_standalone_train_step(monkeypatch):
     _assert_states_close(new, jax.device_get(jnew))
     assert int(stats["episodes"]) == int(np.asarray(jdone).sum()) > 0
     np.testing.assert_allclose(float(stats["ret_sum"]), float(np.asarray(jret).sum()), rtol=1e-6)
+
+
+@pytest.mark.parametrize("env,algo", [("CartPole-v1", "IMPALA"), ("CartPole-v1", "V-MPO"),
+                                      ("Pendulum-v1", "PPO-Continuous")])
+def test_program_step_matches_tpu_rl_for_the_other_algorithms(monkeypatch, env, algo):
+    """The other on-policy algorithms through the colocated program, as
+    ``tests/test_colocated.py`` runs them in tpu_rl: tpu_rl's rollout gives
+    one batch (Pendulum's: (B,S,1) f32 torques and per-dimension
+    log-probs), and the port's ``program`` from the bridged state, fed that
+    batch (V-MPO also tpu_rl's KL-bound draws), matches tpu_rl's train step
+    on it."""
+    kw = _kw(env=env, algo=algo, time_horizon=4)
+    jloop = JaxColocatedLoop(JaxConfig(**kw))
+    jstate = jloop.state.replace(params={**jloop.state.params,
+                                         "actor": with_random_biases(jloop.state.params["actor"], 5)})
+    k_roll, k_train = jax.random.split(jax.random.PRNGKey(42))
+    _c, jbatch, jdone, jret = jloop.rollout(jax_act_params(jstate), jloop.init_carry(jax.random.PRNGKey(7)), k_roll)
+    jax_cells.set_pallas_mode("interpret")
+    try:
+        jnew, jmetrics = jax.jit(jloop._train_step)(jstate, jbatch, k_train)
+    finally:
+        jax_cells.set_pallas_mode("auto")
+
+    loop = ColocatedLoop(Config(**kw), device="cpu")
+    batch = Batch.from_mapping({f: np.array(getattr(jbatch, f)) for f in BATCH_FIELDS}, device="cpu")
+    if algo == "PPO-Continuous":
+        assert batch.act.shape == batch.log_prob.shape == (8, 5, 1) and not batch.logits.any()
+    done, ep_ret = torch.from_numpy(np.array(jdone)), torch.from_numpy(np.array(jret))
+    monkeypatch.setattr(loop, "rollout", lambda params, carry, generator=None: (carry, batch, done, ep_ret))
+    if algo == "V-MPO":
+        u = torch.tensor([float(jax.random.uniform(jax.random.fold_in(k_train, e), ()))
+                          for e in range(loop.cfg.K_epoch)])
+        step = loop.train_step
+        monkeypatch.setattr(loop, "train_step", lambda s, b, generator=None: step(s, b, coef_alpha_u=u))
+    state = train_state_from_flax(jax.device_get(jstate))
+    new, _carry, stats, metrics = loop.program(state, loop.init_carry(), loop.init_stats())
+    jmetrics = jax.device_get(jmetrics)
+    if algo == "IMPALA":
+        # On-policy data puts the importance weights at 1 within an ulp,
+        # on the c-clip row's threshold (w >= c_bar = 1): there the row's
+        # 0/1 flags follow the last bit of each side's log-probs. Rows with
+        # a weight that close may differ; every other row must agree.
+        from tpu_rl_torch.algos.ppo import policy_outputs
+
+        lp = policy_outputs(loop.family, state.params, batch)[0]
+        w = torch.exp(lp[:, :-1] - batch.log_prob[:, :-1]).reshape(lp.shape[0], -1)
+        near = ((w - loop.cfg.c_bar).abs() <= 1e-6).any(dim=1).numpy()
+        got = metrics["diag"]["rows"].pop("c-clip").numpy()
+        want = np.asarray(jmetrics["diag"]["rows"].pop("c-clip"))
+        np.testing.assert_array_equal(got[~near], want[~near])
+    _assert_metrics_close(metrics, jmetrics)
+    _assert_states_close(new, jax.device_get(jnew))
+    assert int(stats["episodes"]) == int(np.asarray(jdone).sum()) > 0
+
+
+def test_pendulum_rollout_carries_continuous_actions():
+    """PPO-Continuous on Pendulum: (B,S,A) f32 actions and per-dimension
+    log-probs, zero behaviour logits, negative costs scaled, and a few
+    updates that stay finite."""
+    loop = ColocatedLoop(Config(**_kw(env="Pendulum-v1", algo="PPO-Continuous", time_horizon=3,
+                                      loss_log_interval=1)), seed=0, max_updates=2, device="cpu")
+    carry = loop.init_carry(torch.Generator().manual_seed(0))
+    _c, batch, done, _r = loop.rollout({"actor": loop.state.params["actor"]}, carry,
+                                       torch.Generator().manual_seed(1))
+    assert batch.act.shape == batch.log_prob.shape == batch.logits.shape == (8, 5, 1)
+    assert batch.act.dtype == torch.float32 and not batch.logits.any()
+    assert float(batch.rew.max()) <= 0.0 and done[:, 2].all()
+    out = loop.run(log=False)
+    assert out["updates"] == 2 and all(math.isfinite(out[k]) for k in SUMMARY_KEYS)
+    assert out["episodes"] > 0

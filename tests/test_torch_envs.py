@@ -1,6 +1,6 @@
 """The port's device envs (``tpu_rl_torch.envs``) against ``tpu_rl.envs`` on
-the CPU: CartPole's step state for state over a seeded action sequence
-(atol 1e-5, termination flags equal), and ``make_vec_env``'s auto-reset on
+the CPU: CartPole's and Pendulum's steps state for state over seeded action
+sequences (atol 1e-5, termination flags equal), and ``make_vec_env``'s auto-reset on
 termination and at the horizon with the same ``done``, ``t`` and reward.
 Reset draws come from different generators (threefry vs Philox/mt19937),
 so reset states are injected from numpy on both sides."""
@@ -15,9 +15,12 @@ import torch
 
 from tpu_rl.envs import CARTPOLE as JAX_CARTPOLE
 from tpu_rl.envs import make_vec_env as jax_make_vec_env
+from tpu_rl.envs import PENDULUM as JAX_PENDULUM
 from tpu_rl.envs.cartpole import step as jax_step
-from tpu_rl_torch.envs import CARTPOLE, get_spec, make_vec_env
+from tpu_rl.envs.pendulum import step as jax_pendulum_step
+from tpu_rl_torch.envs import CARTPOLE, PENDULUM, get_spec, make_vec_env
 from tpu_rl_torch.envs.cartpole import step
+from tpu_rl_torch.envs.pendulum import step as pendulum_step
 
 ATOL = 1e-5
 
@@ -93,9 +96,47 @@ def test_reset_draws_from_the_generator():
 
 
 def test_spec_registry():
+    """Both envs of tpu_rl's colocated mode are served (Pendulum since the
+    continuous algorithms landed), with tpu_rl's spaces; others raise."""
     assert get_spec("CartPole-v1") is CARTPOLE
     assert (CARTPOLE.obs_shape, CARTPOLE.action_space) == (JAX_CARTPOLE.obs_shape, JAX_CARTPOLE.action_space)
-    with pytest.raises(NotImplementedError, match="other-algorithms slice"):
-        get_spec("Pendulum-v1")
+    assert get_spec("Pendulum-v1") is PENDULUM
+    assert (PENDULUM.obs_shape, PENDULUM.action_space, PENDULUM.is_continuous) == (
+        JAX_PENDULUM.obs_shape, JAX_PENDULUM.action_space, JAX_PENDULUM.is_continuous)
     with pytest.raises(ValueError, match="no device dynamics"):
         get_spec("Acrobot-v1")
+
+
+def test_pendulum_step_matches_state_for_state():
+    """Pendulum under seeded torques beyond the clip, both sides stepped
+    from the same state at every step (the pendulum spins, and f32 rounding
+    of a growing angle would otherwise compound): the semi-implicit step,
+    the torque and speed clips, the cost from the pre-step state (through
+    ``_angle_normalize`` of angles past ±pi) and the observation, at 1e-5
+    over 60 steps; it never terminates."""
+    rng = np.random.default_rng(2)
+    n, steps = 16, 60
+    s = np.stack([rng.uniform(-3 * np.pi, 3 * np.pi, n), rng.uniform(-8, 8, n)], -1).astype(np.float32)
+    actions = rng.normal(scale=3.0, size=(steps, n, 1)).astype(np.float32)
+    v_step = jax.jit(jax.vmap(jax_pendulum_step, in_axes=(0, 0, None)))
+    js, ts = jnp.asarray(s), torch.from_numpy(s.copy())
+    for t in range(steps):
+        js, jobs, jrew, jdone = v_step(js, jnp.asarray(actions[t]), jax.random.key(0))
+        ts, obs, rew, done = pendulum_step(ts, torch.from_numpy(actions[t]))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=ATOL, rtol=0, err_msg=f"step {t}")
+        np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), atol=ATOL, rtol=0)
+        np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), atol=ATOL, rtol=0)
+        np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
+        ts = torch.from_numpy(np.array(js))
+    assert float(np.abs(ts[:, 1].numpy()).max()) <= 8.0
+
+
+def test_pendulum_reset_draws_from_the_generator():
+    v_reset, _ = make_vec_env(PENDULUM, 256, 200)
+    s1, o1 = v_reset(torch.Generator().manual_seed(3), torch.device("cpu"))
+    s2, _ = v_reset(torch.Generator().manual_seed(3), torch.device("cpu"))
+    torch.testing.assert_close(s1["phys"], s2["phys"], rtol=0, atol=0)
+    theta, theta_dot = s1["phys"].unbind(-1)
+    assert float(theta.abs().max()) <= np.pi and float(theta.std()) > 1.0
+    assert float(theta_dot.abs().max()) <= 1.0
+    torch.testing.assert_close(o1, torch.stack([theta.cos(), theta.sin(), theta_dot], -1))

@@ -139,11 +139,22 @@ class TestDispatch:
         of quietly serving ``family.act``."""
         *_, cfg, fam, _params, _x = _setup(32, 6, 3, 16)
         other = replace(fam, actor=torch.nn.Linear(6, 3))
-        with pytest.raises(NotImplementedError, match="other-algorithms slice"):
+        with pytest.raises(NotImplementedError, match="covers only the discrete actor-critic"):
             make_fused_act(other)
-        with pytest.raises(NotImplementedError, match="other-algorithms slice"):
+        with pytest.raises(NotImplementedError, match="covers only the discrete actor-critic"):
             make_act_fn(cfg.replace(act_kernel="pallas"), other)
         assert make_act_fn(cfg, other) is other.act
+
+    @pytest.mark.parametrize("algo", ["PPO-Continuous", "SAC", "SAC-Continuous"])
+    def test_other_families_are_refused_as_tpu_rl_leaves_them_unfused(self, algo):
+        """tpu_rl's make_fused_act returns None for every family but the
+        discrete f32 actor-critic; the port raises for those families."""
+        spaces = dict(obs_shape=(3,), action_space=1) if "Continuous" in algo else {}
+        jfam = jax_build_family(small_config(algo=algo, **spaces))
+        assert jax_make_fused_act(jfam) is None
+        fam = build_family(Config(algo=algo, **spaces), device="cpu")
+        with pytest.raises(NotImplementedError, match="covers only the discrete actor-critic"):
+            make_fused_act(fam)
 
     def test_cpu_pallas_path_equals_unfused(self):
         """On CPU tensors the fused path is the plain version: the same

@@ -97,8 +97,10 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
         Config.from_dict({"act_kernel": "triton"})
     with pytest.raises(AssertionError):
         Config().replace(inference_buckets=-1)
+    # SAC builds now; in colocated mode (no replay) it is refused as in tpu_rl
+    with pytest.raises(AssertionError, match="on-policy only"):
+        Config.from_dict({"algo": "SAC", "env_mode": "colocated"})
     for kw, slice_name in (
-        ({"algo": "SAC"}, "other-algorithms"),
         ({"model": "transformer", "attention_impl": "ring"}, "sequence-parallel slice"),
         ({"model": "transformer", "attention_impl": "ulysses"}, "sequence-parallel slice"),
         ({"model": "transformer", "attention_impl": "blockwise"}, "blockwise-attention slice"),
@@ -156,3 +158,52 @@ def test_config_loads_a_full_tpu_rl_params_file():
     assert cfg.hidden_size == 256 and cfg.inference_batch == 256
     assert cfg.obs_shape == (4,)
     assert "chaos_spec" in cfg.extra and "hidden_size" not in cfg.extra
+
+
+# The reference's algorithm keys: (key, default, a value its assert refuses).
+ALGO_KEYS = [
+    ("alpha", 0.2, 0.0), ("tau", 0.005, 1.5), ("alpha_min", 0.0, -0.1), ("alpha_lr", None, 0.0),
+    ("target_entropy", None, None), ("sac_reference_alpha", False, None), ("rho_bar", 0.8, 0.05),
+    ("rho_min", 0.1, 0.0), ("c_bar", 1.0, 0.0), ("value_target_clip", None, [1.0, 1.0]),
+    ("v_mpo_lagrange_multiplier_init", 5.0, None), ("coef_eta", 0.01, 0.0),
+    ("coef_alpha_upper", 0.01, None), ("coef_alpha_below", 0.005, None), ("std_floor", 0.0, -1.0),
+]
+
+
+@pytest.mark.parametrize("key,default,bad", ALGO_KEYS, ids=[k[0] for k in ALGO_KEYS])
+def test_algorithm_keys_load_with_the_reference_default_and_assert(key, default, bad):
+    """Each algorithm key of tpu_rl's Config is a field of the port's, with
+    tpu_rl's default (they used to fall into ``extra`` without a word), and
+    the value tpu_rl's validate refuses is refused here too."""
+    from tpu_rl.config import Config as JaxConfig
+
+    assert getattr(Config(), key) == getattr(JaxConfig(), key) == default
+    cfg = Config.from_dict({key: default})
+    assert key not in cfg.extra and getattr(cfg, key) == default
+    if bad is not None:
+        with pytest.raises(AssertionError):
+            JaxConfig.from_dict({key: bad})
+        with pytest.raises(AssertionError):
+            Config.from_dict({key: bad})
+
+
+def test_algorithm_keys_parse_like_tpu_rl():
+    """value_target_clip comes back a tuple; rho_bar 0.5 is a field, not a
+    silent extra; SAC's two entropy rules conflict; a continuous env with a
+    discrete algorithm is refused; off-policy algorithms are refused in
+    colocated mode, as in tpu_rl."""
+    from tpu_rl.config import Config as JaxConfig
+
+    assert Config.from_dict({"value_target_clip": [0, 9.93]}).value_target_clip == (0, 9.93)
+    cfg = Config.from_dict({"algo": "PPO", "rho_bar": 0.5})
+    assert cfg.rho_bar == 0.5 and cfg.extra == {}
+    for raw, err in (
+        ({"sac_reference_alpha": True, "target_entropy": -1.0}, ValueError),
+        ({"algo": "PPO", "is_continuous": True}, ValueError),
+        ({"algo": "SAC-Continuous", "env_mode": "colocated"}, AssertionError),
+    ):
+        with pytest.raises(err):
+            JaxConfig.from_dict(raw)
+        with pytest.raises(err):
+            Config.from_dict(raw)
+    assert Config.from_dict({"algo": "V-MPO", "env_mode": "colocated"}).algo == "V-MPO"

@@ -245,6 +245,33 @@ def test_fused_act_kernel_path_serves_on_cpu():
             np.testing.assert_allclose(a[key], b[key], atol=1e-6, err_msg=key)
 
 
+@pytest.mark.parametrize("algo", ["PPO-Continuous", "SAC-Continuous", "SAC"])
+def test_other_families_are_served(algo):
+    """A Gaussian policy's replies carry (n, A) f32 actions, per-dimension
+    log-probs and zero logits; SAC's discrete actor replies like the
+    actor-critic. The log-prob is the family's own for the action sent."""
+    from tpu_rl_torch.ops import distributions as D
+
+    A = 2 if algo != "SAC" else 3
+    cfg, family, params, router, svc = _start_service(algo=algo, obs_shape=(3,), action_space=A)
+    try:
+        reply = router.client(b"w0").act(_obs(2, cfg), np.ones(2, np.float32), timeout_ms=5000)
+    finally:
+        svc.close()
+    wide = A if family.continuous else 1
+    assert reply["act"].shape == reply["log_prob"].shape == (2, wide)
+    assert reply["logits"].shape == (2, A) and reply["act"].dtype == np.float32
+    assert np.isfinite(reply["log_prob"]).all()
+    if algo == "PPO-Continuous":
+        obs = torch.from_numpy(_obs(2, cfg))
+        zeros = torch.zeros(2, 16)
+        mu, std, _v, _c = torch.func.functional_call(family.actor, params["actor"],
+                                                     (obs, (zeros, zeros)))
+        want = D.normal_log_prob(mu, std, torch.from_numpy(reply["act"]))
+        np.testing.assert_allclose(reply["log_prob"], want.detach().numpy(), atol=1e-5)
+        assert not reply["logits"].any()
+
+
 def test_close_stops_the_serve_thread(service):
     *_, svc = service
     assert svc.running

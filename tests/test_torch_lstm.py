@@ -382,3 +382,66 @@ def test_kernel_emulation_matches_plain_and_pallas(shape):
     for g, p, w, name in zip(got, (dxp, dh0, dc0), want, ("dxp", "dh0", "dc0"), strict=True):
         np.testing.assert_allclose(g.numpy(), p.numpy(), atol=GRAD_ATOL, rtol=0, err_msg=name)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
+# ------------------------------------------- B1/B2 calls on each train path
+def _count_kernel_calls(monkeypatch):
+    """Count the calls of the kernel wrappers ``lstm_fwd``/``lstm_bwd`` (on
+    the CPU they run the plain versions; on the card each call is one
+    launch, counted by the wrappers themselves)."""
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = L.lstm_fwd, L.lstm_bwd
+
+    def count_fwd(*a):
+        calls["fwd"] += 1
+        return fwd(*a)
+
+    def count_bwd(*a):
+        calls["bwd"] += 1
+        return bwd(*a)
+
+    monkeypatch.setattr(L, "lstm_fwd", count_fwd)
+    monkeypatch.setattr(L, "lstm_bwd", count_bwd)
+    return calls
+
+
+def test_unroll_without_grad_is_b1_alone(monkeypatch):
+    """Under ``torch.no_grad()``, or with no input that requires a gradient,
+    ``lstm_unroll`` is one B1 call that saves nothing: no graph, no B2; with
+    a gradient it is one B1 and, on backward, one B2."""
+    calls = _count_kernel_calls(monkeypatch)
+    g = torch.Generator().manual_seed(0)
+    xp, wh, h0, c0 = (torch.randn(s, generator=g) for s in ((3, 4, 32), (8, 32), (3, 8), (3, 8)))
+    keep = torch.ones(3, 4)
+    with torch.no_grad():
+        hs, _cs = L.lstm_unroll(xp, wh.requires_grad_(), h0, c0, keep)
+    assert hs.grad_fn is None and calls == {"fwd": 1, "bwd": 0}
+    hs, _cs = L.lstm_unroll(xp, wh.detach(), h0, c0, keep)
+    assert hs.grad_fn is None and calls == {"fwd": 2, "bwd": 0}
+    hs, _cs = L.lstm_unroll(xp.requires_grad_(), wh.detach(), h0, c0, keep)
+    (dxp,) = torch.autograd.grad(hs.sum(), [xp])
+    assert calls == {"fwd": 3, "bwd": 1} and dxp.shape == xp.shape
+
+
+# B1 / B2 calls per epoch of each algorithm's train step (chip_smoke.py
+# asserts the same counts on the card): one unroll with its backward for the
+# shared-torso algorithms; SAC's are listed in tpu_rl_torch/algos/sac.py.
+LAUNCHES_PER_EPOCH = {"PPO": (1, 1), "IMPALA": (1, 1), "V-MPO": (1, 1), "PPO-Continuous": (1, 1),
+                      "SAC": (8, 3), "SAC-Continuous": (8, 5)}
+
+
+@pytest.mark.parametrize("algo", sorted(LAUNCHES_PER_EPOCH))
+def test_kernel_calls_per_train_step(monkeypatch, algo):
+    from tests.test_torch_ppo import SPACES, _batch_np
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.types import Batch
+
+    obs_shape, n = SPACES[algo]
+    cfg = Config.from_dict(dict(algo=algo, hidden_size=16, batch_size=8, buffer_size=32,
+                                obs_shape=list(obs_shape), action_space=n, K_epoch=2))
+    family, state, step = get_algo(algo).build(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = Batch.from_mapping(_batch_np(cfg, 0, family.continuous), device="cpu")
+    calls = _count_kernel_calls(monkeypatch)
+    step(state, batch, torch.Generator().manual_seed(1))
+    fwd, bwd = LAUNCHES_PER_EPOCH[algo]
+    assert calls == {"fwd": 2 * fwd, "bwd": 2 * bwd}

@@ -1,31 +1,37 @@
-"""PPO (discrete) train step — the port of ``tpu_rl.algos.ppo``.
+"""PPO (discrete and continuous) train step — the port of ``tpu_rl.algos.ppo``.
 
 The clipped-surrogate update with GAE advantages masked by
 ``(1 - is_fir[:, 1:])``, a smooth-L1 value loss against a no-grad TD
 target, an entropy bonus, a global-norm gradient clip and RMSprop;
-``K_epoch`` epochs per step. The whole step stays on the device: metrics
-come back as 0-d tensors, and the update guard selects with
-``torch.where``.
+``K_epoch`` epochs per step. PPO-Continuous takes per-dimension Gaussian
+log-probs, so its ratio, clip and diag rows broadcast over the action
+dimensions. The whole step stays on the device: metrics come back as 0-d
+tensors, and the update guard selects with ``torch.where``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_rl_torch.algos.base import TrainState, rmsprop
+from tpu_rl_torch.algos.base import TrainState, make_on_policy_step
 from tpu_rl_torch.config import Config
-from tpu_rl_torch.heal.guards import guarded, update_ok
-from tpu_rl_torch.obs.learn import module_grad_norms, rows_mean, tree_delta_norm, tree_norm
+from tpu_rl_torch.obs.learn import rows_mean
 from tpu_rl_torch.ops import distributions as D
-from tpu_rl_torch.ops.losses import clip_subtree_by_global_norm, smooth_l1
+from tpu_rl_torch.ops.losses import smooth_l1
 from tpu_rl_torch.ops.returns import gae
 from tpu_rl_torch.types import Batch
 
 
 def policy_outputs(family, params, batch: Batch):
-    """Shared-torso forward. Returns (log_probs (B,S,1), entropy (B,S,1),
-    value (B,S,1), logits (B,S,A))."""
+    """Shared-torso forward of the on-policy families. Returns (log_probs
+    (B,S,1), or per dimension (B,S,A) for a Gaussian policy; entropy
+    (B,S,1); value (B,S,1); logits (B,S,A), zeros for a Gaussian policy)."""
     carry0 = (batch.hx[:, 0], batch.cx[:, 0])
+    if family.continuous:
+        mu, std, value, _ = family.actor_unroll(params["actor"], batch.obs, carry0, batch.is_fir)
+        log_probs = D.normal_log_prob(mu, std, batch.act)
+        entropy = torch.mean(D.normal_entropy(std), dim=-1, keepdim=True)
+        return log_probs, entropy, value, torch.zeros_like(mu)
     logits, value, _ = family.actor_unroll(params["actor"], batch.obs, carry0, batch.is_fir)
     log_probs = D.categorical_log_prob(logits, batch.act[..., 0])[..., None]
     entropy = D.categorical_entropy(logits)[..., None]
@@ -41,8 +47,8 @@ def td_target_and_gae(cfg: Config, batch: Batch, value: torch.Tensor):
 
 
 def make_train_step(cfg: Config, family):
-    """``train_step(state, batch) -> (state, metrics)``."""
-    opt = rmsprop(cfg)
+    """``train_step(state, batch, generator=None) -> (state, metrics)``; PPO
+    draws nothing, so ``generator`` is unused."""
 
     def loss_fn(params, batch: Batch):
         log_probs, entropy, value, _ = policy_outputs(family, params, batch)
@@ -95,47 +101,9 @@ def make_train_step(cfg: Config, family):
             }
         return loss, metrics
 
-    def value_and_grad(params, batch: Batch):
-        leaves = {k: {n: p.detach().requires_grad_() for n, p in g.items()} for k, g in params.items()}
-        loss, metrics = loss_fn(leaves, batch)
-        flat = [p for g in leaves.values() for p in g.values()]
-        grads_flat = torch.autograd.grad(loss, flat)
-        it = iter(grads_flat)
-        grads = {k: {n: next(it) for n in g} for k, g in leaves.items()}
-        metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
-        return metrics, grads
+    step = make_on_policy_step(cfg, loss_fn)
 
-    guard = cfg.update_guard
-
-    def train_step(state: TrainState, batch: Batch):
-        params0 = state.params
-        metrics: dict = {}
-        grads = None
-        nf = None
-        for _ in range(cfg.K_epoch):
-            metrics, grads = value_and_grad(state.params, batch)
-            grads, gnorm = clip_subtree_by_global_norm(grads, cfg.max_grad_norm)
-            if guard:
-                ok = update_ok(metrics["loss"], gnorm)
-                params, opt_state = guarded(
-                    ok,
-                    lambda grads=grads, state=state: opt.apply(grads, state.opt_state, state.params),
-                    (state.params, state.opt_state),
-                )
-                skipped = 1.0 - ok.float()
-                nf = skipped if nf is None else nf + skipped
-            else:
-                params, opt_state = opt.apply(grads, state.opt_state, state.params)
-            state = state.replace(params=params, opt_state=opt_state)
-            metrics["grad-norm"] = gnorm
-        if guard:
-            metrics["nonfinite-updates"] = nf
-        if cfg.learn_diag:
-            metrics["diag"]["scalars"].update(
-                {f"grad-norm-{k}": v for k, v in module_grad_norms(grads).items()}
-            )
-            metrics["diag"]["scalars"]["update-norm"] = tree_delta_norm(state.params, params0)
-            metrics["diag"]["scalars"]["param-norm"] = tree_norm(state.params)
-        return state.replace(step=state.step + 1), metrics
+    def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
+        return step(state, batch)
 
     return train_step

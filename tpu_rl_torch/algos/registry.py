@@ -1,4 +1,4 @@
-"""Algorithm registry — the port of ``tpu_rl.algos.registry`` (PPO so far)."""
+"""Algorithm registry — the port of ``tpu_rl.algos.registry``."""
 
 from __future__ import annotations
 
@@ -7,13 +7,10 @@ from typing import Callable
 
 import torch
 
-from tpu_rl_torch.algos import ppo
+from tpu_rl_torch.algos import impala, ppo, sac, vmpo
 from tpu_rl_torch.algos.base import make_train_state
-from tpu_rl_torch.config import Config
-from tpu_rl_torch.models.families import build_family
-
-# tpu_rl's other algorithms; each comes with the other-algorithms slice.
-_LATER = ("PPO-Continuous", "IMPALA", "V-MPO", "SAC", "SAC-Continuous")
+from tpu_rl_torch.config import Config, is_off_policy
+from tpu_rl_torch.models.families import ALGOS, build_family
 
 
 @dataclass(frozen=True)
@@ -30,20 +27,29 @@ class AlgoSpec:
     ):
         """Returns (family, initial state, train_step) on ``device`` (CUDA
         unless the caller passes ``device="cpu"``); the initial weights are
-        drawn from ``generator`` (a CPU generator)."""
+        drawn from ``generator`` (a CPU generator). ``train_step(state,
+        batch, generator=None, ...)`` draws what it samples from
+        ``generator`` (a generator on ``device``), or takes that noise as
+        an argument (V-MPO's ``coef_alpha_u``, SAC-Continuous's ``noise``)."""
         family = build_family(cfg, device=device)
         state = make_train_state(cfg, family, generator)
         return family, state, self.make_train_step(cfg, family)
 
 
-_REGISTRY: dict[str, AlgoSpec] = {"PPO": AlgoSpec("PPO", True, ppo.make_train_step)}
+_REGISTRY: dict[str, AlgoSpec] = {
+    "PPO": AlgoSpec("PPO", True, ppo.make_train_step),
+    "PPO-Continuous": AlgoSpec("PPO-Continuous", True, ppo.make_train_step),
+    "IMPALA": AlgoSpec("IMPALA", True, impala.make_train_step),
+    "V-MPO": AlgoSpec("V-MPO", True, vmpo.make_train_step),
+    "SAC": AlgoSpec("SAC", False, sac.make_train_step),
+    "SAC-Continuous": AlgoSpec("SAC-Continuous", False, sac.make_train_step),
+}
+
+assert set(_REGISTRY) == set(ALGOS)
+assert all(spec.on_policy != is_off_policy(name) for name, spec in _REGISTRY.items())
 
 
 def get_algo(name: str) -> AlgoSpec:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"algo={name!r}: comes with the other-algorithms slice of the port"
-        )
     if name not in _REGISTRY:
         raise ValueError(f"unknown algo {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

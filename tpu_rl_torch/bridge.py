@@ -18,8 +18,14 @@ and back), so neither package imports the other.
   and ``params/value``, each to the same dotted path.
 
 :func:`train_state_from_flax` carries a whole ``tpu_rl`` ``TrainState``
-(step, params, optax RMSprop state) of either family into the port's
-:class:`~tpu_rl_torch.algos.base.TrainState`.
+(step, params, optax RMSprop state; V-MPO's duals) of either family into the
+port's :class:`~tpu_rl_torch.algos.base.TrainState`, and
+:func:`sac_state_from_flax` a ``SACState`` (actor, twin and target critics,
+``log_alpha``, three optax Adam states) into the port's
+:class:`~tpu_rl_torch.algos.base.SACState`. The SAC critics' flax paths
+``params/q1/...`` and ``params/q2/...`` become ``q1.*`` and ``q2.*``; the
+continuous critic's ``obs_body``, ``act_body``, ``cell`` and ``q``, and the
+Gaussian heads ``mu``, ``std`` and ``log_std``, map like any Dense.
 """
 
 from __future__ import annotations
@@ -80,17 +86,62 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
     return {"params": root}
 
 
+def _duals(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """V-MPO's top-level 0-d ``log_eta``/``log_alpha`` leaves -> the port's
+    ``duals`` group."""
+    return {k: torch.tensor(np.asarray(tree[k])) for k in ("log_eta", "log_alpha")}
+
+
 def train_state_from_flax(state: Any):
     """A ``tpu_rl`` ``TrainState`` with numpy leaves (``jax.device_get``)
     -> the port's ``TrainState`` on the CPU. ``params["actor"]`` and optax's
     RMSprop ``nu`` tree go through the same mapping (a Dense kernel's ``nu``
-    is transposed like the kernel, a LayerNorm scale's is not); ``step`` is
-    copied."""
+    is transposed like the kernel, a LayerNorm scale's is not); V-MPO's
+    ``log_eta``/``log_alpha`` and their ``nu`` go to the ``duals`` group;
+    ``step`` is copied."""
     from tpu_rl_torch.algos.base import TrainState
 
     nu = next(s.nu for s in state.opt_state if hasattr(s, "nu"))
+    params = {"actor": flax_to_state_dict(state.params["actor"])}
+    nu_tree = {"actor": flax_to_state_dict(nu["actor"])}
+    if "log_eta" in state.params:
+        params["duals"], nu_tree["duals"] = _duals(state.params), _duals(nu)
     return TrainState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
-        params={"actor": flax_to_state_dict(state.params["actor"])},
-        opt_state={"nu": {"actor": flax_to_state_dict(nu["actor"])}},
+        params=params,
+        opt_state={"nu": nu_tree},
+    )
+
+
+def _adam_from_optax(opt_state: Any, to_tree) -> dict[str, Any]:
+    """optax's ``adam`` state (a chain whose ``ScaleByAdamState`` holds
+    ``count``, ``mu``, ``nu``) -> the port's ``{"mu", "nu", "count"}``, the
+    moments mapped by ``to_tree`` like their parameters."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    return {
+        "mu": to_tree(adam.mu),
+        "nu": to_tree(adam.nu),
+        "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+    }
+
+
+def sac_state_from_flax(state: Any):
+    """A ``tpu_rl`` ``SACState`` with numpy leaves -> the port's
+    ``SACState`` on the CPU: the actor, the twin critic (``q1.*``/``q2.*``)
+    and the target critic as state_dicts, ``log_alpha``, and the three Adam
+    states (moments transposed like their kernels)."""
+    from tpu_rl_torch.algos.base import SACState
+
+    def scalar(x):
+        return torch.tensor(np.asarray(x))
+
+    return SACState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        actor_params=flax_to_state_dict(state.actor_params),
+        critic_params=flax_to_state_dict(state.critic_params),
+        target_critic_params=flax_to_state_dict(state.target_critic_params),
+        log_alpha=scalar(state.log_alpha),
+        actor_opt=_adam_from_optax(state.actor_opt, flax_to_state_dict),
+        critic_opt=_adam_from_optax(state.critic_opt, flax_to_state_dict),
+        alpha_opt=_adam_from_optax(state.alpha_opt, scalar),
     )

@@ -15,6 +15,13 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+# Algorithms that train from a replay (tpu_rl.config.OFF_POLICY_ALGOS).
+OFF_POLICY_ALGOS = frozenset({"SAC", "SAC-Continuous"})
+
+
+def is_off_policy(algo: str) -> bool:
+    return algo in OFF_POLICY_ALGOS
+
 # Keys of a tpu_rl params file that the port keeps in ``extra`` but refuses
 # away from their default: (key, is it set?, the slice of the port that
 # brings it). Defaults as in tpu_rl.config.Config; telemetry_port and
@@ -82,6 +89,28 @@ class Config:
     policy_loss_coef: float = 1.0
     value_loss_coef: float = 0.5
     entropy_coef: float = 0.00005
+    # SAC: initial temperature, Polyak rate, temperature floor (0 = none),
+    # the temperature's Adam lr (None = lr), the target entropy (None = the
+    # rule of algos/sac.py) and the reference's own alpha rule (audit only).
+    alpha: float = 0.2
+    tau: float = 0.005
+    alpha_min: float = 0.0
+    alpha_lr: float | None = None
+    target_entropy: float | None = None
+    sac_reference_alpha: bool = False
+    # V-trace clips (IMPALA) and the optional [v_min, v_max] clamp of the
+    # values and targets (None = no clamp).
+    rho_bar: float = 0.8
+    rho_min: float = 0.1
+    c_bar: float = 1.0
+    value_target_clip: tuple[float, float] | None = None
+    # V-MPO: initial Lagrange multipliers and the dual coefficients.
+    v_mpo_lagrange_multiplier_init: float = 5.0
+    coef_eta: float = 0.01
+    coef_alpha_upper: float = 0.01
+    coef_alpha_below: float = 0.005
+    # Lower bound of the Gaussian policy's std (PPO-Continuous); 0 = none.
+    std_floor: float = 0.0
     # optimization
     K_epoch: int = 1
     lr: float = 0.0001
@@ -110,8 +139,9 @@ class Config:
     def from_dict(cls, raw: dict[str, Any]) -> "Config":
         names = {f.name for f in dataclasses.fields(cls)} - {"extra"}
         kwargs = {k: v for k, v in raw.items() if k in names}
-        if isinstance(kwargs.get("obs_shape"), list):
-            kwargs["obs_shape"] = tuple(kwargs["obs_shape"])
+        for k in ("obs_shape", "value_target_clip"):
+            if isinstance(kwargs.get(k), list):
+                kwargs[k] = tuple(kwargs[k])
         cfg = cls(**kwargs, extra={k: v for k, v in raw.items() if k not in names})
         cfg.validate()
         return cfg
@@ -135,12 +165,38 @@ class Config:
         assert self.time_horizon >= 1, self.time_horizon
         assert self.reward_scale != 0.0, "reward_scale 0 zeroes every reward"
         assert self.eps_clip > 0, self.eps_clip
+        assert self.alpha > 0, self.alpha
+        assert 0.0 < self.tau <= 1.0, self.tau
+        assert self.alpha_min >= 0, self.alpha_min
+        assert self.alpha_lr is None or self.alpha_lr > 0, self.alpha_lr
+        assert 0.0 < self.rho_min <= self.rho_bar, (self.rho_min, self.rho_bar)
+        assert self.c_bar > 0, self.c_bar
+        assert self.coef_eta > 0, self.coef_eta
+        assert self.std_floor >= 0.0, (
+            f"std_floor must be >= 0 (got {self.std_floor}): a negative floor "
+            "makes the Gaussian std negative and log-probs NaN"
+        )
+        if self.sac_reference_alpha and self.target_entropy is not None:
+            raise ValueError(
+                "sac_reference_alpha=True pins target_entropy to the "
+                "reference's +action_space rule; unset target_entropy "
+                f"(got {self.target_entropy})"
+            )
+        if self.value_target_clip is not None:
+            lo, hi = self.value_target_clip  # must be a (lo, hi) pair
+            assert float(lo) < float(hi), self.value_target_clip
         assert self.K_epoch >= 1, self.K_epoch
         assert self.lr > 0, self.lr
         assert self.max_grad_norm > 0, self.max_grad_norm
         assert self.loss_log_interval >= 1, self.loss_log_interval
         assert self.env_mode in ("distributed", "colocated"), self.env_mode
         assert self.colocated_envs >= 0, self.colocated_envs
+        if self.env_mode == "colocated":
+            assert not is_off_policy(self.algo), (
+                f"env_mode='colocated' is on-policy only (each fused rollout "
+                f"trains once, no replay); {self.algo} needs "
+                f"env_mode='distributed'"
+            )
         assert self.compute_dtype in (
             "float32",
             "bfloat16",
@@ -159,8 +215,14 @@ class Config:
                 "of the port"
             )
         if self.model == "transformer":
-            assert self.algo not in ("SAC", "SAC-Continuous"), (
+            assert not is_off_policy(self.algo), (
                 "transformer backbone supports the on-policy algorithms"
+            )
+        if self.is_continuous and not self.algo.endswith("-Continuous"):
+            raise ValueError(
+                f"algo {self.algo!r} is discrete-only but env {self.env!r} "
+                "has a continuous action space; use PPO-Continuous or "
+                "SAC-Continuous"
             )
         assert self.worker_num_envs >= 1, self.worker_num_envs
         assert self.inference_batch >= 1, self.inference_batch

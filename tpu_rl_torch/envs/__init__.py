@@ -4,15 +4,12 @@ distributed path uses, so the loop never imports gym."""
 
 from tpu_rl_torch.envs.cartpole import CARTPOLE
 from tpu_rl_torch.envs.core import EnvSpec, make_vec_env
+from tpu_rl_torch.envs.pendulum import PENDULUM
 
-SPECS: dict[str, EnvSpec] = {CARTPOLE.name: CARTPOLE}
+SPECS: dict[str, EnvSpec] = {CARTPOLE.name: CARTPOLE, PENDULUM.name: PENDULUM}
 
 
 def get_spec(name: str) -> EnvSpec:
-    if name == "Pendulum-v1":
-        raise NotImplementedError(
-            "Pendulum-v1 (a continuous env) comes with the other-algorithms slice of the port"
-        )
     if name not in SPECS:
         raise ValueError(
             f"no device dynamics for env {name!r}; the colocated loop knows {sorted(SPECS)}"
@@ -20,4 +17,4 @@ def get_spec(name: str) -> EnvSpec:
     return SPECS[name]
 
 
-__all__ = ["SPECS", "EnvSpec", "get_spec", "make_vec_env"]
+__all__ = ["CARTPOLE", "PENDULUM", "SPECS", "EnvSpec", "get_spec", "make_vec_env"]

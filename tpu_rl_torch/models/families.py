@@ -1,16 +1,23 @@
 """Model-family registry — the port of ``tpu_rl.models.families``.
 
-A family bundles the module with plain functions over a separate parameter
-dict, ``{"actor": state_dict}``, so a server can swap one params reference
-without touching the module. ``act(params, obs, h, c, generator=None,
-gumbel=None)`` returns ``(action f32 (B,1), log-softmax logits (B,A),
-log_prob (B,1), h', c')``, the contract of ``tpu_rl``'s ``family.act``;
-``actor_unroll(actor_params, obs, carry0, firsts)`` returns the sequence
-forward ``(logits (B,S,A), value (B,S,1), carry)`` for the learner.
+A family bundles the modules with plain functions over a separate parameter
+dict, ``{"actor": state_dict}`` (and ``"critic"`` for SAC), so a server can
+swap one params reference without touching the module. ``act(params, obs,
+h, c, generator=None, gumbel=None | noise=None)`` returns ``(action f32,
+behaviour logits (B,A), log_prob, h', c')``, the contract of ``tpu_rl``'s
+``family.act``: a (B,1) action index and (B,1) log-prob for a categorical
+policy (log-softmax logits), a (B,A) action and per-dimension (B,A)
+log-prob for a Gaussian one (zero logits). ``actor_unroll(actor_params,
+obs, carry0, firsts)`` and ``critic_unroll(critic_params, *args)`` are the
+learner's sequence forwards; ``act_greedy`` (continuous families) the
+deterministic act.
 
-Two families: the LSTM ``DiscreteActorCritic`` (``cfg.model="lstm"``) and
-the ``TransformerActorCritic`` (``"transformer"``), which acts through
-KV-cached ``decode`` and carries its caches in the (h, c) slots.
+Families by ``cfg.algo``: PPO, IMPALA and V-MPO share the LSTM
+``DiscreteActorCritic`` (or, with ``cfg.model="transformer"``, the
+``TransformerActorCritic``, which acts through KV-cached ``decode`` and
+carries its caches in the (h, c) slots); PPO-Continuous the
+``ContinuousActorCritic``; SAC and SAC-Continuous an actor with a separate
+twin critic.
 """
 
 from __future__ import annotations
@@ -25,11 +32,20 @@ from torch.func import functional_call
 
 from tpu_rl_torch import resolve_device
 from tpu_rl_torch.config import Config
-from tpu_rl_torch.models.policies import DiscreteActorCritic
+from tpu_rl_torch.models.policies import (
+    ContinuousActorCritic,
+    DiscreteActorCritic,
+    SACContinuousActor,
+    SACContinuousTwinCritic,
+    SACDiscreteActor,
+    SACDiscreteTwinCritic,
+)
 from tpu_rl_torch.models.transformer import TransformerActorCritic
 from tpu_rl_torch.ops import distributions as D
 
 Params = dict[str, dict[str, torch.Tensor]]
+
+ALGOS = ("PPO", "PPO-Continuous", "IMPALA", "V-MPO", "SAC", "SAC-Continuous")
 
 
 @dataclass(frozen=True)
@@ -50,6 +66,15 @@ class ModelFamily:
     # starts from the stored seq-step-0 states), so replies carry hx/cx.
     # Transformer training ignores the carry.
     store_carry: bool = True
+    # Gaussian actions (PPO-Continuous, SAC-Continuous).
+    continuous: bool = False
+    # A separate critic with its own optimizer (the SAC families).
+    separate: bool = False
+    critic: nn.Module | None = None
+    make_critic: Callable[[], nn.Module] | None = field(repr=False, default=None)
+    # Deterministic act, ``(params, obs, h, c) -> (action, h', c')``: the
+    # distribution's (squashed) mean; continuous families only.
+    act_greedy: Callable[..., tuple[torch.Tensor, ...]] | None = field(repr=False, default=None)
 
     @property
     def carry_widths(self) -> tuple[int, int]:
@@ -64,17 +89,27 @@ class ModelFamily:
         return self.carry_widths if self.store_carry else (1, 1)
 
     def init_params(self, generator: torch.Generator | None = None) -> Params:
-        """A fresh ``{"actor": state_dict}`` on the family's device, drawn
-        with flax's init from ``generator`` (a CPU generator, so a seed gives
-        the same weights on every machine)."""
-        module = self.make_actor()
-        module.reset_parameters(generator)
-        return {
-            "actor": {k: v.detach().to(self.device) for k, v in module.state_dict().items()}
-        }
+        """A fresh ``{"actor": state_dict}`` (and ``"critic"`` for a family
+        with a separate critic) on the family's device, drawn with flax's
+        init from ``generator`` (a CPU generator, so a seed gives the same
+        weights on every machine), the actor first."""
+        params = {}
+        for group, make in (("actor", self.make_actor), ("critic", self.make_critic)):
+            if make is None:
+                continue
+            module = make()
+            module.reset_parameters(generator)
+            params[group] = {k: v.detach().to(self.device) for k, v in module.state_dict().items()}
+        return params
 
     def actor_unroll(self, actor_params, obs, carry0, firsts):
         return functional_call(self.actor, actor_params, (obs, carry0, firsts))
+
+    def critic_unroll(self, critic_params, *args):
+        """The twin critic's ``(q1, q2)``: ``(obs, carry0, firsts)`` for the
+        discrete critic, ``(obs, act, carry0, firsts)`` for the continuous."""
+        assert self.critic is not None
+        return functional_call(self.critic, critic_params, args)
 
 
 def _act_discrete_ac(
@@ -90,6 +125,43 @@ def _act_discrete_ac(
     a = D.categorical_sample(logits, generator, gumbel=gumbel)
     log_prob = D.categorical_log_prob(logits, a)
     return a[..., None].float(), logits, log_prob[..., None], h2, c2
+
+
+def _act_continuous_ac(
+    actor: ContinuousActorCritic, params: Params, obs, h, c,
+    generator: torch.Generator | None = None, noise: torch.Tensor | None = None,
+):
+    mu, std, _v, (h2, c2) = functional_call(actor, params["actor"], (obs, (h, c)))
+    a = D.normal_sample(mu, std, generator, noise=noise)
+    return a, torch.zeros_like(mu), D.normal_log_prob(mu, std, a), h2, c2
+
+
+def _greedy_continuous_ac(actor: ContinuousActorCritic, params: Params, obs, h, c):
+    mu, _std, _v, (h2, c2) = functional_call(actor, params["actor"], (obs, (h, c)))
+    return mu, h2, c2
+
+
+def _act_sac_discrete(
+    actor: SACDiscreteActor, params: Params, obs, h, c,
+    generator: torch.Generator | None = None, gumbel: torch.Tensor | None = None,
+):
+    logits, (h2, c2) = functional_call(actor, params["actor"], (obs, (h, c)))
+    a = D.categorical_sample(logits, generator, gumbel=gumbel)
+    return a[..., None].float(), logits, D.categorical_log_prob(logits, a)[..., None], h2, c2
+
+
+def _act_sac_continuous(
+    actor: SACContinuousActor, params: Params, obs, h, c,
+    generator: torch.Generator | None = None, noise: torch.Tensor | None = None,
+):
+    mu, log_std, (h2, c2) = functional_call(actor, params["actor"], (obs, (h, c)))
+    a, log_prob = D.tanh_normal_sample(mu, torch.exp(log_std), generator, noise=noise)
+    return a, torch.zeros_like(mu), log_prob, h2, c2
+
+
+def _greedy_sac_continuous(actor: SACContinuousActor, params: Params, obs, h, c):
+    mu, _log_std, (h2, c2) = functional_call(actor, params["actor"], (obs, (h, c)))
+    return torch.tanh(mu), h2, c2
 
 
 def _act_transformer(
@@ -126,14 +198,12 @@ def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> Mod
     """Build the model family for ``cfg.algo`` and ``cfg.model`` on
     ``device`` (CUDA unless the caller passes ``device="cpu"``)."""
     dev = resolve_device(device)
-    if cfg.algo not in ("PPO", "IMPALA", "V-MPO"):
-        raise NotImplementedError(
-            f"algo={cfg.algo!r}: the continuous and SAC families come with the "
-            "other-algorithms slice of the port"
-        )
     obs_dim = int(cfg.obs_shape[0])
     n = int(cfg.action_space)
     if cfg.model == "transformer":
+        assert cfg.algo in ("PPO", "IMPALA", "V-MPO"), (
+            "transformer backbone supports the discrete on-policy algorithms"
+        )
         make = partial(
             TransformerActorCritic, obs_dim, n, cfg.hidden_size, cfg.n_heads, cfg.n_layers,
             attention_impl=cfg.attention_impl,
@@ -153,13 +223,37 @@ def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> Mod
             f"compute_dtype={cfg.compute_dtype!r} with the LSTM: bf16 compute "
             "(mixed_dot, LSTMCell.dtype) comes with the bf16-compute slice of the port"
         )
-    make = partial(DiscreteActorCritic, obs_dim, n, cfg.hidden_size,
-                   reset_on_first=cfg.reset_carry_on_first)
-    actor = make().to(dev)
-    return ModelFamily(
-        cfg.algo, actor, obs_dim, n, cfg.hidden_size, dev, make_actor=make,
-        act=partial(_act_discrete_ac, actor),
-    )
+    kw = dict(hidden=cfg.hidden_size, reset_on_first=cfg.reset_carry_on_first)
+    base = dict(algo=cfg.algo, obs_dim=obs_dim, n_actions=n, hidden=cfg.hidden_size, device=dev)
+    if cfg.algo in ("PPO", "IMPALA", "V-MPO"):
+        make = partial(DiscreteActorCritic, obs_dim, n, **kw)
+        actor = make().to(dev)
+        return ModelFamily(actor=actor, make_actor=make, act=partial(_act_discrete_ac, actor), **base)
+    if cfg.algo == "PPO-Continuous":
+        make = partial(ContinuousActorCritic, obs_dim, n, std_floor=cfg.std_floor, **kw)
+        actor = make().to(dev)
+        return ModelFamily(
+            actor=actor, make_actor=make, act=partial(_act_continuous_ac, actor),
+            act_greedy=partial(_greedy_continuous_ac, actor), continuous=True, **base,
+        )
+    if cfg.algo == "SAC":
+        make = partial(SACDiscreteActor, obs_dim, n, **kw)
+        make_critic = partial(SACDiscreteTwinCritic, obs_dim, n, **kw)
+        actor = make().to(dev)
+        return ModelFamily(
+            actor=actor, make_actor=make, act=partial(_act_sac_discrete, actor), separate=True,
+            critic=make_critic().to(dev), make_critic=make_critic, **base,
+        )
+    if cfg.algo == "SAC-Continuous":
+        make = partial(SACContinuousActor, obs_dim, n, **kw)
+        make_critic = partial(SACContinuousTwinCritic, obs_dim, n, **kw)
+        actor = make().to(dev)
+        return ModelFamily(
+            actor=actor, make_actor=make, act=partial(_act_sac_continuous, actor),
+            act_greedy=partial(_greedy_sac_continuous, actor), continuous=True, separate=True,
+            critic=make_critic().to(dev), make_critic=make_critic, **base,
+        )
+    raise ValueError(f"unknown algo {cfg.algo!r}")
 
 
 def to_device_params(params: Any, device: torch.device) -> Params:

@@ -285,8 +285,8 @@ def make_fused_act(family):
     if not isinstance(family.actor, DiscreteActorCritic):
         raise NotImplementedError(
             f"act_kernel='pallas' for {type(family.actor).__name__}: the fused act "
-            "kernel covers the discrete LSTM actor-critic; other families come "
-            "with the other-algorithms slice of the port"
+            "kernel covers only the discrete actor-critic (DiscreteActorCritic), "
+            "as in tpu_rl"
         )
 
     def act(params, obs, h, c, generator=None, gumbel=None):

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_rl_torch.utils.tree import tree_leaves, tree_map
+
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     """Elementwise smooth-L1 (Huber) loss, mean-reduced."""
@@ -17,12 +19,17 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
 
 
-def clip_subtree_by_global_norm(grads: dict, max_norm: float):
-    """Clip ``{group: {name: grad}}`` by its global norm:
-    ``scale = min(1, max_norm / (norm + 1e-6))``. Returns
+def clip_subtree_by_global_norm(grads: dict, max_norm: float, subtree: str | None = None):
+    """Clip a gradient tree (nested dicts of tensors) by its global norm:
+    ``scale = min(1, max_norm / (norm + 1e-6))``; with ``subtree``, only
+    ``grads[subtree]`` is measured and clipped and the other entries pass
+    through (V-MPO clips the ``actor`` and not its Lagrange duals). Returns
     ``(clipped grads, norm)``; the norm is the one before clipping. Stays on
-    the device: no host read. (``tpu_rl``'s ``subtree`` argument, which
-    V-MPO uses, comes with that algorithm.)"""
-    gnorm = global_norm(g for group in grads.values() for g in group.values())
+    the device: no host read."""
+    tree = grads if subtree is None else grads[subtree]
+    gnorm = global_norm(tree_leaves(tree))
     scale = torch.minimum(torch.ones_like(gnorm), max_norm / (gnorm + 1e-6))
-    return {k: {n: g * scale for n, g in group.items()} for k, group in grads.items()}, gnorm
+    clipped = tree_map(lambda g: g * scale, tree)
+    if subtree is None:
+        return clipped, gnorm
+    return {**grads, subtree: clipped}, gnorm

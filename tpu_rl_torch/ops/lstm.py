@@ -509,13 +509,20 @@ class _LSTMUnroll(torch.autograd.Function):
         dxp, dh0, dc0 = lstm_bwd(
             wh, h0, c0, keep, hs, cs, acts, dhs.contiguous(), dcs.contiguous()
         )
-        B, S, H = hs.shape
-        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * keep[..., None]
-        dwh = h_prev.reshape(B * S, H).t() @ dxp.reshape(B * S, 4 * H)
+        dwh = None
+        if ctx.needs_input_grad[1]:  # a critic under the actor's loss needs no dwh
+            B, S, H = hs.shape
+            h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * keep[..., None]
+            dwh = h_prev.reshape(B * S, H).t() @ dxp.reshape(B * S, 4 * H)
         return dxp, dwh, dh0, dc0, None
 
 
 def lstm_unroll(xp, wh, h0, c0, keep):
     """The LSTM over a sequence: ``(hs, cs)``, each (B,S,H). Differentiable
-    in xp, wh, h0 and c0 (not keep)."""
+    in xp, wh, h0 and c0 (not keep). Where no gradient is wanted (under
+    ``torch.no_grad()``, or no input requires one) it is B1 alone: nothing
+    is saved and no backward follows."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (xp, wh, h0, c0))):
+        hs, cs, _acts = lstm_fwd(xp, wh, h0, c0, keep)
+        return hs, cs
     return _LSTMUnroll.apply(xp, wh, h0, c0, keep)

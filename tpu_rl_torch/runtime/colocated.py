@@ -7,15 +7,18 @@ no ZMQ, no shared-memory ring. One iteration (:meth:`ColocatedLoop.program`):
 1. :meth:`~ColocatedLoop.rollout`: ``cfg.seq_len`` acting ticks. Each tick
    keeps the worker's tick semantics: store the pre-step obs, pre-step carry
    (zero placeholders for the transformer, which acts from KV caches it
-   never stores) and pre-tick ``is_fir``, act (``family.act``), step the vectorized env
+   never stores) and pre-tick ``is_fir``, act (``family.act``: a (B,1)
+   action index, or a (B,A) action and per-dimension log-prob for a
+   Gaussian policy), step the vectorized env
    (auto-reset and the ``time_horizon`` truncation live in
    :func:`~tpu_rl_torch.envs.make_vec_env`), scale the reward, zero the
    carry on done with ``torch.where`` (never a multiply: a NaN carry must
    not survive the reset), and raise ``is_fir`` for the post-reset step.
    The ticks stack into the learner's batch-major ``(B, S, w)``
    :class:`~tpu_rl_torch.types.Batch`.
-2. The algorithm's ``train_step(state, batch)`` on that batch while it is
-   still on the device; its LSTM unroll runs the kernels of
+2. The algorithm's ``train_step(state, batch, generator=...)`` on that
+   batch while it is still on the device (V-MPO draws its KL bound from the
+   loop's generator); its LSTM unroll runs the kernels of
    :mod:`tpu_rl_torch.ops.lstm`, the transformer's attention kernel B4
    (:mod:`tpu_rl_torch.ops.attention`) with ``attention_impl="flash"``.
 
@@ -42,7 +45,10 @@ from tpu_rl_torch.utils.timer import ExecutionTimer
 
 
 def act_params(state) -> dict:
-    """The acting parameter dict of a train state."""
+    """The acting parameter dict of either train-state kind (the colocated
+    loop is on-policy only; the SAC shape is kept for completeness)."""
+    if hasattr(state, "actor_params"):
+        return {"actor": state.actor_params}
     return {"actor": state.params["actor"]}
 
 
@@ -171,8 +177,9 @@ class ColocatedLoop:
         return carry, batch, stack("done"), stack("ep_ret")
 
     def program(self, state, carry: dict, stats: dict, generator: torch.Generator | None = None):
-        carry, batch, done, ep_ret = self.rollout(act_params(state), carry, generator)
-        state, metrics = self.train_step(state, batch)
+        gen = self.generator if generator is None else generator
+        carry, batch, done, ep_ret = self.rollout(act_params(state), carry, gen)
+        state, metrics = self.train_step(state, batch, generator=gen)
         stats = {
             "episodes": stats["episodes"] + done.sum(),
             "ret_sum": stats["ret_sum"] + ep_ret.sum(),

@@ -69,11 +69,15 @@ class _Staging:
     the outputs ``[act | logits | log_prob | h_pre | c_pre | h2 | c2]``, each
     one flat (pinned, on CUDA) buffer so a flush makes one copy each way."""
 
-    def __init__(self, rows: int, obs_dim: int, hw: int, cw: int, n_actions: int, pin: bool):
+    def __init__(
+        self, rows: int, obs_dim: int, hw: int, cw: int, n_actions: int, wide: int, pin: bool
+    ):
         self.rows = rows
         self.in_shapes = [(rows, obs_dim), (rows,), (rows, hw), (rows, cw)]
+        # act and log_prob: 1 wide for a categorical policy, A for a Gaussian
         self.out_shapes = [
-            (rows, 1), (rows, n_actions), (rows, 1), (rows, hw), (rows, cw), (rows, hw), (rows, cw)
+            (rows, wide), (rows, n_actions), (rows, wide), (rows, hw), (rows, cw), (rows, hw),
+            (rows, cw),
         ]
         self.in_host = torch.zeros(_numel(self.in_shapes), pin_memory=pin)
         self.out_host = torch.zeros(_numel(self.out_shapes), pin_memory=pin)
@@ -197,6 +201,7 @@ class InferenceService:
                 staging = {
                     rows: _Staging(
                         rows, int(self.cfg.obs_shape[0]), hw, cw, self.family.n_actions,
+                        self.family.n_actions if self.family.continuous else 1,
                         pin=self.device.type == "cuda",
                     )
                     for rows in self.buckets
