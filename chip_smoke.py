@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-It drives the port's serving path, its colocated LSTM training path, the
-other algorithms' train steps and colocated loops (IMPALA, V-MPO,
-PPO-Continuous, SAC, SAC-Continuous) and the transformer's PPO training (its
-train step at full width, and its colocated loop) end to end, and holds
-every hand-written kernel of those paths against its plain PyTorch version:
+It drives the port's serving path (f32, bf16 and int8 weights), its
+colocated LSTM training path (with checkpoint and resume), bf16-compute
+LSTM training, the other algorithms' train steps and colocated loops
+(IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous) and the transformer's
+PPO training (its train step at full width, and its colocated loop) end to
+end, and holds every hand-written kernel of those paths against its plain
+PyTorch version:
 
 1. device check: a CUDA card is required (else exit 1, no result printed);
    prints the card's name and power limit as nvidia-smi reports them and
@@ -31,7 +33,11 @@ every hand-written kernel of those paths against its plain PyTorch version:
    once per warm-up and flush at each bucket (counted in the wrapper); then
    the same run again under the profiler, for B3's device time per serving
    run (beside an estimate: each bucket's kernel-phase time x its
-   launches);
+   launches); then bf16 and int8 serving (``inference_dtype``: the weights
+   quantized when the service takes them, widened before B3 in each act
+   step): tests/test_quant.py's policy bars on its margin-scaled head, and
+   mix 1 with the same checks, a flush's replies against ``family.act`` on
+   the widened tree, and ``tree_bytes`` per mode;
 5. LSTM kernels vs plain: B1 (``lstm_fwd``) and B2 (``lstm_bwd``) at
    (B,S,H) = (128,5,64) the training path, (32,5,64) the learning run,
    (100,5,64) ragged, (256,16,256) and (1024,16,1024), on seeded inputs with
@@ -70,6 +76,18 @@ every hand-written kernel of those paths against its plain PyTorch version:
    update, finite metrics and params, launches = updates x K_epoch; then
    an IMPALA learning run on step 7's recipe, its best window printed with
    no bar;
+8c. bf16 compute (tpu_rl's mixed precision; the recurrence is the bf16
+   scan, never B1/B2): ``mixed_dot`` on the card against the CPU (1e-5)
+   and, at the wide recurrence, against the float64 product (f32 sums);
+   IMPALA@ref with compute_dtype bf16, the card's step against the CPU's at
+   the bf16 element bar; bench.py's IMPALA@wide-lstm-bf16 row (as step 8,
+   B1/B2 launches 0, the bf16 products' and the scan's elementwise shares)
+   printed beside step 8's f32 row; colocated PPO with bf16 compute;
+8d. checkpoint and resume: the default config's colocated loop with
+   model_dir, saving every 10 updates (async) for 30, resumed bit for bit
+   (state and generator) by a fresh loop and run to 40; a torn directory
+   invisible; a bf16 config refused unless resume_force; save seconds sync
+   and async, ms/update with and without checkpoints;
 9. B4 (``flash_attn_fwd``/``flash_attn_bwd``: bf16 on the tensor-core
    kernels, f32 on the CUDA-core ones) vs plain: the main path's (B,T,H,D)
    = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32) bf16, bf16
@@ -185,6 +203,10 @@ TF_TRAIN_CFG = dict(
 )
 TF_WARMUP, TF_UPDATES, TF_PROFILE = 2, 10, 2
 TF_COLOCATED_UPDATES = 2
+# Checkpoint and resume: the default config's colocated loop saving every
+# CKPT_INTERVAL updates (async), CKPT_KEEP kept, CKPT_UPDATES updates, then
+# resumed to CKPT_RESUMED_TO; CKPT_SAVES saves timed each way.
+CKPT_INTERVAL, CKPT_KEEP, CKPT_UPDATES, CKPT_RESUMED_TO, CKPT_SAVES = 10, 2, 30, 40, 5
 # bench.py's IMPALA@wide-lstm row (bench.py:241-246): the LSTM learner at
 # its widest; run with IMPALA, and with PPO as in earlier slices.
 WIDE_LSTM_CFG = dict(
@@ -220,6 +242,20 @@ LAUNCHES_PER_EPOCH = {"PPO": (1, 1), "IMPALA": (1, 1), "V-MPO": (1, 1), "PPO-Con
 COLOCATED_ALGOS = [("CartPole-v1", "IMPALA", {}), ("CartPole-v1", "V-MPO", {}),
                    ("Pendulum-v1", "PPO-Continuous", dict(time_horizon=200))]
 COLOCATED_UPDATES = 2
+# Checkpoint and resume: the default config's colocated loop saving every
+# CKPT_INTERVAL updates (async), CKPT_KEEP kept, CKPT_UPDATES updates, then
+# resumed to CKPT_RESUMED_TO; CKPT_SAVES saves timed each way.
+CKPT_INTERVAL, CKPT_KEEP, CKPT_UPDATES, CKPT_RESUMED_TO, CKPT_SAVES = 10, 2, 30, 40, 5
+
+# Serving traffic: 2 x 4 x 1000 is bench.py's chip default (mix 1);
+# 64 x 4 x 100 fills the 256-row bucket (mix 2). bf16/int8 serving runs
+# mix 1.
+SERVE_MIXES = ((2, 1000, "mix1"), (64, 100, "mix2"))
+SERVE_DTYPES = ("bf16", "int8")
+# tests/test_quant.py:140-157's bars for bf16/int8 serving against f32 on
+# its margin-scaled head (_margin_params: the logits head x 4, 512 rows):
+# argmax agreement, and mean |log-prob drift| per mode.
+QUANT_AGREE, QUANT_DRIFT = 0.99, {"bf16": 0.05, "int8": 0.08}
 
 # (rows, D, H, A) checked against the plain version.
 SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
@@ -426,24 +462,32 @@ def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
     )
 
 
-def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
-    """The main path: an InferenceService on ``device`` over a LocalRouter.
-    Returns the traffic results, the fused kernel's launch count over the
-    whole run, in all and by row count, and the service's counters. With
-    ``profile`` the run goes under the profiler (device activity only), and
-    B3's device time over the run is read from its kernel records; the
-    profiler slows the host, so the timed run goes without it."""
+def serve_phase(device: str = "cuda", profile: bool = False, dtype: str = "f32",
+                mixes: tuple = SERVE_MIXES) -> dict:
+    """The main path: an InferenceService on ``device`` over a LocalRouter,
+    serving at ``inference_dtype=dtype`` (f32, bf16 or int8: the weights
+    widened to f32 inside each act step, before B3). Returns the traffic
+    results, the fused kernel's launch count over the whole run, in all and
+    by row count, and the service's counters. With ``profile`` the run goes
+    under the profiler (device activity only), and B3's device time over the
+    run is read from its kernel records; the profiler slows the host, so
+    the timed run goes without it."""
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.models.families import build_family
+    from tpu_rl_torch.models.quant import dequantize_tree, quantize_tree
     from tpu_rl_torch.ops import fused_act as FA
     from tpu_rl_torch.runtime.inference_service import InferenceService
     from tpu_rl_torch.runtime.local_router import LocalRouter
     from tpu_rl_torch.utils.timer import ExecutionTimer
 
-    cfg = Config.from_dict(SERVE_CFG)
+    cfg = Config.from_dict(dict(SERVE_CFG, inference_dtype=dtype))
     family = build_family(cfg, device=device)
     params = seeded_params(family, 0)
     router = LocalRouter()
+
+    def served_cpu(p):
+        """The actor the service acts with, widened, on the CPU."""
+        return {k: v.cpu() for k, v in dequantize_tree(quantize_tree(p, dtype))["actor"].items()}
 
     # A window that holds every flush of a mix, for the mean flush time.
     timer = ExecutionTimer(window=1_000_000)
@@ -464,17 +508,15 @@ def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
     try:
         if not svc.wait_ready(300.0) or svc.error is not None:
             fail(f"inference service did not start: {svc.error!r}")
-        mixes = []
-        # 2 x 4 x 1000 is bench.py's chip default; 64 x 4 x 100 fills the
-        # 256-row bucket.
-        for n_clients, acts, tag in ((2, 1000, "mix1"), (64, 100, "mix2")):
+        results = []
+        for n_clients, acts, tag in mixes:
             timer.elapsed.clear()
             timer.gauges.clear()
             mix = drive(cfg, router, n_clients, 4, acts, tag)
             # host clock around staging, H2D, act step, D2H sync and replies
             mix["flush_ms"] = timer.mean_elapsed("inference-step-time") * 1e3
             mix["flush_rows"] = timer.mean_gauge("inference-batch-size")
-            mixes.append(mix)
+            results.append(mix)
 
         # Carry persistence and the parameter swap, from one probe client
         # while no other traffic flows (so its flushes hold only its rows).
@@ -486,7 +528,7 @@ def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
         if r1 is None or r2 is None:
             fail("probe client got no reply")
         zeros = torch.zeros((4, cfg.hidden_size))
-        cpu_actor = {k: v.cpu() for k, v in params["actor"].items()}
+        cpu_actor = served_cpu(params)
         _lg, h2, c2 = FA.fused_act_step_plain(cpu_actor, torch.from_numpy(obs1), zeros, zeros)
         carry_err = max(
             float(np.abs(r1["hx"]).max()), float(np.abs(r1["cx"]).max()),
@@ -494,6 +536,19 @@ def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
         )
         if carry_err > 1e-5:
             fail(f"server-side carry: reply 2's hx/cx differ from reply 1's post-step carry by {carry_err}")
+        # one flush's replies against the unfused act (family.act) on the
+        # widened tree the service serves
+        deq = {"actor": {k: v.to(device) for k, v in cpu_actor.items()}}
+        dz = torch.zeros((4, cfg.hidden_size), device=device)
+        _a, lg_u, _lp, h2_u, c2_u = family.act(deq, torch.from_numpy(obs1).to(device), dz, dz)
+        unfused_err = max(
+            float(np.abs(r1["logits"] - lg_u.cpu().numpy()).max()),
+            float(np.abs(r2["hx"] - h2_u.cpu().numpy()).max()),
+            float(np.abs(r2["cx"] - c2_u.cpu().numpy()).max()),
+        )
+        if unfused_err > 1e-5:
+            fail(f"{dtype} serving: a flush's replies differ from family.act on the widened tree "
+                 f"by {unfused_err}")
 
         new = seeded_params(family, 1)
         svc.set_params(new, version=7)
@@ -502,8 +557,7 @@ def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
             fail(f"after set_params(version=7) the reply says ver={None if r3 is None else r3['ver']}")
         if np.allclose(r3["logits"], r1["logits"], atol=1e-4):
             fail("set_params did not change the served policy")
-        new_cpu = {k: v.cpu() for k, v in new["actor"].items()}
-        want, _h, _c = FA.fused_act_step_plain(new_cpu, torch.from_numpy(obs1), zeros, zeros)
+        want, _h, _c = FA.fused_act_step_plain(served_cpu(new), torch.from_numpy(obs1), zeros, zeros)
         swap_err = float(np.abs(r3["logits"] - want.numpy()).max())
         if swap_err > 1e-5:
             fail(f"swapped policy's logits differ from the plain version by {swap_err}")
@@ -523,7 +577,8 @@ def serve_phase(device: str = "cuda", profile: bool = False) -> dict:
             b3_ms = sum(e.self_device_time_total for e in b3) / 1e3
             b3_records = sum(e.count for e in b3)
     return dict(
-        mixes=mixes, launches=launches, launches_by_rows=by_rows, b3_device_ms=b3_ms,
+        dtype=dtype, param_bytes=svc.param_bytes, unfused_err=unfused_err,
+        mixes=results, launches=launches, launches_by_rows=by_rows, b3_device_ms=b3_ms,
         b3_kernel_records=b3_records, warmups=len(svc.buckets), flushes=svc.n_batches,
         buckets=svc.buckets, n_flush_bucket=dict(sorted(svc.n_flush_bucket.items())),
         n_requests=svc.n_requests, n_replies=svc.n_replies,
@@ -544,6 +599,11 @@ def serving_checks(serving: dict, tag: str, card: str) -> None:
             f"bad_replies={mix['bad_replies']} [{card}]",
             flush=True,
         )
+    print(
+        f"{tag} inference_dtype={serving['dtype']} param_bytes={serving['param_bytes']} "
+        f"(tree_bytes) unfused err {serving['unfused_err']:.3e}",
+        flush=True,
+    )
     print(
         f"{tag} flushes per bucket {serving['n_flush_bucket']} "
         f"(full {serving['n_flush_full']}, deadline {serving['n_flush_deadline']}); "
@@ -928,20 +988,25 @@ def vtrace_device_ms(family, state, batch, cfg) -> dict:
     return dict(ms=ms, kernels_per_call=kernels)
 
 
-def wide_lstm_train_phase(card: str, algo: str = "PPO") -> dict:
+def wide_lstm_train_phase(card: str, algo: str = "PPO", compute_dtype: str = "float32") -> dict:
     """The LSTM learner at bench.py's IMPALA@wide-lstm shape (bench.py:241-
     246: batch 1024, seq 16, H 1024, obs 64, 8 actions, f32), with the row's
     own algorithm (IMPALA) or with PPO (the phase of earlier slices, kept
     for comparison): get_algo(algo).build and its train_step on one seeded
     batch with resets, WIDE_WARMUP untimed then WIDE_UPDATES timed updates;
-    then B1 + B2's share of device time over a profiler window, and for
-    IMPALA V-trace's device time beside it. The launch counters are zeroed
-    just before the timed updates and read just after."""
+    then B1 + B2's and cuBLAS's products' shares of device time over a
+    profiler window, and for IMPALA V-trace's device time beside it. With
+    compute_dtype="bfloat16" it is the IMPALA@wide-lstm-bf16 row
+    (bench.py:248-260): the recurrence is the bf16 scan, so B1/B2 launch 0
+    times, and the scan's elementwise kernels' share is measured on the
+    scan alone. The launch counters are zeroed just before the timed
+    updates and read just after."""
     from tpu_rl_torch.algos.registry import get_algo
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import lstm as L
 
-    cfg = Config.from_dict(dict(WIDE_LSTM_CFG, algo=algo))
+    cfg = Config.from_dict(dict(WIDE_LSTM_CFG, algo=algo, compute_dtype=compute_dtype))
+    bf16 = compute_dtype == "bfloat16"
     family, state, train_step = get_algo(algo).build(
         cfg, torch.Generator().manual_seed(0), device="cuda"
     )
@@ -959,9 +1024,10 @@ def wide_lstm_train_phase(card: str, algo: str = "PPO") -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
-    want = cfg.K_epoch * WIDE_UPDATES
+    want = 0 if bf16 else cfg.K_epoch * WIDE_UPDATES
     if fwd != want or bwd != want:
-        fail(f"wide LSTM training launched lstm_fwd {fwd} and lstm_bwd {bwd} times, want {want} each")
+        fail(f"wide LSTM training ({compute_dtype}) launched lstm_fwd {fwd} and lstm_bwd {bwd} "
+             f"times, want {want} each")
     host = {k: float(v) for k, v in metrics.items() if k != "diag"}
     if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
         fail(f"wide LSTM training metrics not finite: {host}")
@@ -989,17 +1055,26 @@ def wide_lstm_train_phase(card: str, algo: str = "PPO") -> dict:
             # cuBLAS's products (the input projection, its two backward
             # products, dwh, the heads): kernels named *gemm* / *xmma*
             gemm_share = sum(e.self_device_time_total for e in events
-                             if "gemm" in e.key.lower() or "xmma" in e.key.lower()) / device_us
+                             if is_product(e.key)) / device_us
             device_ms_per_update = device_us / 1e3 / WIDE_PROFILE
     except (RuntimeError, AttributeError) as e:
         print(f"wide LSTM profile: not measured ({e!r})", flush=True)
+    scan = scan_share = None
+    if bf16:
+        try:
+            scan = scan_device_ms(cfg, batch)
+            if device_ms_per_update is not None:
+                scan_share = cfg.K_epoch * scan["elementwise_ms"] / device_ms_per_update
+        except (RuntimeError, AttributeError) as e:
+            print(f"bf16 scan profile: not measured ({e!r})", flush=True)
     vt = vtrace_share = None
     if algo == "IMPALA":
         vt = vtrace_device_ms(family, state, batch, cfg)
         if device_ms_per_update is not None:
             vtrace_share = cfg.K_epoch * vt["ms"] / device_ms_per_update
     out = dict(
-        algo=algo, vtrace_ms=None if vt is None else vt["ms"], vtrace_device_share=vtrace_share,
+        algo=algo, compute_dtype=compute_dtype, scan=scan, scan_elementwise_share=scan_share,
+        vtrace_ms=None if vt is None else vt["ms"], vtrace_device_share=vtrace_share,
         vtrace_kernels_per_call=None if vt is None else vt["kernels_per_call"],
         updates=WIDE_UPDATES, batch=cfg.batch_size, seq=cfg.seq_len, hidden=cfg.hidden_size,
         ms_per_update=dt / WIDE_UPDATES * 1e3,
@@ -1017,16 +1092,26 @@ def wide_lstm_train_phase(card: str, algo: str = "PPO") -> dict:
             f"update's device time [{card}]",
             flush=True,
         )
+    if scan is not None:
+        print(
+            f"wide LSTM training {algo} bf16: the scan alone (forward + backward) "
+            f"{scan['ms']:.6f} ms of device time a call in {scan['kernels']} device kernels, "
+            f"bf16 products {scan['product_ms']:.6f} ms, elementwise {scan['elementwise_ms']:.6f} "
+            f"ms, {'not measured' if scan_share is None else f'{scan_share:.4f}'} of the update's "
+            f"device time [{card}]",
+            flush=True,
+        )
     print(
         f"wide LSTM training {algo} B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} obs "
-        f"{cfg.obs_shape} A={cfg.action_space} f32: {WIDE_UPDATES} updates, ms/update="
+        f"{cfg.obs_shape} A={cfg.action_space} {'bf16' if bf16 else 'f32'}: {WIDE_UPDATES} "
+        f"updates, ms/update="
         f"{out['ms_per_update']:.4f} transitions/s={out['transitions_per_s']:.1f} host enqueue "
         f"ms/update={out['enqueue_ms']:.4f} device ms/update="
         f"{'not measured' if device_ms_per_update is None else f'{device_ms_per_update:.4f}'} "
         f"B1+B2 share of device time={'not measured' if share is None else f'{share:.4f}'} "
         f"cuBLAS products' share={'not measured' if gemm_share is None else f'{gemm_share:.4f}'} "
         f"device_busy={'not measured' if busy is None else f'{busy:.4f}'} loss={host['loss']:.6f} "
-        f"lstm_fwd launches={fwd} lstm_bwd launches={bwd} (= updates x K_epoch = {want}) [{card}]",
+        f"lstm_fwd launches={fwd} lstm_bwd launches={bwd} (want {want}) [{card}]",
         flush=True,
     )
     return out
@@ -1237,6 +1322,382 @@ def impala_learn_phase(card: str) -> dict:
              f"{out['updates']} updates")
     return dict({k: v for k, v in out.items() if k != "scalars"},
                 lstm_launches={"lstm_fwd": fwd, "lstm_bwd": bwd})
+
+
+# ------------------------------------------------- bf16 compute and serving
+def quant_policy_check(card: str) -> dict:
+    """tests/test_quant.py:140-157 on the card: the serving model with its
+    logits head scaled x 4 (_margin_params), 512 seeded rows from a zero
+    carry, acted through B3 on the f32 tree and on the bf16 and int8 trees
+    widened, under shared Gumbel noise: argmax agreement with f32 >=
+    QUANT_AGREE and mean |log-prob drift| <= QUANT_DRIFT[mode]. Also each
+    mode's tree_bytes. Run before the serving runs: these launches are not
+    the main path's."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.models.families import build_family
+    from tpu_rl_torch.models.quant import dequantize_tree, make_act_fn, quantize_tree, tree_bytes
+
+    cfg = Config.from_dict(SERVE_CFG)
+    family = build_family(cfg, device="cuda")
+    params = family.init_params(torch.Generator().manual_seed(0))
+    params["actor"]["logits.weight"] *= 4.0
+    act = make_act_fn(cfg, family)
+    g = torch.Generator().manual_seed(7)
+    obs = torch.randn((512, 4), generator=g).cuda()
+    gumbel = -torch.log(-torch.log(torch.rand((512, 2), generator=g))).cuda()
+    zeros = torch.zeros((512, cfg.hidden_size), device="cuda")
+    out = {}
+    _a, lg32, lp32, _h, _c = act(params, obs, zeros, zeros, gumbel=gumbel)
+    for mode in ("f32", *SERVE_DTYPES):
+        q = quantize_tree(params, mode)
+        _a, lg, lp, _h, _c = act(dequantize_tree(q), obs, zeros, zeros, gumbel=gumbel)
+        agree = float((lg.argmax(-1) == lg32.argmax(-1)).float().mean())
+        drift = float((lp - lp32).abs().mean())
+        out[mode] = dict(tree_bytes=tree_bytes(q), agree=agree, drift=drift)
+        print(f"serving precision {mode}: tree_bytes={tree_bytes(q)} argmax agreement with f32 "
+              f"{agree:.4f} (bar >= {QUANT_AGREE}) mean log-prob drift {drift:.6f} (bar "
+              f"{QUANT_DRIFT.get(mode, 0.0)}) [{card}]", flush=True)
+        if mode != "f32" and (agree < QUANT_AGREE or drift > QUANT_DRIFT[mode]):
+            fail(f"{mode} serving drifts from f32: agreement {agree}, log-prob drift {drift}")
+    return out
+
+
+def mixed_dot_check(card: str) -> dict:
+    """mixed_dot on the card (cuBLAS's bf16 product with an f32 output,
+    ``torch.mm(..., out_dtype=torch.float32)``): at the @ref recurrence
+    (128 x 64 @ 64 x 256) against the CPU's plain version (the same bf16
+    operands widened, summed in f32) at 1e-5, forward and both gradients;
+    at the wide recurrence (1024 x 1024 @ 1024 x 4096) against the float64
+    product of the same bf16 operands, within 1e-5 x max|exact|: f32 sums
+    (a bf16 reduction would miss by ~1e-3 of it). Times the product beside
+    the f32 product (TF32 off) and the bf16 product rounded to bf16."""
+    from tpu_rl_torch.ops import lstm as L
+
+    out = {}
+    for M, K, N in ((128, 64, 256), (1024, 1024, 4096)):
+        g = torch.Generator().manual_seed(M + K)
+        a, b, w = (torch.randn(s, generator=g) * 0.5 for s in ((M, K), (K, N), (M, N)))
+        ac, bc = a.cuda().requires_grad_(), b.cuda().requires_grad_()
+        got = L.mixed_dot(ac, bc)
+        (got * w.cuda()).sum().backward()
+        torch.cuda.synchronize()
+        if M == 128:
+            ap, bp = a.clone().requires_grad_(), b.clone().requires_grad_()
+            want = L.mixed_dot(ap, bp)
+            (want * w).sum().backward()
+            err = max(max_err(got.cpu(), want), max_err(ac.grad.cpu(), ap.grad),
+                      max_err(bc.grad.cpu(), bp.grad))
+            bar = 1e-5
+        else:
+            exact = a.bfloat16().double() @ b.bfloat16().double()
+            err = max_err(got.double().cpu(), exact)
+            bar = 1e-5 * float(exact.abs().max())
+        if got.dtype != torch.float32 or not err <= bar:
+            fail(f"mixed_dot at {(M, K, N)} on the card: err {err} > {bar} ({got.dtype})")
+        ab, bb = a.cuda().bfloat16(), b.cuda().bfloat16()
+        af, bf = a.cuda(), b.cuda()
+        ms = device_ms(lambda: torch.mm(ab, bb, out_dtype=torch.float32), iters=20)
+        f32_ms = device_ms(lambda: af @ bf, iters=20)
+        bf16_ms = device_ms(lambda: ab @ bb, iters=20)
+        out[f"{M}x{K}x{N}"] = dict(err=err, bar=bar, ms=ms, f32_ms=f32_ms, bf16_out_ms=bf16_ms)
+        print(f"mixed_dot {M}x{K} @ {K}x{N}: err {err:.3e} (bar {bar:.3e}); the product "
+              f"{ms:.6f} ms (f32 product, TF32 off: {f32_ms:.6f}; bf16 rounded to bf16: "
+              f"{bf16_ms:.6f}) [{card}]", flush=True)
+    return out
+
+
+def bf16_ref_phase(card: str) -> dict:
+    """IMPALA with compute_dtype="bfloat16" at bench.py's @ref shape (128 x 5,
+    H 64): one train step on the card against the same step on the CPU from
+    one seeded state and batch. Both sides take the same bf16 operands, so
+    what differs is the order of f32 sums and, through it, rare one-ulp
+    flips of bf16-rounded values (x_proj's output, the bf16 Denses'
+    gradients). So the loss and each metric are held to the bf16 element
+    bar of PERF.md §2 (one bf16 ulp of the element, 2**-7·|ref| +
+    2**-16·max|ref|); each param's update (new - old) to one bf16 ulp of
+    the largest update of its tensor, 2**-7·max|update| (a flipped bf16
+    gradient moves one element's update by about one ulp of the gradient,
+    and a near-zero one is flipped against its tensor's scale, not its
+    own); each RMSprop moment (nu, the square of a gradient: two ulps) to
+    2**-6·max|nu| of its tensor. Then REF_UPDATES timed updates with
+    B1/B2's counters zeroed just before: 0 launches (bf16 compute runs
+    the scan)."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+
+    cfg = Config.from_dict(dict(REF_ROWS["IMPALA"], compute_dtype="bfloat16"))
+    _f, state_cpu, step_cpu = get_algo("IMPALA").build(cfg, torch.Generator().manual_seed(0),
+                                                       device="cpu")
+    _f, _s, step_dev = get_algo("IMPALA").build(cfg, torch.Generator().manual_seed(0), device="cuda")
+    old = state_leaves(state_cpu)["params"]
+    want_state, want = step_cpu(state_cpu, lstm_batch(cfg, 1, "cpu"))
+    got_state, got = step_dev(state_to(state_cpu, "cuda"), lstm_batch(cfg, 1, "cuda"))
+    torch.cuda.synchronize()
+
+    def ulps(g, w) -> float:
+        g, w = g.detach().double().cpu(), w.detach().double()
+        bar = 2.0**-7 * w.abs() + 2.0**-16 * float(w.abs().max())
+        return float(((g - w).abs() / bar.clamp(min=1e-30)).max())
+
+    share = {"loss": 0.0, "metrics": 0.0, "updates": 0.0, "moments": 0.0}
+    gm, wm = metric_leaves(got), metric_leaves(want)
+    if set(gm) != set(wm):
+        fail(f"IMPALA@ref bf16: the card's metrics {sorted(gm)} are not the CPU's {sorted(wm)}")
+    finite = True
+    for k, w in wm.items():
+        finite &= bool(torch.isfinite(gm[k]).all())
+        kind = "loss" if k == "loss" else "metrics"
+        share[kind] = max(share[kind], ulps(gm[k], w))
+    def tensor_ulps(g, w, ulp: float) -> float:
+        err = float((g.detach().double().cpu() - w.detach().double()).abs().max())
+        scale = ulp * float(w.detach().double().abs().max())
+        return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+    gs, ws = state_leaves(got_state), state_leaves(want_state)
+    for g, w, o in zip(gs["params"], ws["params"], old, strict=True):
+        finite &= bool(torch.isfinite(g).all())
+        share["updates"] = max(share["updates"], tensor_ulps(g.cpu() - o, w - o, 2.0**-7))
+    for g, w in zip(gs["moments"], ws["moments"], strict=True):
+        share["moments"] = max(share["moments"], tensor_ulps(g, w, 2.0**-6))
+    if not finite or any(v > 1.0 for v in share.values()):
+        fail(f"IMPALA@ref bf16 train step on the card vs the CPU: shares of the bf16 bars "
+             f"{share}, finite {finite}")
+
+    state, batch = got_state, lstm_batch(cfg, 1, "cuda")
+    for _ in range(2):
+        state, metrics = step_dev(state, batch)
+    torch.cuda.synchronize()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(REF_UPDATES):
+        state, metrics = step_dev(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    if fwd or bwd:
+        fail(f"IMPALA@ref bf16 launched lstm_fwd {fwd} / lstm_bwd {bwd} times, want 0")
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+        fail(f"IMPALA@ref bf16 metrics not finite: {host}")
+    out = dict(bar_share=share, ms_per_update=dt / REF_UPDATES * 1e3,
+               transitions_per_s=REF_UPDATES * cfg.batch_size * cfg.seq_len / dt,
+               lstm_fwd_launches=fwd, lstm_bwd_launches=bwd, loss=host["loss"])
+    print(
+        f"IMPALA@ref bf16 B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size}: the card's step "
+        f"vs the CPU's, largest share of its bf16 bar: "
+        + " ".join(f"{k} {v:.4f}" for k, v in share.items())
+        + f"; {REF_UPDATES} updates, ms/update={out['ms_per_update']:.4f} transitions/s="
+        f"{out['transitions_per_s']:.1f} lstm_fwd launches={fwd} lstm_bwd launches={bwd} "
+        f"(want 0) [{card}]",
+        flush=True,
+    )
+    return out
+
+
+def scan_device_ms(cfg, batch) -> dict:
+    """The bf16 recurrence alone (ops.lstm.lstm_scan, forward and backward)
+    at the wide step's shape with its keep mask and carries, under the
+    profiler: its device time per call, split into the bf16 products and
+    the rest (the gate arithmetic's elementwise kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_rl_torch.ops.lstm import lstm_scan
+
+    B, S, H = cfg.batch_size, cfg.seq_len, cfg.hidden_size
+    g = torch.Generator().manual_seed(5)
+    xp = torch.randn((B, S, 4 * H), generator=g).cuda().bfloat16()
+    wh = (torch.randn((H, 4 * H), generator=g) / H**0.5).cuda().requires_grad_()
+    h0 = batch.hx[:, 0].clone().requires_grad_()
+    c0 = batch.cx[:, 0].clone()
+    keep = 1.0 - batch.is_fir[..., 0]
+
+    def call():
+        hs, (_hN, cN) = lstm_scan(xp, wh, h0, c0, keep)
+        (hs.sum() + cN.sum()).backward()
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    gemm = sum(e.self_device_time_total for e in events if is_product(e.key)) / 1e3
+    return dict(ms=total, product_ms=gemm, elementwise_ms=total - gemm,
+                kernels=sum(e.count for e in events))
+
+
+def is_product(name: str) -> bool:
+    """cuBLAS's (and CUTLASS's) product kernels, by name."""
+    name = name.lower()
+    return any(k in name for k in ("gemm", "xmma", "nvjet", "cutlass"))
+
+
+def bf16_colocated_phase(card: str) -> dict:
+    """PPO with compute_dtype="bfloat16" through ColocatedLoop.program at
+    128 envs, 1 + COLOCATED_UPDATES updates: finite metrics and params, and
+    no B1/B2 launch."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    loop = ColocatedLoop(Config(**TRAIN_CFG, compute_dtype="bfloat16"), seed=0, device="cuda")
+    state, carry, stats = loop.state, loop.init_carry(), loop.init_stats()
+    state, carry, stats, metrics = loop.program(state, carry, stats)
+    torch.cuda.synchronize()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(COLOCATED_UPDATES):
+        state, carry, stats, metrics = loop.program(state, carry, stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    host = {k: float(v) for k, v in metrics.items() if k != "diag"}
+    if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
+        fail(f"colocated PPO bf16: metrics not finite: {host}")
+    if not all(bool(torch.isfinite(p).all()) and p.dtype == torch.float32
+               for p in state.params["actor"].values()):
+        fail("colocated PPO bf16: params not finite f32")
+    if fwd or bwd:
+        fail(f"colocated PPO bf16 launched lstm_fwd {fwd} / lstm_bwd {bwd} times, want 0")
+    n, s = loop.cfg.batch_size, loop.cfg.seq_len
+    out = dict(ms_per_update=dt / COLOCATED_UPDATES * 1e3,
+               transitions_per_s=COLOCATED_UPDATES * n * s / dt, lstm_fwd_launches=fwd,
+               lstm_bwd_launches=bwd, loss=host["loss"])
+    print(f"colocated PPO bf16 CartPole B={n} S={s} H={loop.cfg.hidden_size}: {COLOCATED_UPDATES} "
+          f"updates, ms/update={out['ms_per_update']:.4f} transitions/s="
+          f"{out['transitions_per_s']:.1f} loss={host['loss']:.6f} lstm launches {fwd}/{bwd} "
+          f"(want 0) [{card}]", flush=True)
+    return out
+
+
+# -------------------------------------------------- checkpoint and resume
+def checkpoint_phase(card: str) -> dict:
+    """ColocatedLoop.run on the default config (128 envs) with model_dir in a
+    temporary directory, model_save_interval CKPT_INTERVAL, ckpt_async on
+    and ckpt_keep CKPT_KEEP, for CKPT_UPDATES updates: the newest committed
+    index is CKPT_UPDATES and CKPT_KEEP directories are kept. A fresh loop
+    resumes at that index with run epoch 1, its restored state and
+    generator equal to the saved ones bit for bit, and runs on to
+    CKPT_RESUMED_TO with finite params; a directory without a marker above
+    is invisible; a bf16-compute config refuses to resume (RuntimeError)
+    unless resume_force. B1/B2's launches over both runs equal their
+    updates. Then the save's cost: sync (blocking) and async (the loop's
+    snapshot, and the writer's wall time from drain_save_secs), and
+    ms/update of a run with and without checkpoints."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from tpu_rl_torch.checkpoint import Checkpointer, latest_committed, read_meta
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    def leaves(tree):
+        if dataclasses.is_dataclass(tree):
+            return [x for f in dataclasses.fields(tree) for x in leaves(getattr(tree, f.name))]
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        cfg = Config(**TRAIN_CFG, model_dir=d, model_save_interval=CKPT_INTERVAL,
+                     ckpt_keep=CKPT_KEEP, ckpt_async=True, loss_log_interval=CKPT_UPDATES)
+        L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+        first = ColocatedLoop(cfg, seed=0, max_updates=CKPT_UPDATES, device="cuda")
+        run1 = first.run(log=False)
+        newest = latest_committed(d, "PPO")
+        kept = sorted(n for n in os.listdir(d) if not n.startswith("."))
+        if newest is None or newest[0] != CKPT_UPDATES or len(kept) != CKPT_KEEP:
+            fail(f"checkpointed run: newest committed {newest}, kept {kept}")
+        saved_gen = first.generator.get_state()
+
+        second = ColocatedLoop(cfg, seed=0, max_updates=CKPT_RESUMED_TO, device="cuda")
+        restored = second.restore(second.state)
+        same = all(torch.equal(a, b) and a.dtype == b.dtype and a.device == b.device
+                   for a, b in zip(leaves(restored), leaves(first.state), strict=True))
+        if (second._start_it, second.run_epoch) != (CKPT_UPDATES, 1) or not same \
+                or not torch.equal(second.generator.get_state(), saved_gen):
+            fail(f"resume: idx {second._start_it}, epoch {second.run_epoch}, state equal {same}, "
+                 f"generator equal {torch.equal(second.generator.get_state(), saved_gen)}")
+        run2 = second.run(log=False)
+        if run2["updates"] != CKPT_RESUMED_TO or not all(
+                bool(torch.isfinite(p).all()) for p in second.state.params["actor"].values()):
+            fail(f"resumed run: {run2['updates']} updates, params finite?")
+        if read_meta(os.path.join(d, f"PPO_{CKPT_RESUMED_TO}")).get("epoch") != 1:
+            fail("the resumed run's checkpoint does not carry run epoch 1")
+        fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+        if fwd != CKPT_RESUMED_TO or bwd != CKPT_RESUMED_TO:
+            fail(f"checkpointed runs launched lstm_fwd {fwd} / lstm_bwd {bwd}, want "
+                 f"{CKPT_RESUMED_TO} each")
+        torn = os.path.join(d, "PPO_50")
+        os.makedirs(torn)
+        with open(os.path.join(torn, "state.pt"), "w") as f:
+            f.write("torn")
+        if latest_committed(d, "PPO")[0] != CKPT_RESUMED_TO:
+            fail("a directory without a commit marker is visible")
+        refused = False
+        try:
+            ColocatedLoop(cfg.replace(compute_dtype="bfloat16"), seed=0, device="cuda").restore(
+                second.state)
+        except RuntimeError:
+            refused = True
+        forced = ColocatedLoop(cfg.replace(compute_dtype="bfloat16", resume_force=True), seed=0,
+                               device="cuda")
+        forced.restore(forced.state)
+        if not refused or forced._start_it != CKPT_RESUMED_TO:
+            fail(f"fingerprint: refused {refused}, forced resume at {forced._start_it}")
+
+        # a save's cost at this state (sync: the whole save; async: what the
+        # loop pays, then the writer's wall time)
+        state = second.state
+        sync = Checkpointer(os.path.join(d, "sync"), "PPO", keep=2)
+        async_ = Checkpointer(os.path.join(d, "async"), "PPO", keep=2, async_save=True)
+        sync_s, snap_s = [], []
+        for i in range(CKPT_SAVES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync.save(state, i)
+            sync_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            async_.save(state, i)
+            snap_s.append(time.perf_counter() - t0)
+            async_.flush(timeout=60.0)
+        writer_s = async_.drain_save_secs()
+        sync.close()
+        async_.close()
+        # ms/update of CKPT_UPDATES-update runs without and with checkpoints,
+        # in turns (without, with, with, without)
+        per_update = {"plain": [], "ckpt": []}
+        for i, kind in enumerate(("plain", "ckpt", "ckpt", "plain")):
+            kw = dict(model_dir=os.path.join(d, f"timed{i}"), model_save_interval=CKPT_INTERVAL,
+                      ckpt_keep=CKPT_KEEP) if kind == "ckpt" else {}
+            timed = ColocatedLoop(Config(**TRAIN_CFG, loss_log_interval=CKPT_UPDATES, **kw),
+                                  seed=0, max_updates=CKPT_UPDATES, device="cuda").run(log=False)
+            per_update[kind].append(timed["elapsed_s"] / CKPT_UPDATES * 1e3)
+    out = dict(
+        updates=run1["updates"], resumed_to=run2["updates"], kept=kept,
+        ms_per_update_ckpt=statistics.mean(per_update["ckpt"]),
+        ms_per_update_plain=statistics.mean(per_update["plain"]),
+        ms_per_update_runs=per_update,
+        save_s_sync=statistics.median(sync_s), save_s_async_loop=statistics.median(snap_s),
+        save_s_async_writer=statistics.median(writer_s), lstm_fwd_launches=fwd,
+        lstm_bwd_launches=bwd,
+    )
+    print(
+        f"checkpoint PPO CartPole B={first.cfg.batch_size}: {CKPT_UPDATES} updates saving every "
+        f"{CKPT_INTERVAL} (async), newest committed {newest[0]}, kept {kept}; resumed at "
+        f"{CKPT_UPDATES} (run epoch 1, state and generator bit for bit) and ran to "
+        f"{run2['updates']}; a torn PPO_50 invisible; bf16 config refused, forced resumes; "
+        f"ms/update with checkpoints {out['ms_per_update_ckpt']:.4f} without "
+        f"{out['ms_per_update_plain']:.4f} (runs {per_update}); save s: sync {out['save_s_sync']:.6f}, async "
+        f"(loop) {out['save_s_async_loop']:.6f}, async (writer, drain_save_secs) "
+        f"{out['save_s_async_writer']:.6f}; lstm launches {fwd}/{bwd} [{card}]",
+        flush=True,
+    )
+    return out
 
 
 # ---------------------------------------------------------- attention (B4)
@@ -1701,12 +2162,33 @@ def main() -> None:
     profiled = serve_phase(profile=True)
     serving_checks(profiled, "serving (profiled)", card)
     serving_b3_time(shapes, profiled, card)
+    quant_policy = quant_policy_check(card)
+    quant_serving = {}
+    for mode in SERVE_DTYPES:
+        quant_serving[mode] = serve_phase(dtype=mode, mixes=SERVE_MIXES[:1])
+        serving_checks(quant_serving[mode], f"serving {mode}", card)
 
     lstm_rows = lstm_phase()
     training = train_phase(card)
     learning = learn_phase(card)
     wide_training = wide_lstm_train_phase(card)
     wide_impala = wide_lstm_train_phase(card, "IMPALA")
+    mixed_dot_rows = mixed_dot_check(card)
+    bf16_ref = bf16_ref_phase(card)
+    wide_bf16 = wide_lstm_train_phase(card, "IMPALA", "bfloat16")
+    print(
+        "IMPALA@wide-lstm f32 vs bf16 (this run): "
+        + " ".join(
+            f"{k} {wide_impala[k] if wide_impala[k] is None else round(wide_impala[k], 6)} / "
+            f"{wide_bf16[k] if wide_bf16[k] is None else round(wide_bf16[k], 6)}"
+            for k in ("ms_per_update", "enqueue_ms", "device_ms_per_update", "transitions_per_s",
+                      "gemm_device_share", "b1_b2_device_share", "vtrace_device_share")
+        )
+        + f" [{card}]",
+        flush=True,
+    )
+    bf16_colocated = bf16_colocated_phase(card)
+    checkpointing = checkpoint_phase(card)
     ref_rows = {name: ref_row_phase(name, card) for name in REF_ROWS}
     colocated_algos = colocated_algos_phase(card)
     impala_learning = impala_learn_phase(card)
@@ -1741,6 +2223,9 @@ def main() -> None:
         # profiled serving run and its launches (null if the profiler saw
         # no kernel)
         launches_by_bucket=serving["launches_by_rows"],
+        # the same path serving bf16 and int8 weights (widened before B3)
+        launches_by_inference_dtype={"f32": serving["launches"],
+                                     **{m: r["launches"] for m, r in quant_serving.items()}},
         serving_device_ms=profiled["b3_device_ms"],
         serving_device_launches=profiled["launches"],
         card=card,
@@ -1780,6 +2265,11 @@ def main() -> None:
                 **{f"colocated {k}": v[f"{name}_launches"] for k, v in colocated_algos.items()},
                 "learning PPO": learning["lstm_launches"][name],
                 "learning IMPALA": impala_learning["lstm_launches"][name],
+                "checkpointed colocated PPO": checkpointing[f"{name}_launches"],
+                # bf16 compute runs the scan, as in tpu_rl: 0 on these paths
+                "IMPALA@ref bf16": bf16_ref[f"{name}_launches"],
+                "wide IMPALA bf16": wide_bf16[f"{name}_launches"],
+                "colocated PPO bf16": bf16_colocated[f"{name}_launches"],
             },
             card=card,
             shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
@@ -1813,7 +2303,15 @@ def main() -> None:
         ))
     print(json.dumps({"training": training, "wide_lstm_training": wide_training, "learning": {
         k: v for k, v in learning.items() if k != "scalars"
-    }, "wide_impala_training": wide_impala, "ref_rows": ref_rows,
+    }, "wide_impala_training": wide_impala, "wide_impala_bf16_training": wide_bf16,
+        "mixed_dot": mixed_dot_rows, "impala_ref_bf16": bf16_ref,
+        "colocated_ppo_bf16": bf16_colocated, "checkpoint": checkpointing,
+        "serving_precision": quant_policy,
+        "quantized_serving": {m: dict(mix1=r["mixes"][0], launches=r["launches"],
+                                      flushes=r["flushes"], warmups=r["warmups"],
+                                      param_bytes=r["param_bytes"])
+                              for m, r in quant_serving.items()},
+        "ref_rows": ref_rows,
         "colocated_algos": colocated_algos, "impala_learning": impala_learning,
         "transformer_training": tf_training, "transformer_colocated": tf_colocated}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -116,3 +116,52 @@ def test_transformer_roundtrip_keeps_layer_norm_untransposed():
     assert (own["block0.ln1.weight"] == 1.0).all() and not own["ln_f.bias"].any()
     w = own["block1.ff1.weight"].numpy()
     assert abs(w.var() * 32 - 1.0) < 0.1  # lecun_normal over fan_in 32
+
+
+@pytest.mark.parametrize("model", ["lstm", "transformer"])
+def test_quantized_tree_carries_across_with_its_f32_transpose(model):
+    """A tpu_rl tree quantized by ``tpu_rl.models.quant``: each int8 leaf
+    becomes ``{"q8", "scale"}`` with ``q8`` transposed exactly as its f32
+    leaf is (a Dense kernel's codes become a Linear weight's, the recurrent
+    kernel's stay), the scale as it is, int8 and f32; a bf16 leaf becomes a
+    bf16 tensor bit for bit. Back to flax the int8 tree is exact and the
+    bf16 one comes back widened to f32, equal to tpu_rl's widened leaves."""
+    from tpu_rl.models.quant import is_q8_leaf, quantize_tree
+
+    tree = _jax_actor_tree(32, 6, 3) if model == "lstm" else _jax_transformer_tree()
+    f32 = flax_to_state_dict(tree)
+    q = jax.device_get(quantize_tree(tree, "int8"))
+    sd = flax_to_state_dict(q)
+    assert set(sd) == set(f32)
+    flat = {jax.tree_util.keystr(p): leaf for p, leaf in
+            jax.tree_util.tree_flatten_with_path(q, is_leaf=is_q8_leaf)[0]}
+    for key, value in sd.items():
+        if f32[key].dim() < 2:  # biases and LayerNorm scales stay f32 leaves
+            assert torch.equal(value, f32[key]), key
+            continue
+        assert set(value) == {"q8", "scale"} and value["q8"].dtype == torch.int8, key
+        assert value["q8"].shape == f32[key].shape and value["scale"].dim() == 0, key
+        *parents, leaf = key.split(".")
+        name = "['params']" + "".join(f"['{p}']" for p in parents) + (
+            "['kernel']" if leaf == "weight" else f"['{leaf}']")
+        codes = np.asarray(flat[name]["q8"])
+        np.testing.assert_array_equal(value["q8"].numpy(), codes.T if leaf == "weight" else codes)
+        # the codes decode to the f32 leaf in the port's layout
+        err = (value["q8"].float() * value["scale"] - f32[key]).abs().max()
+        assert float(err) <= float(value["scale"]) / 2 + 1e-7, key
+    back = state_dict_to_flax(sd)
+    a = jax.tree_util.tree_flatten_with_path(q)[0]
+    b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, x), (_, y) in zip(a, b, strict=True):
+        assert x.dtype == y.dtype, path
+        np.testing.assert_array_equal(x, y)
+    qb = jax.device_get(quantize_tree(tree, "bf16"))
+    sdb = flax_to_state_dict(qb)
+    for key, value in sdb.items():
+        assert value.dtype == torch.bfloat16 and torch.equal(value.float(), f32[key].bfloat16().float()), key
+    for (path, x), (_, y) in zip(jax.tree_util.tree_flatten_with_path(qb)[0],
+                                 jax.tree_util.tree_flatten_with_path(state_dict_to_flax(sdb))[0],
+                                 strict=True):
+        assert y.dtype == np.float32, path
+        np.testing.assert_array_equal(np.asarray(x, np.float32), y)

@@ -57,7 +57,7 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.envs", "tpu_rl_torch.envs.core", "tpu_rl_torch.envs.cartpole",
         "tpu_rl_torch.runtime.colocated", "tpu_rl_torch.ops.attention",
         "tpu_rl_torch.parallel", "tpu_rl_torch.parallel.sequence",
-        "tpu_rl_torch.models.transformer",
+        "tpu_rl_torch.models.transformer", "tpu_rl_torch.checkpoint",
     ):
         assert name in doc["imported"], name
 
@@ -91,8 +91,10 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
     assert cfg.extra == {"chaos_spec": None, "worker_step_sleep": 0.05, "mesh_seq": 1}
-    with pytest.raises(NotImplementedError, match="quantized-serving slice"):
-        Config.from_dict({"inference_dtype": "bf16"})
+    # bf16/int8 serving and the checkpoint directory load now
+    for mode in ("bf16", "int8"):
+        assert Config.from_dict({"inference_dtype": mode}).inference_dtype == mode
+    assert Config.from_dict({"model_dir": "/tmp/ckpt"}).model_dir == "/tmp/ckpt"
     with pytest.raises(AssertionError):
         Config.from_dict({"act_kernel": "triton"})
     with pytest.raises(AssertionError):
@@ -104,15 +106,18 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
         ({"model": "transformer", "attention_impl": "ring"}, "sequence-parallel slice"),
         ({"model": "transformer", "attention_impl": "ulysses"}, "sequence-parallel slice"),
         ({"model": "transformer", "attention_impl": "blockwise"}, "blockwise-attention slice"),
-        # bf16 compute: the transformer takes it, the LSTM not yet
-        ({"compute_dtype": "bfloat16"}, "bf16-compute slice"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             build_family(Config.from_dict(kw), device="cpu")
+    # bf16 compute: the LSTM takes it too now; with the fused act kernel,
+    # which computes in f32 only, it is refused
+    assert build_family(Config.from_dict({"compute_dtype": "bfloat16"}), device="cpu").actor.dtype \
+        == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        Config.from_dict({"compute_dtype": "bfloat16", "act_kernel": "pallas"})
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("model_dir", "/tmp/ckpt", "durability slice"),
     ("mesh_data", 2, "multi-GPU slice"),
     ("mesh_seq", 2, "multi-GPU slice"),
     ("multihost", {"coordinator": "127.0.0.1:1234", "num_processes": 2, "process_id": 0},
@@ -124,12 +129,12 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     ("result_dir", "/tmp/run", "observability slice"),
 ])
 def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
-    """A key that makes tpu_rl checkpoint, shard, arm chaos, run replicas or
-    export telemetry is refused away from its default, naming the slice that
-    brings it; at its default (or absent) it loads."""
+    """A key that makes tpu_rl shard, arm chaos, run replicas or export
+    telemetry is refused away from its default, naming the slice that brings
+    it; at its default (or absent) it loads."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Config.from_dict({key: value})
-    default = None if key in ("model_dir", "multihost", "chaos_spec", "result_dir") else (
+    default = None if key in ("multihost", "chaos_spec", "result_dir") else (
         0 if key == "telemetry_port" else 1)
     assert Config.from_dict({key: default}).extra == {key: default}
 

@@ -418,3 +418,72 @@ def test_slice_parity_with_tpu_rl_service(jax_replies, act_kernel):
     # the reset zeroed client 0's env-1 carry on both sides, and only there
     np.testing.assert_array_equal(got[2][0]["hx"][1], 0.0)
     assert np.abs(got[2][0]["hx"][0]).max() > 0
+
+
+# ------------------------------------------------------- serving precision
+@pytest.mark.parametrize("act_kernel", ["xla", "pallas"])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_quantized_serving_matches_tpu_rl_jitted_step(mode, act_kernel):
+    """``inference_dtype`` bf16 / int8: the port's service, given the f32
+    weights (bridged), quantizes them as tpu_rl's service does and widens
+    them inside each act step. Its replies over the scripted stream match
+    tpu_rl's jitted act step (``InferenceService._step_fn``) on tpu_rl's
+    own quantized tree, carried tick by tick: logits, hx and cx at 1e-5.
+    ``param_bytes`` is tpu_rl's ``tree_bytes`` of that tree; a swap is
+    quantized too and served with its version."""
+    import jax.numpy as jnp
+
+    from tpu_rl.models.quant import tree_bytes as jax_tree_bytes
+
+    raw = dict(algo="PPO", hidden_size=HIDDEN, obs_shape=(4,), action_space=2, worker_num_envs=2,
+               inference_batch=8, inference_flush_us=2000, inference_dtype=mode)
+    jcfg = small_config(**raw)
+    jfam = jax_build_family(jcfg)
+    jparams = jfam.init_params(jax.random.key(0), seq_len=jcfg.seq_len)
+    jparams = {"actor": with_random_biases(jax.tree_util.tree_map(np.asarray, jparams["actor"]), 3)}
+    jsvc = JaxInferenceService(jcfg, jfam, jparams, port=PARITY_PORT + 1)
+    jq = jsvc._quantize(jparams)
+    jstep = jax.jit(jsvc._step_fn(jnp))
+    carries = [(np.zeros((2, HIDDEN), np.float32),) * 2 for _ in range(2)]
+    want = []
+    for obs_t, first_t in zip(_script_obs(), FIRSTS, strict=True):
+        row = []
+        for k in range(2):
+            _a, logits, _lp, h, c, h2, c2 = jstep(jq, obs_t[k], *carries[k], first_t[k],
+                                                  jax.random.key(k))
+            carries[k] = (np.asarray(h2), np.asarray(c2))
+            row.append(dict(logits=np.asarray(logits), hx=np.asarray(h), cx=np.asarray(c)))
+        want.append(row)
+
+    cfg = _svc_config(hidden_size=HIDDEN, act_kernel=act_kernel, inference_dtype=mode)
+    family = build_family(cfg, device="cpu")
+    router = LocalRouter()
+    svc = InferenceService(
+        cfg, family, {"actor": flax_to_state_dict(jparams["actor"])}, router, device="cpu"
+    ).start()
+    assert svc.wait_ready(60.0), svc.error
+    assert svc.param_bytes == jax_tree_bytes(jq)
+    clients = [router.client(f"w{k}".encode()) for k in range(2)]
+    try:
+        got = [[cl.act(o, f) for cl, o, f in zip(clients, obs_t, first_t, strict=True)]
+               for obs_t, first_t in zip(_script_obs(), FIRSTS, strict=True)]
+        new = build_family(cfg, device="cpu").init_params(torch.Generator().manual_seed(5))
+        svc.set_params(new, version=9)
+        swapped = clients[0].act(_script_obs()[0][0], np.ones(2, np.float32))
+    finally:
+        svc.close()
+    assert svc.error is None, svc.error
+    for t, (got_t, want_t) in enumerate(zip(got, want, strict=True)):
+        for k, (g, w) in enumerate(zip(got_t, want_t, strict=True)):
+            for key in ("logits", "hx", "cx"):
+                np.testing.assert_allclose(
+                    g[key], w[key], atol=1e-5, rtol=0, err_msg=f"tick {t} client {k} {key}"
+                )
+    from tpu_rl_torch.models.quant import dequantize_tree, quantize_tree
+
+    served = dequantize_tree(quantize_tree(new, mode))
+    zeros = torch.zeros((2, HIDDEN))
+    logits, _v, _c = torch.func.functional_call(
+        family.actor, served["actor"], (torch.from_numpy(_script_obs()[0][0]), (zeros, zeros)))
+    assert swapped["ver"] == 9
+    np.testing.assert_allclose(swapped["logits"], logits.numpy(), atol=1e-6)

@@ -9,6 +9,12 @@ and back), so neither package imports the other.
   state_dict the two are told apart by ``ndim``: a 1-D ``.weight`` is a
   LayerNorm ``scale``, a 2-D one a Dense ``kernel``.
 - Any other leaf (``cell/recurrent_kernel (H, 4H)``) is copied as it is.
+- A quantized ``tpu_rl`` tree (``tpu_rl.models.quant``) carries across: an
+  int8 leaf ``{"q8", "scale"}`` stays such a dict, its ``q8`` transposed
+  exactly as its f32 leaf would be (a Dense ``kernel``) or not (any other
+  leaf), its per-tensor ``scale`` as it is; a bfloat16 leaf becomes a
+  bfloat16 tensor bit for bit. Back to flax, a bfloat16 tensor comes out
+  widened to float32 (exactly; numpy has no bfloat16).
 - The flax collection ``params`` is the top of the tree. LSTM:
   ``params/body`` -> ``body.*``, ``params/cell/x_proj`` -> ``cell.x_proj.*``,
   ``params/cell/recurrent_kernel`` -> ``cell.recurrent_kernel``,
@@ -45,6 +51,33 @@ def _is_layer_norm(node: Any) -> bool:
     return isinstance(node, Mapping) and set(node) == {"scale", "bias"}
 
 
+def _is_q8(node: Any) -> bool:
+    return isinstance(node, Mapping) and set(node) == {"q8", "scale"}
+
+
+def _tensor(leaf: Any, transpose: bool = False):
+    """A flax leaf -> a CPU tensor (a bfloat16 array bit for bit), or an int8
+    leaf -> ``{"q8", "scale"}`` of tensors; ``transpose`` turns a Dense
+    kernel (or its ``q8``) into a Linear weight."""
+    if _is_q8(leaf):
+        return {"q8": _tensor(leaf["q8"], transpose), "scale": _tensor(leaf["scale"])}
+    arr = np.asarray(leaf)
+    if transpose:
+        arr = arr.T
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def _array(value: Any, transpose: bool = False):
+    """Inverse of :func:`_tensor`; a bfloat16 tensor is widened to float32."""
+    if isinstance(value, Mapping):
+        return {"q8": _array(value["q8"], transpose), "scale": _array(value["scale"])}
+    value = value.detach().cpu()
+    arr = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+    return np.ascontiguousarray(arr.T) if transpose else arr.copy()
+
+
 def flax_to_state_dict(actor_tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``{"params": {...}}`` (numpy leaves) -> ``state_dict`` of CPU tensors."""
     out: dict[str, torch.Tensor] = {}
@@ -53,15 +86,15 @@ def flax_to_state_dict(actor_tree: Mapping[str, Any]) -> dict[str, torch.Tensor]
         for name, child in node.items():
             path = f"{prefix}{name}"
             if _is_dense(child):
-                out[f"{path}.weight"] = torch.tensor(np.asarray(child["kernel"]).T)
-                out[f"{path}.bias"] = torch.tensor(np.asarray(child["bias"]))
+                out[f"{path}.weight"] = _tensor(child["kernel"], transpose=True)
+                out[f"{path}.bias"] = _tensor(child["bias"])
             elif _is_layer_norm(child):
-                out[f"{path}.weight"] = torch.tensor(np.asarray(child["scale"]))
-                out[f"{path}.bias"] = torch.tensor(np.asarray(child["bias"]))
-            elif isinstance(child, Mapping):
+                out[f"{path}.weight"] = _tensor(child["scale"])
+                out[f"{path}.bias"] = _tensor(child["bias"])
+            elif isinstance(child, Mapping) and not _is_q8(child):
                 walk(child, f"{path}.")
             else:
-                out[path] = torch.tensor(np.asarray(child))
+                out[path] = _tensor(child)
 
     walk(actor_tree["params"], "")
     return out
@@ -72,17 +105,17 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
     numpy leaves."""
     root: dict[str, Any] = {}
     for key, value in state_dict.items():
-        arr = value.detach().cpu().numpy()
         *parents, leaf = key.split(".")
         node = root
         for p in parents:
             node = node.setdefault(p, {})
-        if leaf == "weight" and arr.ndim == 1:  # a LayerNorm scale
-            node["scale"] = arr.copy()
+        ndim = (value["q8"] if isinstance(value, Mapping) else value).dim()
+        if leaf == "weight" and ndim == 1:  # a LayerNorm scale
+            node["scale"] = _array(value)
         elif leaf == "weight":
-            node["kernel"] = np.ascontiguousarray(arr.T)
+            node["kernel"] = _array(value, transpose=True)
         else:  # a bias, or a leaf kept as it is (recurrent_kernel)
-            node[leaf] = arr.copy()
+            node[leaf] = _array(value)
     return {"params": root}
 
 

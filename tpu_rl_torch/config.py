@@ -1,10 +1,10 @@
 """Typed configuration — the port's own copy of ``tpu_rl.config.Config``.
 
-It holds the fields the serving and training slices read, with ``tpu_rl``'s
-names and defaults, so an existing params file loads unchanged. Keys the
-port does not know yet are kept in ``extra``: a full ``tpu_rl`` params file
-still loads. Those of them that would make ``tpu_rl`` do something the port
-does not do yet (write checkpoints, build a mesh, arm chaos, run replicas,
+It holds the fields the serving, training and durability slices read, with
+``tpu_rl``'s names and defaults, so an existing params file loads unchanged.
+Keys the port does not know yet are kept in ``extra``: a full ``tpu_rl``
+params file still loads. Those of them that would make ``tpu_rl`` do
+something the port does not do yet (build a mesh, arm chaos, run replicas,
 export telemetry) are refused at a value other than their default
 (:data:`LATER_SLICES`), so that a run never silently does less than asked.
 """
@@ -19,15 +19,27 @@ from typing import Any, Callable
 OFF_POLICY_ALGOS = frozenset({"SAC", "SAC-Continuous"})
 
 
+# Config fields that shape the train state or the meaning of its numbers:
+# the resume compatibility surface hashed by
+# tpu_rl_torch.checkpoint.resume_fingerprint (tpu_rl.config
+# .FINGERPRINT_FIELDS, copied in its order). Runtime knobs are left out:
+# changing them must never strand a checkpoint.
+FINGERPRINT_FIELDS = (
+    "env", "algo", "model", "hidden_size", "n_heads", "n_layers", "seq_len", "attention_impl",
+    "obs_shape", "action_space", "is_continuous", "compute_dtype", "need_conv", "height",
+    "width", "is_gray",
+)
+
+
 def is_off_policy(algo: str) -> bool:
     return algo in OFF_POLICY_ALGOS
 
 # Keys of a tpu_rl params file that the port keeps in ``extra`` but refuses
 # away from their default: (key, is it set?, the slice of the port that
 # brings it). Defaults as in tpu_rl.config.Config; telemetry_port and
-# result_dir are tpu_rl's ``telemetry_enabled``.
+# result_dir are tpu_rl's ``telemetry_enabled``; result_dir also holds the
+# resume audit record (obs/audit.py), which comes with observability.
 LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
-    ("model_dir", lambda v: v is not None, "durability slice"),
     ("mesh_data", lambda v: v > 1, "multi-GPU slice"),
     ("mesh_seq", lambda v: v > 1, "multi-GPU slice"),
     ("multihost", lambda v: v is not None, "multi-GPU slice"),
@@ -44,6 +56,13 @@ class Config:
     # experiment
     env: str = "CartPole-v1"
     algo: str = "PPO"
+    # Checkpoint directory of the colocated loop (None = no checkpoints).
+    model_dir: str | None = None
+    # observation preprocessing (tpu_rl's unused conv flags; fingerprinted)
+    need_conv: bool = False
+    height: int = 84
+    width: int = 84
+    is_gray: bool = False
     # model
     hidden_size: int = 64
     # Policy backbone: "lstm" or "transformer" (on-policy algos only).
@@ -58,8 +77,8 @@ class Config:
     seq_len: int = 5
     # Reset the LSTM carry at in-sequence episode seams (tpu_rl default).
     reset_carry_on_first: bool = True
-    # Compute dtype of the train step ("float32" or "bfloat16"; bfloat16 for
-    # the transformer only in this port so far).
+    # Compute dtype of the train step ("float32" or "bfloat16": params stay
+    # f32, the products run in bf16 with f32 sums).
     compute_dtype: str = "float32"
     # Number of envs one worker steps per tick (one batched act per tick).
     worker_num_envs: int = 1
@@ -68,7 +87,8 @@ class Config:
     # pending request is `inference_flush_us` microseconds old.
     inference_batch: int = 64
     inference_flush_us: int = 1000
-    # Serving precision of the actor params ("f32" only in this port so far).
+    # Serving precision of the actor params: "f32", "bf16" or "int8"
+    # (models/quant.py; widened to f32 inside each act step).
     inference_dtype: str = "f32"
     # Padded-batch bucket ladder: 0 = one fixed pad_rows shape; > 0 =
     # power-of-two buckets from this floor up to pad_rows.
@@ -122,6 +142,13 @@ class Config:
     learn_diag: bool = True
     # Updates between two host reads of the run's metrics.
     loss_log_interval: int = 50
+    # Checkpoints (checkpoint.py): updates between two saves, committed
+    # checkpoints kept, the device snapshot written on a background thread
+    # (False = a blocking save), and resume despite a fingerprint mismatch.
+    model_save_interval: int = 100
+    ckpt_keep: int = 5
+    ckpt_async: bool = True
+    resume_force: bool = False
     # "distributed" (workers, the reference topology) or "colocated" (envs
     # stepped on the device inside the training loop; runtime/colocated.py).
     env_mode: str = "distributed"
@@ -189,6 +216,11 @@ class Config:
         assert self.lr > 0, self.lr
         assert self.max_grad_norm > 0, self.max_grad_norm
         assert self.loss_log_interval >= 1, self.loss_log_interval
+        assert self.model_save_interval >= 1, self.model_save_interval
+        assert self.ckpt_keep >= 1, (
+            f"ckpt_keep must be >= 1 (got {self.ckpt_keep}): GC may never "
+            "remove the newest committed checkpoint"
+        )
         assert self.env_mode in ("distributed", "colocated"), self.env_mode
         assert self.colocated_envs >= 0, self.colocated_envs
         if self.env_mode == "colocated":
@@ -230,11 +262,12 @@ class Config:
         assert self.inference_dtype in ("f32", "bf16", "int8"), self.inference_dtype
         assert self.inference_buckets >= 0, self.inference_buckets
         assert self.act_kernel in ("xla", "pallas"), self.act_kernel
-        if self.inference_dtype != "f32":
+        if self.act_kernel == "pallas" and self.compute_dtype == "bfloat16" and self.model == "lstm":
+            # tpu_rl serves this unfused (family.act); the port refuses instead
             raise NotImplementedError(
-                f"inference_dtype={self.inference_dtype!r}: bf16/int8 serving "
-                "(models/quant.py) comes with the quantized-serving slice of "
-                "the port; this slice serves f32 only"
+                "act_kernel='pallas' with compute_dtype='bfloat16': the fused act kernel "
+                "computes in f32 only, and tpu_rl serves a bf16-compute LSTM unfused "
+                "(family.act); use act_kernel='xla'"
             )
 
     @property

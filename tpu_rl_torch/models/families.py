@@ -218,12 +218,12 @@ def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> Mod
             act_carry_widths=(kv, kv + 1),
             store_carry=False,
         )
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} with the LSTM: bf16 compute "
-            "(mixed_dot, LSTMCell.dtype) comes with the bf16-compute slice of the port"
-        )
-    kw = dict(hidden=cfg.hidden_size, reset_on_first=cfg.reset_carry_on_first)
+    # Mixed precision for the LSTM families: params f32, the torso and LSTM
+    # products in bf16 with f32 sums, heads and carry f32 (LSTMCell.dtype).
+    kw = dict(
+        hidden=cfg.hidden_size, reset_on_first=cfg.reset_carry_on_first,
+        dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None,
+    )
     base = dict(algo=cfg.algo, obs_dim=obs_dim, n_actions=n, hidden=cfg.hidden_size, device=dev)
     if cfg.algo in ("PPO", "IMPALA", "V-MPO"):
         make = partial(DiscreteActorCritic, obs_dim, n, **kw)
@@ -256,15 +256,14 @@ def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> Mod
     raise ValueError(f"unknown algo {cfg.algo!r}")
 
 
-def to_device_params(params: Any, device: torch.device) -> Params:
-    """Fresh float32 contiguous copies of a ``{"actor": {name: array}}`` tree
-    (numpy arrays or tensors) on ``device``. Always copies, so the caller may
-    go on mutating what it passed."""
-    return {
-        group: {
-            k: torch.as_tensor(v).detach().to(device=device, dtype=torch.float32, copy=True)
-            .contiguous()
-            for k, v in tree.items()
-        }
-        for group, tree in params.items()
-    }
+def to_device_params(params: Any, device: torch.device) -> Any:
+    """Fresh contiguous copies of a parameter tree (nested dicts of numpy
+    arrays or tensors) on ``device``: float32, except bf16 and int8 tensors
+    (the serving precisions of :mod:`tpu_rl_torch.models.quant`), which keep
+    their dtype. Always copies, so the caller may go on mutating what it
+    passed."""
+    if isinstance(params, dict):
+        return {k: to_device_params(v, device) for k, v in params.items()}
+    t = torch.as_tensor(params).detach()
+    dtype = t.dtype if t.dtype in (torch.bfloat16, torch.int8) else torch.float32
+    return t.to(device=device, dtype=dtype, copy=True).contiguous()

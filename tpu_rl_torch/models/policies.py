@@ -7,6 +7,11 @@ keys follow the flax tree paths and the bridge maps them with no special
 case. Each module's ``forward`` is what ``torch.func.functional_call``
 calls: an actor's one act step without ``firsts``, its sequence unroll with
 them (flax's ``apply(..., method=)``); a critic's forward is its unroll.
+
+``dtype`` is the compute dtype of ``tpu_rl``'s modules (None = f32): the
+torso Dense(s) and the LSTM cell compute in it (``LSTMCell.dtype``), the
+heads stay f32, and the parameters are f32 either way, so one parameter
+tree serves both.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from tpu_rl_torch.models.cells import Carry, LSTMCell, init_dense_
+from tpu_rl_torch.models.cells import Carry, LSTMCell, dense, init_dense_
 
 LOG_STD_MIN = -20.0
 LOG_STD_MAX = 2.0
@@ -28,14 +33,16 @@ class DiscreteActorCritic(nn.Module):
     the flax tree paths."""
 
     def __init__(
-        self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True
+        self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.n_actions = n_actions
         self.hidden = hidden
         self.reset_on_first = reset_on_first
         self.body = nn.Linear(obs_dim, hidden)
-        self.cell = LSTMCell(hidden, hidden)
+        self.cell = LSTMCell(hidden, hidden, dtype)
         self.logits = nn.Linear(hidden, n_actions)
         self.value = nn.Linear(hidden, 1)
 
@@ -50,7 +57,7 @@ class DiscreteActorCritic(nn.Module):
     def act(self, obs: torch.Tensor, carry: Carry):
         """Single-step inference. Returns (log-softmax logits, value, new
         carry); sampling is external."""
-        x = torch.relu(self.body(obs))
+        x = torch.relu(dense(self.body, obs, self.dtype))
         carry, h = self.cell(carry, x)
         return torch.log_softmax(self.logits(h), dim=-1), self.value(h), carry
 
@@ -58,7 +65,7 @@ class DiscreteActorCritic(nn.Module):
         """Batched sequence forward: obs (B, S, D), carry0 ((B,H),(B,H)),
         firsts (B, S, 1) -> (logits (B,S,A) log-softmax, value (B,S,1),
         carry)."""
-        x = torch.relu(self.body(obs))
+        x = torch.relu(dense(self.body, obs, self.dtype))
         carry, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
         return torch.log_softmax(self.logits(hs), dim=-1), self.value(hs), carry
 
@@ -78,13 +85,14 @@ class ContinuousActorCritic(nn.Module):
 
     def __init__(
         self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
-        std_floor: float = 0.0,
+        std_floor: float = 0.0, dtype: torch.dtype | None = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.reset_on_first = reset_on_first
         self.std_floor = std_floor
         self.body = nn.Linear(obs_dim, hidden)
-        self.cell = LSTMCell(hidden, hidden)
+        self.cell = LSTMCell(hidden, hidden, dtype)
         self.mu = nn.Linear(hidden, n_actions)
         self.std = nn.Linear(hidden, n_actions)
         self.value = nn.Linear(hidden, 1)
@@ -98,13 +106,13 @@ class ContinuousActorCritic(nn.Module):
 
     def act(self, obs: torch.Tensor, carry: Carry):
         """-> (mu, std, value, new carry)."""
-        carry, h = self.cell(carry, torch.relu(self.body(obs)))
+        carry, h = self.cell(carry, torch.relu(dense(self.body, obs, self.dtype)))
         mu, std = self._dist(h)
         return mu, std, self.value(h), carry
 
     def unroll(self, obs: torch.Tensor, carry0: Carry, firsts: torch.Tensor):
         """-> (mu (B,S,A), std (B,S,A), value (B,S,1), carry)."""
-        x = torch.relu(self.body(obs))
+        x = torch.relu(dense(self.body, obs, self.dtype))
         carry, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
         mu, std = self._dist(hs)
         return mu, std, self.value(hs), carry
@@ -119,11 +127,13 @@ class SACDiscreteActor(nn.Module):
     """Categorical SAC actor (``body``, ``cell``, ``logits``): the act step
     returns the log-softmax logits, the unroll ``(probs, log_probs)``."""
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True):
+    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.reset_on_first = reset_on_first
         self.body = nn.Linear(obs_dim, hidden)
-        self.cell = LSTMCell(hidden, hidden)
+        self.cell = LSTMCell(hidden, hidden, dtype)
         self.logits = nn.Linear(hidden, n_actions)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -131,11 +141,11 @@ class SACDiscreteActor(nn.Module):
             _reset(m, generator)
 
     def act(self, obs: torch.Tensor, carry: Carry):
-        carry, h = self.cell(carry, torch.relu(self.body(obs)))
+        carry, h = self.cell(carry, torch.relu(dense(self.body, obs, self.dtype)))
         return torch.log_softmax(self.logits(h), dim=-1), carry
 
     def unroll(self, obs: torch.Tensor, carry0: Carry, firsts: torch.Tensor):
-        x = torch.relu(self.body(obs))
+        x = torch.relu(dense(self.body, obs, self.dtype))
         _, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
         logp = torch.log_softmax(self.logits(hs), dim=-1)
         return torch.exp(logp), logp
@@ -149,11 +159,13 @@ class SACDiscreteActor(nn.Module):
 class SACDiscreteCritic(nn.Module):
     """Per-action Q critic (``body``, ``cell``, ``q``): (B,S,A) values."""
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True):
+    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.reset_on_first = reset_on_first
         self.body = nn.Linear(obs_dim, hidden)
-        self.cell = LSTMCell(hidden, hidden)
+        self.cell = LSTMCell(hidden, hidden, dtype)
         self.q = nn.Linear(hidden, n_actions)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -161,7 +173,7 @@ class SACDiscreteCritic(nn.Module):
             _reset(m, generator)
 
     def forward(self, obs: torch.Tensor, carry0: Carry, firsts: torch.Tensor):
-        x = torch.relu(self.body(obs))
+        x = torch.relu(dense(self.body, obs, self.dtype))
         _, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
         return self.q(hs)
 
@@ -169,10 +181,11 @@ class SACDiscreteCritic(nn.Module):
 class SACDiscreteTwinCritic(nn.Module):
     """Twin per-action Q critics ``q1`` and ``q2``, separate parameters."""
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True):
+    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.q1 = SACDiscreteCritic(obs_dim, n_actions, hidden, reset_on_first)
-        self.q2 = SACDiscreteCritic(obs_dim, n_actions, hidden, reset_on_first)
+        self.q1 = SACDiscreteCritic(obs_dim, n_actions, hidden, reset_on_first, dtype)
+        self.q2 = SACDiscreteCritic(obs_dim, n_actions, hidden, reset_on_first, dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.q1.reset_parameters(generator)
@@ -188,11 +201,13 @@ class SACContinuousActor(nn.Module):
     carry from the act step); the squashed sample is
     :func:`~tpu_rl_torch.ops.distributions.tanh_normal_sample`'s."""
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True):
+    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.reset_on_first = reset_on_first
         self.body = nn.Linear(obs_dim, hidden)
-        self.cell = LSTMCell(hidden, hidden)
+        self.cell = LSTMCell(hidden, hidden, dtype)
         self.mu = nn.Linear(hidden, n_actions)
         self.log_std = nn.Linear(hidden, n_actions)
 
@@ -204,12 +219,12 @@ class SACContinuousActor(nn.Module):
         return self.mu(h), torch.clamp(self.log_std(h), LOG_STD_MIN, LOG_STD_MAX)
 
     def act(self, obs: torch.Tensor, carry: Carry):
-        carry, h = self.cell(carry, torch.relu(self.body(obs)))
+        carry, h = self.cell(carry, torch.relu(dense(self.body, obs, self.dtype)))
         mu, log_std = self._dist(h)
         return mu, log_std, carry
 
     def unroll(self, obs: torch.Tensor, carry0: Carry, firsts: torch.Tensor):
-        x = torch.relu(self.body(obs))
+        x = torch.relu(dense(self.body, obs, self.dtype))
         _, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
         return self._dist(hs)
 
@@ -225,13 +240,15 @@ class SACContinuousCritic(nn.Module):
     cell's input is ``2 * (hidden // 2)`` wide (``hidden - 1`` for an odd
     ``hidden``); a scalar ``q`` head."""
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True):
+    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.reset_on_first = reset_on_first
         half = hidden // 2
         self.obs_body = nn.Linear(obs_dim, half)
         self.act_body = nn.Linear(n_actions, half)
-        self.cell = LSTMCell(2 * half, hidden)
+        self.cell = LSTMCell(2 * half, hidden, dtype)
         self.q = nn.Linear(hidden, 1)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -239,7 +256,8 @@ class SACContinuousCritic(nn.Module):
             _reset(m, generator)
 
     def forward(self, obs: torch.Tensor, act: torch.Tensor, carry0: Carry, firsts: torch.Tensor):
-        x = torch.cat([torch.relu(self.obs_body(obs)), torch.relu(self.act_body(act))], dim=-1)
+        x = torch.cat([torch.relu(dense(self.obs_body, obs, self.dtype)),
+                       torch.relu(dense(self.act_body, act, self.dtype))], dim=-1)
         _, hs = self.cell.unroll(x, carry0, firsts, self.reset_on_first)
         return self.q(hs)
 
@@ -247,10 +265,11 @@ class SACContinuousCritic(nn.Module):
 class SACContinuousTwinCritic(nn.Module):
     """Twin continuous critics ``q1`` and ``q2``, separate parameters."""
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True):
+    def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, reset_on_first: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.q1 = SACContinuousCritic(obs_dim, n_actions, hidden, reset_on_first)
-        self.q2 = SACContinuousCritic(obs_dim, n_actions, hidden, reset_on_first)
+        self.q1 = SACContinuousCritic(obs_dim, n_actions, hidden, reset_on_first, dtype)
+        self.q2 = SACContinuousCritic(obs_dim, n_actions, hidden, reset_on_first, dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.q1.reset_parameters(generator)

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_rl_torch.models.cells import init_dense_
+from tpu_rl_torch.models.cells import dense, init_dense_, reduce_bf16_in_f32
 from tpu_rl_torch.parallel.sequence import ATTENTION_IMPLS, segment_ids_from_firsts
 
 
@@ -47,15 +47,6 @@ def sinusoidal_embedding(pos: torch.Tensor, dim: int) -> torch.Tensor:
     if dim % 2:
         emb = F.pad(emb, (0, 1))
     return emb
-
-
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
-    """flax ``Dense``: with a compute dtype, input, kernel and bias are cast
-    to it (the product's output is rounded to it before the bias add);
-    without one, an f32 ``x @ Wᵀ + b``."""
-    if dtype is None:
-        return F.linear(x.float(), layer.weight, layer.bias)
-    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()) + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -167,8 +158,7 @@ class TransformerActorCritic(nn.Module):
     def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, n_heads: int = 4,
                  n_layers: int = 2, ff_mult: int = 4, attention_impl: str = "full", dtype=None):
         super().__init__()
-        if dtype == torch.bfloat16:
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        reduce_bf16_in_f32(dtype)
         self.n_actions = n_actions
         self.hidden = hidden
         self.n_heads = n_heads

@@ -278,8 +278,8 @@ def max_active_clusters(plan: ActPlan) -> int:
 def make_fused_act(family):
     """Fused replacement for ``family.act`` with the same signature and
     return contract. Raises for a family the kernel does not cover
-    (anything but the discrete LSTM actor-critic), so that the fused path
-    is never quietly served by the unfused one."""
+    (anything but the f32 discrete LSTM actor-critic), so that the fused
+    path is never quietly served by the unfused one."""
     from tpu_rl_torch.models.policies import DiscreteActorCritic
 
     if not isinstance(family.actor, DiscreteActorCritic):
@@ -287,6 +287,14 @@ def make_fused_act(family):
             f"act_kernel='pallas' for {type(family.actor).__name__}: the fused act "
             "kernel covers only the discrete actor-critic (DiscreteActorCritic), "
             "as in tpu_rl"
+        )
+    if family.actor.dtype is not None:
+        # tpu_rl serves a bf16-compute LSTM through family.act here; the port
+        # refuses rather than let act_kernel="pallas" be served unfused.
+        raise NotImplementedError(
+            "act_kernel='pallas' with compute_dtype='bfloat16': the fused act kernel "
+            "computes in f32 only, and tpu_rl serves a bf16-compute LSTM unfused "
+            "(family.act); use act_kernel='xla'"
         )
 
     def act(params, obs, h, c, generator=None, gumbel=None):

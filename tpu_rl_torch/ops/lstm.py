@@ -29,6 +29,11 @@ it end to end. The plain versions, :func:`lstm_forward_plain` and
 :func:`lstm_backward_plain`, are the same math as Python loops over time;
 they are taken only for tensors that lie on the CPU, and they are what the
 kernels are held against.
+
+Under bf16 compute ``tpu_rl`` never runs its f32 kernel: it runs the
+mixed-precision scan, :func:`lstm_scan`, whose recurrent product is
+:func:`mixed_dot` (bf16 operands, an f32 result, in both passes). Both are
+here too, and neither is a kernel: the products are cuBLAS's on the card.
 """
 
 from __future__ import annotations
@@ -526,3 +531,75 @@ def lstm_unroll(xp, wh, h0, c0, keep):
         hs, cs, _acts = lstm_fwd(xp, wh, h0, c0, keep)
         return hs, cs
     return _LSTMUnroll.apply(xp, wh, h0, c0, keep)
+
+
+# ------------------------------------------------- bf16 compute (no kernel)
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices with an f32 result that is not rounded
+    to bf16 (``preferred_element_type=jnp.float32``). On the card it is
+    cuBLAS's bf16 product with an f32 output; on the CPU, which has no such
+    product, the operands are widened first: the products of two bf16
+    numbers are exact in f32, so that is the same function up to the order
+    of the f32 sums."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MixedDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, dtype):
+        # residuals saved already cast, as tpu_rl's _mixed_dot_fwd saves them
+        ad, bd = a.to(dtype), b.to(dtype)
+        ctx.save_for_backward(ad, bd)
+        return _mm_f32(ad, bd)
+
+    @staticmethod
+    def backward(ctx, g):
+        ad, bd = ctx.saved_tensors
+        gd = g.to(ad.dtype)
+        da = _mm_f32(gd, bd.t()) if ctx.needs_input_grad[0] else None
+        db = _mm_f32(ad.t(), gd) if ctx.needs_input_grad[1] else None
+        return da, db, None
+
+
+def mixed_dot(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``tpu_rl.ops.pallas_lstm.mixed_dot``: ``a @ b`` with both operands
+    rounded to ``dtype`` and an f32 result, in both passes: the backward
+    casts the cotangent to ``dtype`` too and computes ``da = gd @ bdᵀ`` and
+    ``db = adᵀ @ gd`` the same way. 2-D operands only (the backward's
+    transposes assume plain matrices), as in ``tpu_rl``."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(
+            "mixed_dot requires 2-D operands (its backward transposes them); "
+            f"got a.ndim={a.dim()}, b.ndim={b.dim()}. Reshape to matrices before calling."
+        )
+    return _MixedDot.apply(a, b, dtype)
+
+
+def lstm_scan(xp, wh, h0, c0, keep, matmul_dtype: torch.dtype = torch.bfloat16):
+    """``tpu_rl.ops.pallas_lstm._scan_forward`` with ``matmul_dtype``: the
+    mixed-precision recurrence that ``tpu_rl`` runs under bf16 compute
+    instead of its f32 kernel. The recurrent product goes through
+    :func:`mixed_dot`; ``xp`` (bf16 or f32) is widened to f32, and the
+    gates, the carry and the outputs are f32. A plain loop over S; its
+    backward is autograd through the loop. B1/B2 compute an f32 recurrent
+    product, another function, so they are not used here.
+    Returns ``(hs (B,S,H), (h_last, c_last))``."""
+    S = xp.shape[1]
+    H = wh.shape[0]
+    h, c = h0, c0
+    hs = []
+    for t in range(S):
+        kp = keep[:, t, None]
+        h = h * kp
+        c = c * kp
+        z = xp[:, t].float() + mixed_dot(h, wh, matmul_dtype)
+        i = torch.sigmoid(z[:, :H])
+        f = torch.sigmoid(z[:, H : 2 * H])
+        g = torch.tanh(z[:, 2 * H : 3 * H])
+        o = torch.sigmoid(z[:, 3 * H :])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, 1), (h, c)

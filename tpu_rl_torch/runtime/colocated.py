@@ -25,9 +25,19 @@ no ZMQ, no shared-memory ring. One iteration (:meth:`ColocatedLoop.program`):
 Episode counts and return sums accumulate on the device; the host reads
 them, and the metrics, only every ``cfg.loss_log_interval`` updates.
 
-Not in this slice: meshes and multihost, checkpoint and resume, telemetry,
-the history store, the goodput ledger and the ``diag`` accumulator (the
-train step still computes ``diag``; the loop drops it).
+With ``cfg.model_dir`` set, :meth:`ColocatedLoop.run` saves a crash-atomic
+checkpoint (:mod:`tpu_rl_torch.checkpoint`) every
+``cfg.model_save_interval`` updates and once more at the end, and starts by
+resuming from the newest committed one (refused if its config fingerprint
+differs, unless ``cfg.resume_force``): the update index continues from the
+checkpoint's, the run epoch is one above its, and the loop's random
+generator continues from the state saved in its meta (``tpu_rl`` needs only
+the index, since it draws ``fold_in(base, it)``; this loop draws from one
+stateful generator). The env carry starts afresh, as in ``tpu_rl``.
+
+Not in this slice: meshes and multihost, telemetry, the resume audit
+record, the history store, the goodput ledger and the ``diag`` accumulator
+(the train step still computes ``diag``; the loop drops it).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch
 
 from tpu_rl_torch import resolve_device
 from tpu_rl_torch.algos.registry import get_algo
+from tpu_rl_torch.checkpoint import Checkpointer, resume_fingerprint
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.envs import get_spec, make_vec_env
 from tpu_rl_torch.types import BATCH_FIELDS, Batch
@@ -101,6 +112,19 @@ class ColocatedLoop:
             cfg, torch.Generator().manual_seed(self.seed), self.device
         )
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        # Durability: the checkpointer, the run epoch (one above the resumed
+        # checkpoint's), the update index run() starts from, the last index
+        # saved, and the config fingerprint stored with every save.
+        self.ckpt = None
+        self.run_epoch = 0
+        self._start_it = 0
+        self._last_saved = -1
+        self._fingerprint = None
+        if cfg.model_dir:
+            self.ckpt = Checkpointer(
+                cfg.model_dir, cfg.algo, keep=cfg.ckpt_keep, async_save=cfg.ckpt_async
+            )
+            self._fingerprint = resume_fingerprint(cfg)
 
     # ------------------------------------------------------------ device init
     def init_carry(self, generator: torch.Generator | None = None) -> dict:
@@ -186,27 +210,77 @@ class ColocatedLoop:
         }
         return state, carry, stats, metrics
 
+    # ----------------------------------------------------------- durability
+    def save_meta(self) -> dict:
+        """The run meta committed with a checkpoint: the run epoch, the
+        config fingerprint and the generator's state (as a list of bytes)."""
+        return {
+            "epoch": self.run_epoch,
+            "fingerprint": self._fingerprint,
+            "generator": self.generator.get_state().tolist(),
+        }
+
+    def restore(self, state):
+        """Resume from the newest committed checkpoint, if there is one:
+        returns its state (else ``state``), and sets the update index, the
+        run epoch and the generator's state from it."""
+        restored = self.ckpt.restore_run(
+            state, fingerprint=self._fingerprint, force=self.cfg.resume_force
+        )
+        if restored is None:
+            return state
+        state, self._start_it, meta = restored
+        self.run_epoch = int(meta.get("epoch", 0)) + 1
+        saved = torch.tensor(meta.get("generator", []), dtype=torch.uint8)
+        if saved.numel() == self.generator.get_state().numel():
+            self.generator.set_state(saved)
+        else:  # no state saved, or one of another device's generator
+            print(
+                "[colocated] the checkpoint holds no generator state for this device; the "
+                "random stream restarts from the seed",
+                flush=True,
+            )
+        return state
+
+    def close(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.close()
+            self.ckpt = None
+
     # --------------------------------------------------------------- run loop
     def run(self, log: bool = True) -> dict:
-        """Drive :meth:`program` to ``max_updates``. Returns the run totals:
-        ``updates``, ``env_steps``, ``episodes``, ``mean_return_overall``,
-        ``mean_return_recent`` (the last log window's completed-episode
-        mean), ``mean_return_best_window`` (the best such window),
-        ``elapsed_s``, ``transitions_per_s``, and the timer's ``scalars``."""
+        """Drive :meth:`program` to ``max_updates`` (the update index, which
+        continues from a resumed checkpoint's). Returns the run totals:
+        ``updates`` (the final index), ``env_steps``, ``episodes``,
+        ``mean_return_overall``, ``mean_return_recent`` (the last log
+        window's completed-episode mean), ``mean_return_best_window`` (the
+        best such window), ``elapsed_s``, ``transitions_per_s`` (of this
+        run's updates), and the timer's ``scalars``."""
         cfg = self.cfg
         n, s = cfg.batch_size, cfg.seq_len
         timer = ExecutionTimer(num_transition=n * s)
         state = self.state
+        if self.ckpt is not None:
+            state = self.restore(state)
+            if log and self.run_epoch:
+                print(
+                    f"[colocated] resumed from committed checkpoint idx {self._start_it} "
+                    f"(run epoch {self.run_epoch})",
+                    flush=True,
+                )
         carry = self.init_carry()
         stats = self.init_stats()
         log_every = max(1, cfg.loss_log_interval)
-        it = 0
-        last_it, last_ep, last_ret = 0, 0, 0.0
+        it = last_it = self._start_it
+        last_ep, last_ret = 0, 0.0
         mean_ret, best_ret = 0.0, float("-inf")
         t0 = t_mark = time.perf_counter()
         while self.max_updates is None or it < self.max_updates:
             state, carry, stats, metrics = self.program(state, carry, stats)
             it += 1
+            if self.ckpt is not None and it % cfg.model_save_interval == 0:
+                self.ckpt.save(state, it, meta=self.save_meta())
+                self._last_saved = it
             if it % log_every and it != self.max_updates:
                 continue
             # The host reads block on iteration `it`, so the clock below
@@ -234,6 +308,11 @@ class ColocatedLoop:
         episodes = int(stats["episodes"])
         ret_sum = float(stats["ret_sum"])
         elapsed = time.perf_counter() - t0
+        if self.ckpt is not None and it > self._start_it and it != self._last_saved:
+            # the newest state is left durable when the run ends between saves
+            self.ckpt.save(state, it, meta=self.save_meta())
+            self._last_saved = it
+        self.close()
         self.state = state
         return {
             "updates": it,
@@ -243,6 +322,6 @@ class ColocatedLoop:
             "mean_return_recent": mean_ret,
             "mean_return_best_window": best_ret,
             "elapsed_s": elapsed,
-            "transitions_per_s": it * n * s / max(elapsed, 1e-9),
+            "transitions_per_s": (it - self._start_it) * n * s / max(elapsed, 1e-9),
             "scalars": timer.scalars(),
         }

@@ -17,6 +17,11 @@ buffer at the bucket's padded shape, makes one host-to-device copy, runs the
 act step (``Config.act_kernel``: the fused CUDA kernel, or the unfused module
 forward) and brings every output back in one device-to-host copy.
 
+The served params are kept at ``Config.inference_dtype``
+(:func:`~tpu_rl_torch.models.quant.quantize_tree`: f32, bf16 or int8),
+quantized when the service takes them, and widened to f32 inside each act
+step before the act computation runs; ``param_bytes`` is their size.
+
 The router is passed in: anything with ``recv(timeout_ms)``, ``drain()`` and
 ``send(identity, proto, payload)`` — :class:`~tpu_rl_torch.runtime.local_router.LocalRouter`
 in this slice. The service runs on ``device="cuda"`` unless the caller passes
@@ -36,7 +41,7 @@ import torch
 from tpu_rl_torch import resolve_device
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.models.families import to_device_params
-from tpu_rl_torch.models.quant import make_act_fn
+from tpu_rl_torch.models.quant import dequantize_tree, make_act_fn, quantize_tree, tree_bytes
 from tpu_rl_torch.runtime.protocol import Protocol
 from tpu_rl_torch.utils.timer import ExecutionTimer
 
@@ -132,7 +137,9 @@ class InferenceService:
         self.router = router
         self.timer = timer or ExecutionTimer()
         self.seed = seed
-        self._params = to_device_params(params, self.device)
+        self._params = self._quantize(params)
+        # Bytes of the served params (tpu_rl's inference-param-bytes gauge).
+        self.param_bytes = tree_bytes(self._params)
         # Policy version of the params served, echoed in every reply ("ver").
         self._version = version
         self._stop = threading.Event()
@@ -162,17 +169,25 @@ class InferenceService:
         no kernel build or first-launch cost)."""
         return self._ready.wait(timeout)
 
+    def _quantize(self, params):
+        """Device copies of ``params`` at the serving precision
+        (``Config.inference_dtype``; idempotent, so a tree that is already
+        quantized is not scaled twice)."""
+        return quantize_tree(to_device_params(params, self.device), self.cfg.inference_dtype)
+
     def set_params(self, params, version: int = -1) -> None:
-        """Swap the served policy. The new device tensors are built and
-        finished OUTSIDE the lock; under it only one reference is assigned,
-        so a flush reading the old tensors is never written into. The next
-        flush acts with the new weights and replies echo ``version``."""
-        new = to_device_params(params, self.device)
+        """Swap the served policy. The new device tensors are built,
+        quantized and finished OUTSIDE the lock; under it only one reference
+        is assigned, so a flush reading the old tensors is never written
+        into. The next flush acts with the new weights and replies echo
+        ``version``."""
+        new = self._quantize(params)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         with self._lock:
             self._params = new
             self._version = version
+            self.param_bytes = tree_bytes(new)
 
     def close(self, timeout: float = 10.0) -> None:
         self._stop.set()
@@ -216,10 +231,11 @@ class InferenceService:
             raise
 
     def _step(self, act, params, obs, h, c, first, generator):
-        """The padded act step. Zero the carry rows whose env just reset —
-        with ``where``, never a multiply, so a NaN carry cannot survive a
-        reset — and return the zeroed pre-step carry beside the post-step
-        one."""
+        """The padded act step. Widen the served params to f32; zero the
+        carry rows whose env just reset — with ``where``, never a multiply,
+        so a NaN carry cannot survive a reset — and return the zeroed
+        pre-step carry beside the post-step one."""
+        params = dequantize_tree(params)
         keep = (first < 0.5)[:, None]
         h = torch.where(keep, h, 0.0)
         c = torch.where(keep, c, 0.0)
