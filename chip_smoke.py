@@ -112,7 +112,23 @@ PyTorch version:
    ``configs/longcontext_singlechip.example.json`` with the flash impl
    (CartPole, KV-cached acting, 8 x 4096) for 2 updates, finite metrics and
    the launches as counted;
-12. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
+12. the telemetry and performance plane (``telemetry_phase``): (a) the
+   training config's colocated loop through ``ColocatedLoop.run`` with the
+   plane on (result_dir, an HTTP port, SLO rules, the diag accumulator,
+   the history store) for 30 updates: ``/metrics``, ``/healthz`` and
+   ``/goodput`` scraped mid-run, a ``/prof`` capture whose trace must name
+   B1's and B2's kernels, every file written, the FLOPs per update equal to
+   the CPU's count of the same update, B1/B2 launches = updates, no
+   recompile; then ms/update with the plane on and off in turns, the params
+   bit for bit equal; (b) IMPALA at bench.py's wide-lstm width on CartPole
+   in the colocated loop with the plane on, 2 + 5 updates: FLOPs per
+   update, achieved FLOP/s and MFU (bf16 peak), the memory gauges against
+   ``torch.cuda.max_memory_allocated()``; (c) serving mix 1 with the plane
+   on and off in turns: ``publish_serving_metrics``'s bucket counters
+   against the flushes and B3's launches, no recompile, each bucket's FLOPs
+   by B3's formula; (d) one full-width transformer train step counted: B4
+   charged its formula once per launch;
+13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
 Times are CUDA-event medians on this card; each is printed beside the card's
@@ -122,6 +138,7 @@ name and power limit.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -246,6 +263,20 @@ COLOCATED_UPDATES = 2
 # CKPT_INTERVAL updates (async), CKPT_KEEP kept, CKPT_UPDATES updates, then
 # resumed to CKPT_RESUMED_TO; CKPT_SAVES saves timed each way.
 CKPT_INTERVAL, CKPT_KEEP, CKPT_UPDATES, CKPT_RESUMED_TO, CKPT_SAVES = 10, 2, 30, 40, 5
+
+# The telemetry plane: the training config's colocated loop with the plane
+# on (result_dir, an HTTP port, the SLO rules below, the diag accumulator
+# and the history store) for TELEMETRY_UPDATES updates, a log tick every
+# TELEMETRY_LOG; ms/update with the plane on and off over TELEMETRY_TIMED
+# updates each, in turns; IMPALA at bench.py's wide-lstm width on CartPole
+# (the colocated loop needs a device env: obs 4, 2 actions), 2 warm-up and 5
+# timed updates; serving mix 1 with the plane on and off, in turns.
+TELEMETRY_UPDATES, TELEMETRY_LOG, TELEMETRY_TIMED = 30, 10, 100
+TELEMETRY_SLO = ("gauge:colocated-updates-per-s>0,gauge:colocated-mfu>0,"
+                 "counter:colocated-xla-recompiles==0")
+WIDE_COLOCATED_CFG = dict(env="CartPole-v1", env_mode="colocated", algo="IMPALA",
+                          colocated_envs=1024, seq_len=16, hidden_size=1024)
+WIDE_COLOCATED_WARMUP, WIDE_COLOCATED_UPDATES = 2, 5
 
 # Serving traffic: 2 x 4 x 1000 is bench.py's chip default (mix 1);
 # 64 x 4 x 100 fills the 256-row bucket (mix 2). bf16/int8 serving runs
@@ -463,7 +494,7 @@ def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
 
 
 def serve_phase(device: str = "cuda", profile: bool = False, dtype: str = "f32",
-                mixes: tuple = SERVE_MIXES) -> dict:
+                mixes: tuple = SERVE_MIXES, telemetry: bool = False) -> dict:
     """The main path: an InferenceService on ``device`` over a LocalRouter,
     serving at ``inference_dtype=dtype`` (f32, bf16 or int8: the weights
     widened to f32 inside each act step, before B3). Returns the traffic
@@ -471,16 +502,23 @@ def serve_phase(device: str = "cuda", profile: bool = False, dtype: str = "f32",
     by row count, and the service's counters. With ``profile`` the run goes
     under the profiler (device activity only), and B3's device time over the
     run is read from its kernel records; the profiler slows the host, so
-    the timed run goes without it."""
+    the timed run goes without it. With ``telemetry`` the service runs with
+    the plane on (a result_dir), and the result holds what
+    ``publish_serving_metrics`` put in a registry, each bucket's FLOPs per
+    act step and the largest bucket's achieved FLOP/s and MFU."""
+    import tempfile
+
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.models.families import build_family
     from tpu_rl_torch.models.quant import dequantize_tree, quantize_tree
+    from tpu_rl_torch.obs import MetricsRegistry
     from tpu_rl_torch.ops import fused_act as FA
     from tpu_rl_torch.runtime.inference_service import InferenceService
     from tpu_rl_torch.runtime.local_router import LocalRouter
     from tpu_rl_torch.utils.timer import ExecutionTimer
 
-    cfg = Config.from_dict(dict(SERVE_CFG, inference_dtype=dtype))
+    result_dir = tempfile.mkdtemp(prefix="tpu_rl_serve_") if telemetry else None
+    cfg = Config.from_dict(dict(SERVE_CFG, inference_dtype=dtype, result_dir=result_dir))
     family = build_family(cfg, device=device)
     params = seeded_params(family, 0)
     router = LocalRouter()
@@ -561,6 +599,21 @@ def serve_phase(device: str = "cuda", profile: bool = False, dtype: str = "f32",
         swap_err = float(np.abs(r3["logits"] - want.numpy()).max())
         if swap_err > 1e-5:
             fail(f"swapped policy's logits differ from the plain version by {swap_err}")
+        plane = None
+        if telemetry:
+            reg = MetricsRegistry(role="inference")
+            svc.publish_serving_metrics(reg)
+            snap = reg.snapshot()
+            plane = dict(
+                recompiles=next(e[2] for e in snap["counters"]
+                                if e[0] == "inference-xla-recompiles"),
+                bucket_flushes={int(e[1]["rows"]): int(e[2]) for e in snap["counters"]
+                                if e[0] == "inference-bucket-flushes"},
+                flops_per_act_step={r: t.flops_per_call for r, t in svc.perf_buckets.items()},
+                achieved_flops={r: t.achieved_flops_per_s() for r, t in svc.perf_buckets.items()},
+                mfu={r: t.mfu() for r, t in svc.perf_buckets.items()},
+                goodput=svc.ledger.snapshot()["ratios"],
+            )
     finally:
         svc.close()
         if prof is not None:
@@ -584,6 +637,7 @@ def serve_phase(device: str = "cuda", profile: bool = False, dtype: str = "f32",
         n_requests=svc.n_requests, n_replies=svc.n_replies,
         n_flush_full=svc.n_flush_full, n_flush_deadline=svc.n_flush_deadline,
         n_rejected_payload=svc.n_rejected_payload, carry_err=carry_err, swap_err=swap_err,
+        telemetry=plane,
     )
 
 def serving_checks(serving: dict, tag: str, card: str) -> None:
@@ -2124,6 +2178,302 @@ def tf_colocated_phase(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------- telemetry plane
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def gauges_of(loop) -> dict:
+    """The colocated loop's registry: {name: value} of its counters and
+    gauges (unlabeled series)."""
+    snap = loop.aggregator.registry.snapshot()
+    return {e[0]: e[2] for kind in ("counters", "gauges") for e in snap[kind] if not e[1]}
+
+
+def telemetry_colocated_check(card: str) -> dict:
+    """(a) The training config's colocated loop on the card with the plane
+    on, through ColocatedLoop.run: scrapes /metrics, /healthz and /goodput
+    mid-run, asks /prof for a bounded capture, and holds the files, the
+    FLOPs per update (against the CPU's count of the same update), the B1/B2
+    launches (= updates) and the trace's kernel names. Then ms/update with
+    the plane on and off in turns, and params bit for bit equal."""
+    import tempfile
+    import urllib.request
+
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.obs import PerfTracker
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+    from tpu_rl_torch.utils.tree import tree_leaves
+
+    # the CPU's count of the same update (the plain versions beneath B1/B2)
+    cpu = ColocatedLoop(Config(**TRAIN_CFG), seed=0, device="cpu")
+    tracker = PerfTracker("cpu")
+    tracker.call(cpu.program, cpu.state, cpu.init_carry(), cpu.init_stats())
+    cpu_flops = tracker.flops_per_call
+
+    with tempfile.TemporaryDirectory(prefix="tpu_rl_telemetry_") as d:
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        cfg = Config(**TRAIN_CFG, result_dir=d, telemetry_port=port,
+                     loss_log_interval=TELEMETRY_LOG, telemetry_interval_s=1e-3,
+                     slo_spec=TELEMETRY_SLO)
+        loop = ColocatedLoop(cfg, seed=0, max_updates=TELEMETRY_UPDATES, device="cuda")
+        scraped, prof = {}, {}
+        tick = loop._telemetry_tick
+
+        def tick_and_scrape(updates, *a):
+            tick(updates, *a)
+            if updates == TELEMETRY_LOG:
+                # a bounded capture through /prof, given a second to start
+                with urllib.request.urlopen(f"{base}/prof?ms=5000", timeout=60) as r:
+                    prof.update(json.loads(r.read()), status=r.status)
+                time.sleep(1.0)
+            if updates == 2 * TELEMETRY_LOG:  # the first window's diag is published
+                for path in ("/metrics", "/healthz", "/goodput"):
+                    with urllib.request.urlopen(base + path, timeout=60) as r:
+                        scraped[path] = (r.status, r.read().decode())
+
+        loop._telemetry_tick = tick_and_scrape
+        L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+        run = loop.run(log=False)
+        fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+        files = sorted(os.listdir(d))
+        doc = json.loads(open(os.path.join(d, "telemetry.json")).read())
+        learn = [json.loads(x) for x in open(os.path.join(d, "learn.jsonl"))]
+        slo = json.loads(open(os.path.join(d, "slo.json")).read())
+        history_files = os.listdir(os.path.join(d, "history"))
+        trace_path = os.path.join(prof.get("trace_dir", ""), "trace.json")
+        kernels = set()
+        if os.path.exists(trace_path):
+            events = json.loads(open(trace_path).read()).get("traceEvents", [])
+            kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    gauges = {g[0]: g[2] for src in doc["sources"] for g in src["gauges"] + src["counters"]
+              if not g[1]}
+    want = TELEMETRY_UPDATES * cfg.K_epoch
+    checks = {
+        "files": {"telemetry.json", "learn.jsonl", "goodput.jsonl", "slo.json", "history",
+                  "prof"} <= set(files) and bool(history_files),
+        "flops_card_equals_cpu": gauges.get("colocated-flops-per-step") == cpu_flops > 0,
+        "launches": fwd == bwd == want,
+        "recompiles": gauges.get("colocated-xla-recompiles") == 0,
+        "learn_cadence": [r["idx"] for r in learn] == list(
+            range(TELEMETRY_LOG, TELEMETRY_UPDATES + 1, TELEMETRY_LOG)),
+        "slo": slo.get("ok") is True,
+        "metrics": scraped.get("/metrics", (0, ""))[0] == 200
+        and "\ncolocated_mfu{" in scraped["/metrics"][1]
+        and "\nlearner_diag_entropy{" in scraped["/metrics"][1],
+        "healthz": scraped.get("/healthz", (0,))[0] == 200,
+        "goodput": scraped.get("/goodput", (0,))[0] == 200
+        and json.loads(scraped["/goodput"][1])["colocated"]["buckets"]["compute"] > 0,
+        "prof": prof.get("status") == 200
+        and any("lstm_fwd" in k for k in kernels) and any("lstm_bwd" in k for k in kernels),
+    }
+    print(
+        f"telemetry (a) colocated PPO B={loop.cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} "
+        f"{TELEMETRY_UPDATES} updates: flops/update card {gauges.get('colocated-flops-per-step')} "
+        f"cpu {cpu_flops}; achieved_flops/s {gauges.get('colocated-achieved-flops')} "
+        f"mfu {gauges.get('colocated-mfu')} (bf16 peak); device_mem {gauges.get('colocated-device-mem-bytes')} "
+        f"peak {gauges.get('colocated-device-mem-peak-bytes')} bytes; lstm launches {fwd}/{bwd}; "
+        f"files {files}; learn idx {[r['idx'] for r in learn]}; slo ok {slo.get('ok')}; "
+        f"trace kernels {sorted(k for k in kernels if 'lstm' in k)} [{card}]",
+        flush=True,
+    )
+    print(f"telemetry (a) checks {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"telemetry (a): failed checks {[k for k, v in checks.items() if not v]}")
+
+    # ms/update with the plane on and off, in turns: over the whole run
+    # (the plane's one-time count of the first update included), and the
+    # median of the log windows after the first (steady state); params bit
+    # for bit
+    timed, steady, states = {"off": [], "on": []}, {"off": [], "on": []}, {}
+    for mode in ("off", "on", "on", "off"):
+        with tempfile.TemporaryDirectory(prefix="tpu_rl_telemetry_") as d:
+            extra = dict(result_dir=d, slo_spec=TELEMETRY_SLO) if mode == "on" else {}
+            loop = ColocatedLoop(Config(**TRAIN_CFG, loss_log_interval=TELEMETRY_LOG, **extra),
+                                 seed=0, max_updates=TELEMETRY_TIMED, device="cuda")
+            windows = []
+            tick = loop._telemetry_tick
+
+            def tick_and_note(updates, env_steps, episodes, ups, tps, chunk_s, *a,
+                              tick=tick, windows=windows):
+                windows.append(chunk_s)
+                tick(updates, env_steps, episodes, ups, tps, chunk_s, *a)
+
+            loop._telemetry_tick = tick_and_note
+            out = loop.run(log=False)
+        timed[mode].append(out["elapsed_s"] / TELEMETRY_TIMED * 1e3)
+        steady[mode].append(statistics.median(windows[1:]) * 1e3)
+        states.setdefault(mode, loop.state)
+    equal = all(
+        torch.equal(a, b) for tree in ("params", "opt_state")
+        for a, b in zip(tree_leaves(getattr(states["off"], tree)),
+                        tree_leaves(getattr(states["on"], tree)), strict=True)
+    )
+    print(
+        f"telemetry (a) ms/update over {TELEMETRY_TIMED} updates (off, on, on, off): whole run "
+        f"off {[round(x, 6) for x in timed['off']]} on {[round(x, 6) for x in timed['on']]}; "
+        f"median log window after the first: off {[round(x, 6) for x in steady['off']]} on "
+        f"{[round(x, 6) for x in steady['on']]}; params and moments bit for bit equal on/off: "
+        f"{equal} [{card}]",
+        flush=True,
+    )
+    if not equal:
+        fail("telemetry (a): params with the plane on differ from the plane off")
+    return dict(updates=TELEMETRY_UPDATES, flops_per_update=gauges.get("colocated-flops-per-step"),
+                cpu_flops_per_update=cpu_flops,
+                achieved_flops=gauges.get("colocated-achieved-flops"),
+                mfu=gauges.get("colocated-mfu"), lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+                ms_per_update_off=timed["off"], ms_per_update_on=timed["on"],
+                steady_ms_per_update_off=steady["off"], steady_ms_per_update_on=steady["on"],
+                trace_kernels=sorted(kernels), checks=checks)
+
+
+def telemetry_wide_check(card: str) -> dict:
+    """(b) IMPALA at bench.py's wide-lstm width in the colocated loop with
+    the plane on (a log tick every update), WIDE_COLOCATED_WARMUP +
+    WIDE_COLOCATED_UPDATES updates: the FLOPs per update, achieved FLOP/s
+    and MFU as the plane reports them (over every update) and over the
+    timed updates alone, and the memory gauges against
+    torch.cuda.max_memory_allocated()."""
+    import tempfile
+
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    n_up = WIDE_COLOCATED_WARMUP + WIDE_COLOCATED_UPDATES
+    with tempfile.TemporaryDirectory(prefix="tpu_rl_telemetry_") as d:
+        cfg = Config(**WIDE_COLOCATED_CFG, result_dir=d, loss_log_interval=1,
+                     telemetry_interval_s=1e-3)
+        loop = ColocatedLoop(cfg, seed=0, max_updates=n_up, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+        out = loop.run(log=False)
+        fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+        torch_peak = torch.cuda.max_memory_allocated()
+    g = gauges_of(loop)
+    perf = loop._perf
+    timed = list(perf._dts)[WIDE_COLOCATED_WARMUP:]
+    ms = statistics.median(timed) * 1e3
+    achieved = perf.flops_per_call / (ms / 1e3)
+    res = dict(
+        batch=loop.cfg.batch_size, seq=cfg.seq_len, hidden=cfg.hidden_size,
+        flops_per_update=perf.flops_per_call, achieved_flops=g.get("colocated-achieved-flops"),
+        mfu=g.get("colocated-mfu"), ms_per_update_timed=ms, achieved_flops_timed=achieved,
+        mfu_timed=achieved / perf.peak if perf.peak else None,
+        device_mem_bytes=g.get("colocated-device-mem-bytes"),
+        device_mem_peak_bytes=g.get("colocated-device-mem-peak-bytes"),
+        max_memory_allocated=torch_peak, lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+        loss_finite=bool(np.isfinite(out["mean_return_overall"])),
+    )
+    print(
+        f"telemetry (b) colocated IMPALA CartPole B={res['batch']} S={res['seq']} "
+        f"H={res['hidden']}: flops/update {res['flops_per_update']} achieved_flops/s (plane, all "
+        f"{n_up} updates) {res['achieved_flops']} mfu {res['mfu']}; timed {WIDE_COLOCATED_UPDATES}: "
+        f"ms/update {ms:.6f} achieved_flops/s {achieved:.6e} mfu {res['mfu_timed']}; device_mem "
+        f"{res['device_mem_bytes']} peak gauge {res['device_mem_peak_bytes']} "
+        f"torch.cuda.max_memory_allocated {torch_peak}; lstm launches {fwd}/{bwd} [{card}]",
+        flush=True,
+    )
+    if fwd != n_up or bwd != n_up:
+        fail(f"telemetry (b): lstm launches {fwd}/{bwd}, want {n_up} each")
+    if res["device_mem_peak_bytes"] != torch_peak:
+        fail("telemetry (b): the device-mem-peak gauge is not torch.cuda.max_memory_allocated()")
+    if not perf.flops_per_call > 0 or res["mfu"] is None:
+        fail(f"telemetry (b): no FLOPs or MFU: {res}")
+    return res
+
+
+def telemetry_serving_check(card: str) -> dict:
+    """(c) Serving mix 1 with the plane on and off, in turns (off, on, on,
+    off): the bucket counters publish_serving_metrics replays against the
+    service's flushes and B3's launches (one warm-up each), no recompile,
+    each bucket's FLOPs by B3's formula."""
+    from tpu_rl_torch.ops import fused_act as FA
+
+    runs = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        r = serve_phase(mixes=SERVE_MIXES[:1], telemetry=mode == "on")
+        serving_checks(r, f"serving telemetry {mode}", card)
+        runs[mode].append(r)
+    for r in runs["on"]:
+        t = r["telemetry"]
+        flushes = {b: n for b, n in r["n_flush_bucket"].items()}
+        from_launches = {b: n - 1 for b, n in r["launches_by_rows"].items() if n > 1}
+        formula = {b: FA.act_flops(b, 4, SERVE_CFG["hidden_size"], SERVE_CFG["action_space"])
+                   for b in r["buckets"]}
+        print(
+            f"telemetry (c) serving mix1: inference-xla-recompiles {t['recompiles']}; "
+            f"inference-bucket-flushes {t['bucket_flushes']} n_flush_bucket {flushes} "
+            f"LAUNCHES_BY_ROWS - 1 {from_launches}; flops/act step {t['flops_per_act_step']}; "
+            f"achieved_flops/s {t['achieved_flops']} mfu {t['mfu']}; goodput {t['goodput']} "
+            f"[{card}]",
+            flush=True,
+        )
+        if t["recompiles"] != 0:
+            fail(f"telemetry (c): {t['recompiles']} recompiles")
+        if not (t["bucket_flushes"] == flushes == from_launches):
+            fail("telemetry (c): the bucket counters disagree with the flushes or B3's launches")
+        if t["flops_per_act_step"] != formula:
+            fail(f"telemetry (c): FLOPs per act step {t['flops_per_act_step']}, want {formula}")
+    acts = {m: [r["mixes"][0]["acts_per_s"] for r in rs] for m, rs in runs.items()}
+    print(f"telemetry (c) serving mix1 acts/s (off, on, on, off): off {acts['off']} on "
+          f"{acts['on']} [{card}]", flush=True)
+    return dict(acts_per_s=acts, launches=runs["on"][0]["launches"],
+                telemetry=runs["on"][0]["telemetry"])
+
+
+def telemetry_transformer_count(card: str) -> dict:
+    """(d) One transformer train step at full width (bench.py's
+    longctx-flash row) counted on the card: B4's operators are charged
+    their formula once per launch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import attention as A
+
+    cfg = Config.from_dict(TF_TRAIN_CFG)
+    _family, state, train_step = get_algo("PPO").build(
+        cfg, torch.Generator().manual_seed(0), device="cuda")
+    batch = tf_batch(cfg, 0, "cuda")
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    with FlopCounterMode(display=False) as counter:
+        state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+    B, T, H = cfg.batch_size, cfg.seq_len, cfg.n_heads
+    D = cfg.hidden_size // H
+    fwd, bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
+    want = {"tpu_rl_torch.flash_fwd": fwd * A.attn_flops(B, T, H, D),
+            "tpu_rl_torch.flash_bwd": bwd * A.attn_flops(B, T, H, D, True)}
+    total = counter.get_total_flops()
+    b4 = sum(want.values())
+    print(f"telemetry (d) transformer train step {B}x{T} d{cfg.hidden_size} L{cfg.n_layers}: "
+          f"flops/update {total}, B4 {counts.get('tpu_rl_torch.flash_fwd')} + "
+          f"{counts.get('tpu_rl_torch.flash_bwd')} ({b4 / total:.4f} of it) for {fwd}/{bwd} "
+          f"launches [{card}]", flush=True)
+    if fwd != cfg.n_layers * cfg.K_epoch or bwd != fwd or any(
+            counts.get(k) != v for k, v in want.items()):
+        fail(f"telemetry (d): B4 counted {counts}, want {want} for {fwd}/{bwd} launches")
+    return dict(flops_per_update=total, b4_flops=b4, flash_fwd_launches=fwd,
+                flash_bwd_launches=bwd)
+
+
+def telemetry_phase(card: str) -> dict:
+    """The telemetry and performance plane on the card: (a)-(d) above."""
+    return dict(colocated=telemetry_colocated_check(card), wide=telemetry_wide_check(card),
+                serving=telemetry_serving_check(card),
+                transformer=telemetry_transformer_count(card))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs one CUDA card")
@@ -2195,6 +2545,7 @@ def main() -> None:
     attn_rows = attention_phase()
     tf_training = tf_train_phase(card)
     tf_colocated = tf_colocated_phase(card)
+    telemetry = telemetry_phase(card)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -2226,6 +2577,8 @@ def main() -> None:
         # the same path serving bf16 and int8 weights (widened before B3)
         launches_by_inference_dtype={"f32": serving["launches"],
                                      **{m: r["launches"] for m, r in quant_serving.items()}},
+        # the same path with the telemetry plane on (mix 1)
+        launches_telemetry_serving=telemetry["serving"]["launches"],
         serving_device_ms=profiled["b3_device_ms"],
         serving_device_launches=profiled["launches"],
         card=card,
@@ -2270,6 +2623,9 @@ def main() -> None:
                 "IMPALA@ref bf16": bf16_ref[f"{name}_launches"],
                 "wide IMPALA bf16": wide_bf16[f"{name}_launches"],
                 "colocated PPO bf16": bf16_colocated[f"{name}_launches"],
+                # the colocated loop with the telemetry plane on
+                "telemetry colocated PPO": telemetry["colocated"][f"{name}_launches"],
+                "telemetry wide IMPALA": telemetry["wide"][f"{name}_launches"],
             },
             card=card,
             shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
@@ -2313,7 +2669,8 @@ def main() -> None:
                               for m, r in quant_serving.items()},
         "ref_rows": ref_rows,
         "colocated_algos": colocated_algos, "impala_learning": impala_learning,
-        "transformer_training": tf_training, "transformer_colocated": tf_colocated}), flush=True)
+        "transformer_training": tf_training, "transformer_colocated": tf_colocated,
+        "telemetry": telemetry}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -24,6 +24,7 @@ from tpu_rl_torch.bridge import train_state_from_flax
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.runtime.colocated import ColocatedLoop, resolve_colocated_config
 from tpu_rl_torch.types import Batch
+from tpu_rl_torch.utils.tree import tree_leaves
 
 SUMMARY_KEYS = (
     "updates", "env_steps", "episodes", "mean_return_overall", "mean_return_recent",
@@ -181,3 +182,149 @@ def test_pendulum_rollout_carries_continuous_actions():
     out = loop.run(log=False)
     assert out["updates"] == 2 and all(math.isfinite(out[k]) for k in SUMMARY_KEYS)
     assert out["episodes"] > 0
+
+
+# ------------------------------------------------------- the telemetry plane
+# tpu_rl's own colocated test (tests/test_colocated.py) reads these names
+# from telemetry.json; the performance plane adds the rest.
+TELEMETRY_NAMES = (
+    "colocated-updates", "colocated-env-steps", "colocated-env-steps-per-s",
+    "colocated-scan-chunk-s", "colocated-flops-per-step", "colocated-achieved-flops",
+    "colocated-mfu", "colocated-xla-recompiles", "colocated-device-mem-bytes",
+    "colocated-device-mem-peak-bytes", "colocated-goodput-ratio", "learner-diag-entropy",
+    "learner-diag-ess",
+)
+
+
+def free_port() -> int:
+    """A port no socket holds now (the OS's pick for port 0)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_run_with_result_dir_writes_the_reference_files(tmp_path, monkeypatch):
+    """telemetry.json under tpu_rl's metric names, learn.jsonl at the log
+    cadence (and at the last update), goodput.jsonl, slo.json and the
+    history store; the FLOPs gauge is the tracker's count of the first
+    update and no update recompiled."""
+    import json
+
+    monkeypatch.setenv("TPU_RL_PEAK_FLOPS", "1e12")
+    cfg = Config(**_kw(loss_log_interval=5, result_dir=str(tmp_path), telemetry_interval_s=1e-3,
+                       slo_spec="gauge:colocated-updates-per-s>0,counter:colocated-xla-recompiles==0"))
+    loop = ColocatedLoop(cfg, seed=0, max_updates=12, device="cpu")
+    out = loop.run(log=False)
+    assert out["updates"] == 12
+    assert {"telemetry.json", "learn.jsonl", "goodput.jsonl", "slo.json", "history"} <= set(
+        p.name for p in tmp_path.iterdir())
+    payload = (tmp_path / "telemetry.json").read_text()
+    for name in TELEMETRY_NAMES:
+        assert f'"{name}"' in payload, name
+    gauges = {g[0]: g[2] for s in json.loads(payload)["sources"] for g in s["gauges"]}
+    assert gauges["colocated-flops-per-step"] == loop._perf.flops_per_call > 0
+    assert gauges["colocated-mfu"] == pytest.approx(gauges["colocated-achieved-flops"] / 1e12)
+    assert loop._perf.recompiles == 0
+    learn = [json.loads(x) for x in (tmp_path / "learn.jsonl").read_text().splitlines()]
+    assert [r["idx"] for r in learn] == [5, 10, 12]
+    assert [r["n_updates"] for r in learn] == [5, 5, 2]
+    assert list(learn[0]["buckets"]) == ["0"] and learn[0]["buckets"]["0"]["rows"] == 5 * 8
+    slo = json.loads((tmp_path / "slo.json").read_text())
+    assert slo["ok"] is True and not loop.slo_failed
+    goodput = json.loads((tmp_path / "goodput.jsonl").read_text().splitlines()[-1])
+    assert goodput["colocated"]["buckets"]["compute"] > 0
+
+
+@pytest.mark.parametrize("fail_run", [False, True], ids=["gate_off", "gate_armed"])
+def test_slo_fail_run_raises_at_the_end_of_a_failing_run(tmp_path, fail_run):
+    """An impossible rule fails the final verdict. With slo_fail_run the run
+    raises SloFailedError after writing its files; without it the run
+    returns its totals and only slo.json says so."""
+    import json
+
+    from tpu_rl_torch.runtime.colocated import SloFailedError
+
+    cfg = Config(**_kw(loss_log_interval=2, result_dir=str(tmp_path), telemetry_interval_s=1e-3,
+                       slo_spec="gauge:colocated-updates-per-s<0", slo_fail_run=fail_run))
+    loop = ColocatedLoop(cfg, seed=0, max_updates=4, device="cpu")
+    if fail_run:
+        with pytest.raises(SloFailedError, match=r"colocated-updates-per-s<0"):
+            loop.run(log=False)
+    else:
+        assert loop.run(log=False)["updates"] == 4
+    assert loop.slo_failed and int(loop.state.step) == 4
+    slo = json.loads((tmp_path / "slo.json").read_text())
+    assert slo["ok"] is False and slo["failing"] == 1
+    assert (tmp_path / "telemetry.json").exists()
+
+
+def test_checkpointed_restart_writes_the_resume_record(tmp_path):
+    """A resumed run appends one {"idx", "epoch", "t"} line to
+    learner_resume.jsonl, the schema of tpu_rl's learner and loop."""
+    import json
+
+    from tpu_rl.obs.audit import append_resume as jax_append_resume
+
+    cfg = Config(**_kw(result_dir=str(tmp_path), model_dir=str(tmp_path / "models"),
+                       model_save_interval=5, ckpt_async=False))
+    ColocatedLoop(cfg, seed=0, max_updates=10, device="cpu").run(log=False)
+    assert not (tmp_path / "learner_resume.jsonl").exists()
+    loop = ColocatedLoop(cfg, seed=0, max_updates=15, device="cpu")
+    assert loop.run(log=False)["updates"] == 15
+    recs = [json.loads(x) for x in (tmp_path / "learner_resume.jsonl").read_text().splitlines()]
+    assert [(r["idx"], r["epoch"]) for r in recs] == [(10, 1)]
+    jax_append_resume(str(tmp_path / "ref"), 10, 1)
+    ref = json.loads((tmp_path / "ref" / "learner_resume.jsonl").read_text())
+    assert set(recs[0]) == set(ref) == {"idx", "epoch", "t"}
+
+
+def test_params_with_telemetry_on_are_bitwise_those_with_it_off(tmp_path):
+    """The plane never feeds back into the update: the counted first
+    update, the diag fold and the readbacks leave every parameter and
+    optimizer leaf bit for bit where a run without the plane leaves it."""
+    states = []
+    for kw in ({}, dict(result_dir=str(tmp_path), telemetry_interval_s=1e-3)):
+        loop = ColocatedLoop(Config(**_kw(loss_log_interval=3, **kw)), seed=0, max_updates=7,
+                             device="cpu")
+        loop.run(log=False)
+        states.append(loop.state)
+    off, on = states
+    assert int(off.step) == int(on.step) == 7
+    for tree in ("params", "opt_state"):
+        a, b = tree_leaves(getattr(off, tree)), tree_leaves(getattr(on, tree))
+        assert len(a) == len(b) > 0
+        assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True)), tree
+
+
+def test_live_metrics_scrape_shows_mfu_and_diag(monkeypatch):
+    """While the loop runs, /metrics serves colocated_mfu and the
+    learner_diag_* gauges; /healthz and /goodput answer."""
+    import json
+    import urllib.request
+
+    monkeypatch.setenv("TPU_RL_PEAK_FLOPS", "1e12")
+    port = free_port()
+    cfg = Config(**_kw(loss_log_interval=2, telemetry_port=port))
+    loop = ColocatedLoop(cfg, seed=0, max_updates=6, device="cpu")
+    scraped = {}
+    tick = loop._telemetry_tick
+
+    def tick_and_scrape(updates, *a):
+        tick(updates, *a)
+        if updates >= 4 and not scraped:  # the diag of the first window is published
+            base = f"http://127.0.0.1:{port}"
+            for path in ("/metrics", "/healthz", "/goodput"):
+                with urllib.request.urlopen(base + path, timeout=30) as r:
+                    scraped[path] = (r.status, r.read().decode())
+
+    loop._telemetry_tick = tick_and_scrape
+    loop.run(log=False)
+    status, text = scraped["/metrics"]
+    assert status == 200
+    for series in ("colocated_mfu", "colocated_flops_per_step", "learner_diag_entropy",
+                   "learner_diag_approx_kl", "learner_diag_by_stale_ess"):
+        assert f"\n{series}{{" in text, series
+    assert scraped["/healthz"][0] == 200
+    assert json.loads(scraped["/goodput"][1])["colocated"]["buckets"]["compute"] > 0

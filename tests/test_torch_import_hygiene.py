@@ -58,6 +58,10 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.runtime.colocated", "tpu_rl_torch.ops.attention",
         "tpu_rl_torch.parallel", "tpu_rl_torch.parallel.sequence",
         "tpu_rl_torch.models.transformer", "tpu_rl_torch.checkpoint",
+        *(f"tpu_rl_torch.obs.{m}" for m in (
+            "registry", "aggregator", "goodput", "audit", "flightrec", "perf", "learn",
+            "exporters", "slo", "anomaly", "history")),
+        "tpu_rl_torch.utils.metrics",
     ):
         assert name in doc["imported"], name
 
@@ -122,21 +126,41 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     ("mesh_seq", 2, "multi-GPU slice"),
     ("multihost", {"coordinator": "127.0.0.1:1234", "num_processes": 2, "process_id": 0},
      "multi-GPU slice"),
-    ("chaos_spec", "nan:rollout@p=0.4", "observability slice"),
+    ("chaos_spec", "nan:rollout@p=0.4", "fleet and operations slice"),
     ("inference_replicas", 2, "fleet slice"),
     ("inference_mesh_data", 2, "fleet slice"),
-    ("telemetry_port", 29900, "observability slice"),
-    ("result_dir", "/tmp/run", "observability slice"),
 ])
 def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
-    """A key that makes tpu_rl shard, arm chaos, run replicas or export
-    telemetry is refused away from its default, naming the slice that brings
-    it; at its default (or absent) it loads."""
+    """A key that makes tpu_rl shard, arm chaos or run replicas is refused
+    away from its default, naming the slice that brings it; at its default
+    (or absent) it loads."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Config.from_dict({key: value})
-    default = None if key in ("multihost", "chaos_spec", "result_dir") else (
-        0 if key == "telemetry_port" else 1)
+    default = None if key in ("multihost", "chaos_spec") else 1
     assert Config.from_dict({key: default}).extra == {key: default}
+
+
+@pytest.mark.parametrize("key", ["telemetry_port", "result_dir"])
+def test_config_loads_telemetry_keys_and_builds_the_plane(key, tmp_path):
+    """telemetry_port and result_dir are fields now (they were refused
+    until the telemetry plane came): each one alone turns the plane on, and
+    a colocated loop built with it has its registry; absent, nothing is
+    built."""
+    from tests.test_torch_colocated import free_port
+
+    value = free_port() if key == "telemetry_port" else str(tmp_path)
+    cfg = Config.from_dict({key: value, "env_mode": "colocated", "hidden_size": 16})
+    assert getattr(cfg, key) == value and cfg.extra == {} and cfg.telemetry_enabled
+    loop = ColocatedLoop(cfg, device="cpu")
+    try:
+        assert loop.aggregator is not None and loop._perf is not None
+        assert (loop._http is not None) == (key == "telemetry_port")
+        assert (loop._json_exp is not None) == (key == "result_dir")
+    finally:
+        loop.close()
+    off = ColocatedLoop(Config.from_dict({"env_mode": "colocated", "hidden_size": 16}),
+                        device="cpu")
+    assert not off.cfg.telemetry_enabled and off.aggregator is None and off._perf is None
 
 
 def test_config_example_files_load_or_refuse():

@@ -487,3 +487,56 @@ def test_quantized_serving_matches_tpu_rl_jitted_step(mode, act_kernel):
         family.actor, served["actor"], (torch.from_numpy(_script_obs()[0][0]), (zeros, zeros)))
     assert swapped["ver"] == 9
     np.testing.assert_allclose(swapped["logits"], logits.numpy(), atol=1e-6)
+
+
+# ------------------------------------------------------- the telemetry plane
+@pytest.mark.parametrize("act_kernel", ["xla", "pallas"])
+def test_serving_telemetry_counts_buckets_flops_and_no_recompiles(act_kernel, tmp_path):
+    """With the plane on, each bucket's tracker counted its warm-up call
+    (the fused step by B3's formula; the unfused one adds the value head),
+    no flush recompiled, and publish_serving_metrics replays the per-bucket
+    flush counts without observing a flush twice."""
+    from tpu_rl_torch.obs import MetricsRegistry
+
+    cfg, family, _params, router, svc = _start_service(
+        act_kernel=act_kernel, inference_buckets=2, result_dir=str(tmp_path),
+        inference_flush_us=500,
+    )
+    try:
+        clients = [router.client(f"w{i}".encode()) for i in range(3)]
+        for t in range(6):
+            for client in clients[: 1 + t % 3]:
+                client.act(_obs(2, cfg, seed=t), np.zeros(2, np.float32))
+        assert _wait(lambda: svc.n_replies >= 12)
+        assert sorted(svc.perf_buckets) == svc.buckets == [2, 4, 8]
+        H, A = cfg.hidden_size, cfg.action_space
+        for rows, tracker in svc.perf_buckets.items():
+            want = FA.act_flops(rows, 4, H, A) + (0 if act_kernel == "pallas" else 2 * rows * H)
+            assert tracker.flops_per_call == want, rows
+        assert svc.recompiles == 0
+        # a swap to params of the same shapes is no new signature
+        svc.set_params(family.init_params(torch.Generator().manual_seed(9)), version=1)
+        for client in clients:
+            client.act(_obs(2, cfg, seed=9), np.zeros(2, np.float32))
+        assert _wait(lambda: svc.n_replies >= 15) and svc.recompiles == 0
+        reg = MetricsRegistry(role="inference", pid=0, host="h")
+        svc.publish_serving_metrics(reg)
+        svc.publish_serving_metrics(reg)
+        snap = reg.snapshot()
+        flushes = {e[1]["rows"]: e[2] for e in snap["counters"]
+                   if e[0] == "inference-bucket-flushes"}
+        assert flushes == {str(r): n for r, n in svc.n_flush_bucket.items()}
+        hist = next(h for h in snap["hists"] if h[0] == "inference-bucket-rows")
+        assert hist[4] == sum(svc.n_flush_bucket.values())  # observed once per flush
+        counters = {e[0]: e[2] for e in snap["counters"]}
+        assert counters["inference-xla-recompiles"] == 0
+        ledger = svc.ledger.snapshot()
+        assert ledger["buckets"]["compute"] > 0 and ledger["role"] == "inference"
+    finally:
+        svc.close()
+
+
+def test_serving_telemetry_off_builds_nothing(service):
+    _cfg, _family, _params, _router, svc = service
+    assert svc.perf_buckets == {} and svc.ledger is None
+    assert svc.recompiles == 0

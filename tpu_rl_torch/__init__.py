@@ -32,6 +32,16 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
+def counted() -> bool:
+    """Whether a Python dispatch mode (``torch.utils.flop_counter``'s
+    ``FlopCounterMode`` among them) is active. A kernel wrapper enters its
+    ``torch.library.custom_op`` only then, so that the mode sees the kernel
+    as one operator and charges its FLOP formula; otherwise it calls the
+    op's function directly, since the dispatcher adds host time to every
+    call and does nothing else there."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
 def on_card(fn: str, t: torch.Tensor) -> bool:
     """Where the kernel wrapper ``fn`` runs for ``t``: False for a CPU tensor
     (its plain version), True for a CUDA tensor on the current device (the

@@ -4,8 +4,8 @@ It holds the fields the serving, training and durability slices read, with
 ``tpu_rl``'s names and defaults, so an existing params file loads unchanged.
 Keys the port does not know yet are kept in ``extra``: a full ``tpu_rl``
 params file still loads. Those of them that would make ``tpu_rl`` do
-something the port does not do yet (build a mesh, arm chaos, run replicas,
-export telemetry) are refused at a value other than their default
+something the port does not do yet (build a mesh, arm chaos, run replicas)
+are refused at a value other than their default
 (:data:`LATER_SLICES`), so that a run never silently does less than asked.
 """
 
@@ -36,18 +36,14 @@ def is_off_policy(algo: str) -> bool:
 
 # Keys of a tpu_rl params file that the port keeps in ``extra`` but refuses
 # away from their default: (key, is it set?, the slice of the port that
-# brings it). Defaults as in tpu_rl.config.Config; telemetry_port and
-# result_dir are tpu_rl's ``telemetry_enabled``; result_dir also holds the
-# resume audit record (obs/audit.py), which comes with observability.
+# brings it). Defaults as in tpu_rl.config.Config.
 LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
     ("mesh_data", lambda v: v > 1, "multi-GPU slice"),
     ("mesh_seq", lambda v: v > 1, "multi-GPU slice"),
     ("multihost", lambda v: v is not None, "multi-GPU slice"),
-    ("chaos_spec", lambda v: v is not None, "observability slice"),
+    ("chaos_spec", lambda v: v is not None, "fleet and operations slice"),
     ("inference_replicas", lambda v: v > 1, "fleet slice"),
     ("inference_mesh_data", lambda v: v > 1, "fleet slice"),
-    ("telemetry_port", lambda v: v > 0, "observability slice"),
-    ("result_dir", lambda v: v is not None, "observability slice"),
 )
 
 
@@ -58,6 +54,9 @@ class Config:
     algo: str = "PPO"
     # Checkpoint directory of the colocated loop (None = no checkpoints).
     model_dir: str | None = None
+    # Run artifacts: telemetry.json, learn.jsonl, goodput.jsonl,
+    # learner_resume.jsonl, slo.json, history/ and profiler traces (prof/).
+    result_dir: str | None = None
     # observation preprocessing (tpu_rl's unused conv flags; fingerprinted)
     need_conv: bool = False
     height: int = 84
@@ -142,6 +141,28 @@ class Config:
     learn_diag: bool = True
     # Updates between two host reads of the run's metrics.
     loss_log_interval: int = 50
+    # ---- telemetry plane (tpu_rl_torch.obs); on iff telemetry_enabled ----
+    # HTTP port of /metrics, /healthz, /slo, /prof, /goodput and /query;
+    # 0 = no server, no socket.
+    telemetry_port: int = 0
+    # Seconds between two writes of result_dir/telemetry.json (and history
+    # rows).
+    telemetry_interval_s: float = 5.0
+    # A source silent longer than this is reported dead by /healthz.
+    telemetry_stale_s: float = 30.0
+    # Declarative SLO rules evaluated each telemetry tick
+    # (tpu_rl_torch/obs/slo.py grammar); served at /slo and written to
+    # result_dir/slo.json at close. None = no engine.
+    slo_spec: str | None = None
+    # ColocatedLoop.run raises SloFailedError at its end (the process exits
+    # non-zero) when the final SLO verdict fails a rule.
+    slo_fail_run: bool = False
+    # Run-history store (tpu_rl_torch.obs.history): its directory (None =
+    # result_dir/history), the chunk rotation period and the retention
+    # horizon, in seconds.
+    history_dir: str | None = None
+    history_chunk_s: float = 60.0
+    history_retention_s: float = 3600.0
     # Checkpoints (checkpoint.py): updates between two saves, committed
     # checkpoints kept, the device snapshot written on a background thread
     # (False = a blocking save), and resume despite a fingerprint mismatch.
@@ -216,6 +237,20 @@ class Config:
         assert self.lr > 0, self.lr
         assert self.max_grad_norm > 0, self.max_grad_norm
         assert self.loss_log_interval >= 1, self.loss_log_interval
+        if self.slo_spec:
+            # a typo'd rule dies at load, not silently mid-run
+            from tpu_rl_torch.obs.slo import parse_slo_spec
+
+            parse_slo_spec(self.slo_spec)
+        assert 0 <= self.telemetry_port < 65536, self.telemetry_port
+        assert self.telemetry_interval_s > 0, self.telemetry_interval_s
+        assert self.telemetry_stale_s > 0, self.telemetry_stale_s
+        assert self.history_chunk_s > 0, self.history_chunk_s
+        assert self.history_retention_s >= self.history_chunk_s, (
+            f"history_retention_s ({self.history_retention_s}) must cover at "
+            f"least one chunk ({self.history_chunk_s}s) — a shorter horizon "
+            "would GC every chunk at rotation time"
+        )
         assert self.model_save_interval >= 1, self.model_save_interval
         assert self.ckpt_keep >= 1, (
             f"ckpt_keep must be >= 1 (got {self.ckpt_keep}): GC may never "
@@ -269,6 +304,13 @@ class Config:
                 "computes in f32 only, and tpu_rl serves a bf16-compute LSTM unfused "
                 "(family.act); use act_kernel='xla'"
             )
+
+    @property
+    def telemetry_enabled(self) -> bool:
+        """The gate of the telemetry plane: on iff the metrics have
+        somewhere to go (an HTTP port or a result_dir). Off, nothing of the
+        plane is built and the hot paths pay one ``is None`` check."""
+        return self.telemetry_port > 0 or self.result_dir is not None
 
     @property
     def effective_act_ctx(self) -> int:

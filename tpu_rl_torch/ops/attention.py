@@ -24,6 +24,15 @@ views (``qkv[:, :, 0]``) as long as the three share their strides and each
 row's heads and features are dense; the bf16 kernels copy 16-byte pieces,
 so their rows must start on 16 bytes.
 
+Both kernel entries are ``torch.library.custom_op`` operators
+(``tpu_rl_torch::flash_fwd``, ``tpu_rl_torch::flash_bwd``; the bf16 tile
+plan rides as a list of tensors) with FLOP formulas registered for
+``torch.utils.flop_counter`` (:func:`attn_flops`): the plain versions' full
+T×T score and value products, so that the tiles the kernels skip show as
+speed, not as less work. The wrappers enter the operators only while a
+dispatch mode is active (:func:`tpu_rl_torch.counted`); otherwise they call
+the operators' functions directly and pay no dispatcher.
+
 On a CUDA tensor the wrappers launch a kernel or raise: there is no
 fallback. The plain versions, :func:`flash_attention_forward_plain` and
 :func:`flash_attention_backward_plain`, compute the same function from the
@@ -39,8 +48,10 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
-from tpu_rl_torch import on_card
+from tpu_rl_torch import counted, on_card
 from tpu_rl_torch.kernels import build
 
 # Kernel launches made through flash_fwd / flash_bwd (plain-version calls
@@ -231,11 +242,27 @@ def _stream(q) -> int:
 
 
 # ----------------------------------------------------------------- wrappers
+def attn_flops(B: int, T: int, H: int, D: int, backward: bool = False) -> int:
+    """FLOPs of B4's forward, the plain version's two T×T products (the
+    scores and P·V), 4·B·H·T²·D; or of its backward, the plain version's
+    five (the scores again, dP, dQ, dK and dV), 10·B·H·T²·D."""
+    return (10 if backward else 4) * B * H * T * T * D
+
+
 def flash_fwd(q, k, v, seg, plan: TilePlan | None = None):
     """Kernel B4's forward: ``(o, lse)``. CPU tensors take
     :func:`flash_attention_forward_plain`; CUDA tensors launch the bf16
     tensor-core kernel (with ``plan``, or :func:`tile_plan` of ``seg``) or
-    the f32 CUDA-core kernel."""
+    the f32 CUDA-core kernel. Under a FLOP counter it runs as the operator
+    ``tpu_rl_torch::flash_fwd``; a tensor on another device is refused
+    first."""
+    on_card("flash_fwd", q)
+    return (_flash_fwd_op if counted() else _flash_fwd)(q, k, v, seg, list(plan or ()))
+
+
+def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, seg: Tensor, plan: list[Tensor]
+                  ) -> tuple[Tensor, Tensor]:
+    plan = TilePlan(*plan) if plan else None
     if not on_card("flash_fwd", q):
         return flash_attention_forward_plain(q, k, v, seg)
     B, T, H, D = _check("flash_fwd", q, k, v, seg, {})
@@ -264,12 +291,30 @@ def flash_fwd(q, k, v, seg, plan: TilePlan | None = None):
     return o, lse
 
 
+_flash_fwd_op = torch.library.custom_op("tpu_rl_torch::flash_fwd", _flash_fwd, mutates_args=())
+
+
+@register_flop_formula(torch.ops.tpu_rl_torch.flash_fwd)
+def _flash_fwd_flops(q_shape, *_shapes, out_shape=None) -> int:
+    return attn_flops(*q_shape)
+
+
 def flash_bwd(q, k, v, seg, o, lse, do, plan: TilePlan | None = None):
     """Kernel B4's backward: ``(dq, dk, dv)``. CPU tensors take
     :func:`flash_attention_backward_plain`; CUDA tensors launch the three
     kernels (delta, dk/dv, dq) of ``csrc/flash_attn_tc_bwd.cu`` for bf16
     (with ``plan``, or :func:`tile_plan` of ``seg``) or of
-    ``csrc/flash_attn_bwd.cu`` for f32."""
+    ``csrc/flash_attn_bwd.cu`` for f32. Under a FLOP counter it runs as the
+    operator ``tpu_rl_torch::flash_bwd``; a tensor on another device is
+    refused first."""
+    on_card("flash_bwd", q)
+    args = (q, k, v, seg, o, lse, do, list(plan or ()))
+    return (_flash_bwd_op if counted() else _flash_bwd)(*args)
+
+
+def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, seg: Tensor, o: Tensor, lse: Tensor,
+                  do: Tensor, plan: list[Tensor]) -> tuple[Tensor, Tensor, Tensor]:
+    plan = TilePlan(*plan) if plan else None
     if not on_card("flash_bwd", q):
         return flash_attention_backward_plain(q, k, v, seg, o, lse, do)
     B, T, H, D = _check("flash_bwd", q, k, v, seg, {"o": o, "lse": lse, "do": do})
@@ -295,6 +340,14 @@ def flash_bwd(q, k, v, seg, o, lse, do, plan: TilePlan | None = None):
     global FLASH_BWD_LAUNCHES
     FLASH_BWD_LAUNCHES += 1
     return dq, dk, dv
+
+
+_flash_bwd_op = torch.library.custom_op("tpu_rl_torch::flash_bwd", _flash_bwd, mutates_args=())
+
+
+@register_flop_formula(torch.ops.tpu_rl_torch.flash_bwd)
+def _flash_bwd_flops(q_shape, *_shapes, out_shape=None) -> int:
+    return attn_flops(*q_shape, backward=True)
 
 
 # ------------------------------------------------------------ autograd

@@ -12,6 +12,14 @@ the rows; :func:`act_launch_plan` chooses the tile sizes from (B, D, H, A)
 in plain Python, so the CPU tests reach it, and refuses with
 :class:`ActPlanError` what the card cannot launch.
 
+The kernel entry is the ``torch.library.custom_op``
+``tpu_rl_torch::fused_act`` with a FLOP formula registered for
+``torch.utils.flop_counter`` (:func:`act_flops`, the plain version's
+products): a counter charges each call its formula whether the kernel or
+the plain version runs beneath. The wrapper enters the operator only while
+a dispatch mode is active (:func:`tpu_rl_torch.counted`); otherwise it
+calls the operator's function directly and pays no dispatcher.
+
 On a CUDA tensor the wrapper launches the kernel or raises. The plain
 PyTorch version, :func:`fused_act_step_plain`, is the same math in torch
 ops; it is taken only for tensors that lie on the CPU, and it is what the
@@ -26,8 +34,10 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
-from tpu_rl_torch import on_card
+from tpu_rl_torch import counted, on_card
 from tpu_rl_torch.kernels import build
 from tpu_rl_torch.models.cells import lstm_gates
 from tpu_rl_torch.ops import distributions as D
@@ -201,17 +211,36 @@ def _expected_shapes(B: int, D_: int, H: int, A: int) -> dict[str, tuple[int, ..
     }
 
 
+def act_flops(B: int, D: int, H: int, A: int) -> int:
+    """FLOPs of one fused act step of B rows: the torso (D·H), the input and
+    recurrent projections (8H²) and the logits head (H·A), 2·B·(D·H + 8H² +
+    H·A)."""
+    return 2 * B * (D * H + 8 * H * H + H * A)
+
+
 def fused_act_step(actor_params, obs, h, c):
     """``actor_params`` is the actor state_dict (``body.weight`` ...). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel. Under a
+    FLOP counter it runs as the operator ``tpu_rl_torch::fused_act``; a
+    tensor on another device is refused first."""
+    on_card("fused_act_step", obs)
+    args = (obs, *(actor_params[k] for k in _WEIGHTS), h, c)
+    return (_fused_act_op if counted() else _fused_act)(*args)
+
+
+def _fused_act(
+    obs: Tensor, body_w: Tensor, body_b: Tensor, x_w: Tensor, x_b: Tensor, wh: Tensor,
+    logits_w: Tensor, logits_b: Tensor, h: Tensor, c: Tensor,
+) -> tuple[Tensor, Tensor, Tensor]:
+    weights = dict(zip(_WEIGHTS, (body_w, body_b, x_w, x_b, wh, logits_w, logits_b), strict=True))
     if not on_card("fused_act_step", obs):
-        return fused_act_step_plain(actor_params, obs, h, c)
+        return fused_act_step_plain(weights, obs, h, c)
     if obs.dim() != 2 or h.dim() != 2 or obs.shape[0] < 1:
         raise ValueError(f"fused_act_step: obs {tuple(obs.shape)}, h {tuple(h.shape)}")
     B, D_ = obs.shape
     H = h.shape[1]
-    A = actor_params["logits.weight"].shape[0]
-    inputs = {"obs": obs, **{k: actor_params[k] for k in _WEIGHTS}, "h": h, "c": c}
+    A = logits_w.shape[0]
+    inputs = {"obs": obs, **weights, "h": h, "c": c}
     for name, want in _expected_shapes(B, D_, H, A).items():
         t = inputs[name]
         if t.device != obs.device:
@@ -227,6 +256,17 @@ def fused_act_step(actor_params, obs, h, c):
     LAUNCHES += 1
     LAUNCHES_BY_ROWS[B] = LAUNCHES_BY_ROWS.get(B, 0) + 1
     return out
+
+
+_fused_act_op = torch.library.custom_op("tpu_rl_torch::fused_act", _fused_act, mutates_args=())
+
+
+@register_flop_formula(torch.ops.tpu_rl_torch.fused_act)
+def _fused_act_flops(obs_shape, body_w_shape, *_shapes, out_shape=None) -> int:
+    B, D_ = obs_shape
+    H = body_w_shape[0]
+    A = out_shape[0][1]  # logits (B, A)
+    return act_flops(B, D_, H, A)
 
 
 def _launch(inputs: dict, plan: ActPlan):

@@ -21,6 +21,16 @@ memory, or streamed every step), the cluster size, the rows per tile and
 the thread tile from (B, S, H) in plain Python, so the CPU tests reach it,
 and refuses with :class:`LstmPlanError` what the card cannot launch.
 
+Each kernel entry is a ``torch.library.custom_op`` (``tpu_rl_torch::lstm_fwd``,
+``tpu_rl_torch::lstm_bwd``) with a FLOP formula registered for
+``torch.utils.flop_counter``: a counter charges each call its formula
+(:func:`lstm_flops`, the plain version's recurrent products; B2's without
+``dwh``, the product outside it) and does not descend into it, so the count
+is the same whether the kernel or the plain version runs beneath. A wrapper
+enters the operator only while a dispatch mode is active
+(:func:`tpu_rl_torch.counted`); otherwise it calls the operator's function
+directly and pays no dispatcher.
+
 On a CUDA tensor the unroll always launches B1, and B2 under backward: there
 is no dispatch gate. ``tpu_rl``'s gate (whole batch in one VMEM tile;
 forward-only calls scan) was measured on a TPU and is not carried over;
@@ -43,8 +53,10 @@ import functools
 from dataclasses import dataclass
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
-from tpu_rl_torch import on_card
+from tpu_rl_torch import counted, on_card
 from tpu_rl_torch.kernels import build
 
 # Kernel launches made through lstm_fwd / lstm_bwd (plain-version calls
@@ -406,10 +418,25 @@ def _check(fn: str, device: torch.device, tensors: dict, shapes: dict) -> None:
 
 
 # ----------------------------------------------------------------- wrappers
+def lstm_flops(B: int, S: int, H: int) -> int:
+    """FLOPs of one call of B1, and of one of B2: the S recurrent products
+    ``h @ wh`` (B2: ``dz @ whᵀ``) of B rows, 2·B·S·H·4H."""
+    return 2 * B * S * H * 4 * H
+
+
 def lstm_fwd(xp, wh, h0, c0, keep):
     """Kernel B1: ``(hs, cs, acts)``. CPU tensors take
     :func:`lstm_forward_plain`; CUDA tensors launch the kernel with
-    :func:`lstm_launch_plan`'s plan."""
+    :func:`lstm_launch_plan`'s plan. Under a FLOP counter it runs as the
+    operator ``tpu_rl_torch::lstm_fwd``; a tensor on another device is
+    refused first."""
+    on_card("lstm_fwd", xp)
+    return (_lstm_fwd_op if counted() else _lstm_fwd)(xp, wh, h0, c0, keep)
+
+
+def _lstm_fwd(
+    xp: Tensor, wh: Tensor, h0: Tensor, c0: Tensor, keep: Tensor
+) -> tuple[Tensor, Tensor, Tensor]:
     if not on_card("lstm_fwd", xp):
         return lstm_forward_plain(xp, wh, h0, c0, keep)
     if xp.dim() != 3 or xp.shape[0] < 1 or xp.shape[1] < 1:
@@ -446,11 +473,33 @@ def _launch_fwd(xp, wh, h0, c0, keep, plan: LstmPlan):
     return hs, cs, acts
 
 
+_lstm_fwd_op = torch.library.custom_op(
+    "tpu_rl_torch::lstm_fwd", _lstm_fwd, mutates_args=()
+)
+
+
+@register_flop_formula(torch.ops.tpu_rl_torch.lstm_fwd)
+def _lstm_fwd_flops(xp_shape, wh_shape, *_shapes, out_shape=None) -> int:
+    B, S, _ = xp_shape
+    return lstm_flops(B, S, wh_shape[0])
+
+
 def lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs):
     """Kernel B2: ``(dxp, dh0, dc0)`` from the forward's saved ``cs`` and
     ``acts`` and the output cotangents ``dhs``, ``dcs``. CPU tensors take
-    :func:`lstm_backward_plain`; CUDA tensors launch the kernel, which reads
-    wh as the forward does (no transpose)."""
+    :func:`lstm_backward_plain` (whose ``dwh`` is dropped); CUDA tensors
+    launch the kernel, which reads wh as the forward does (no transpose).
+    Under a FLOP counter it runs as the operator ``tpu_rl_torch::lstm_bwd``;
+    a tensor on another device is refused first."""
+    on_card("lstm_bwd", acts)
+    args = (wh, h0, c0, keep, hs, cs, acts, dhs, dcs)
+    return (_lstm_bwd_op if counted() else _lstm_bwd)(*args)
+
+
+def _lstm_bwd(
+    wh: Tensor, h0: Tensor, c0: Tensor, keep: Tensor, hs: Tensor, cs: Tensor, acts: Tensor,
+    dhs: Tensor, dcs: Tensor,
+) -> tuple[Tensor, Tensor, Tensor]:
     if not on_card("lstm_bwd", acts):
         dxp, _dwh, dh0, dc0 = lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs)
         return dxp, dh0, dc0
@@ -485,6 +534,18 @@ def _launch_bwd(wh, c0, keep, cs, acts, dhs, dcs, plan: LstmPlan):
     if err != 0:
         raise RuntimeError(f"lstm_bwd kernel launch failed at B={B}, S={S}, H={H} with {plan}: CUDA error {err}")
     return dxp, dh0, dc0
+
+
+_lstm_bwd_op = torch.library.custom_op(
+    "tpu_rl_torch::lstm_bwd", _lstm_bwd, mutates_args=()
+)
+
+
+@register_flop_formula(torch.ops.tpu_rl_torch.lstm_bwd)
+def _lstm_bwd_flops(wh_shape, h0_shape, c0_shape, keep_shape, hs_shape, *_shapes,
+                    out_shape=None) -> int:
+    B, S, H = hs_shape
+    return lstm_flops(B, S, H)
 
 
 def max_active_clusters(plan: LstmPlan) -> int:

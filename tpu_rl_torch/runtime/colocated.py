@@ -35,13 +35,30 @@ generator continues from the state saved in its meta (``tpu_rl`` needs only
 the index, since it draws ``fold_in(base, it)``; this loop draws from one
 stateful generator). The env carry starts afresh, as in ``tpu_rl``.
 
-Not in this slice: meshes and multihost, telemetry, the resume audit
-record, the history store, the goodput ledger and the ``diag`` accumulator
-(the train step still computes ``diag``; the loop drops it).
+With the telemetry plane on (``cfg.telemetry_enabled``: a ``result_dir``
+or a ``telemetry_port``) the loop also keeps, as ``tpu_rl``'s does, a
+metrics registry behind a :class:`~tpu_rl_torch.obs.TelemetryAggregator`
+(``colocated-*`` counters and gauges, among them the FLOPs per update,
+achieved FLOP/s, MFU, recompiles and device memory of a
+:class:`~tpu_rl_torch.obs.PerfTracker` that counts the first update), a
+goodput ledger (compute and checkpoint time), the SLO engine
+(``slo_spec``), the history store, the learning-dynamics accumulator fed
+with each update's ``diag`` at staleness 0 (with ``learn_diag``), the
+``/metrics`` server (``telemetry_port``) and, under ``result_dir``,
+``telemetry.json``, ``learn.jsonl``, ``goodput.jsonl``,
+``learner_resume.jsonl`` (one line per resume), ``slo.json``, ``history/``
+and profiler traces (``prof/``). None of it feeds back into the update:
+params with the plane on are bitwise those with it off. With
+``cfg.slo_fail_run`` a failing final SLO verdict makes :meth:`run` raise
+:class:`SloFailedError` (``tpu_rl``'s role exits non-zero).
+
+Not in this slice: meshes and multihost.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 import torch
@@ -51,7 +68,27 @@ from tpu_rl_torch.algos.registry import get_algo
 from tpu_rl_torch.checkpoint import Checkpointer, resume_fingerprint
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.envs import get_spec, make_vec_env
+from tpu_rl_torch.obs import (
+    DiagAccumulator,
+    GoodputLedger,
+    JsonExporter,
+    MetricsRegistry,
+    PerfTracker,
+    ProfilerCapture,
+    TelemetryAggregator,
+    TelemetryHTTPServer,
+    append_jsonl,
+    append_resume,
+    device_memory_bytes,
+    learn_record,
+    maybe_history,
+    maybe_slo_engine,
+    process_self_stats,
+)
+from tpu_rl_torch.obs import publish as publish_diag
+from tpu_rl_torch.obs.goodput import CKPT, COMPUTE
 from tpu_rl_torch.types import BATCH_FIELDS, Batch
+from tpu_rl_torch.utils.metrics import make_writer
 from tpu_rl_torch.utils.timer import ExecutionTimer
 
 
@@ -75,6 +112,12 @@ def resolve_colocated_config(cfg: Config) -> Config:
     return cfg.replace(
         obs_shape=spec.obs_shape, action_space=spec.action_space, is_continuous=spec.is_continuous
     )
+
+
+class SloFailedError(RuntimeError):
+    """Raised by :meth:`ColocatedLoop.run` at its end, after every file is
+    written, when ``Config.slo_fail_run`` is set and the final SLO verdict
+    fails a rule: uncaught, the run's process exits non-zero."""
 
 
 class ColocatedLoop:
@@ -125,6 +168,16 @@ class ColocatedLoop:
                 cfg.model_dir, cfg.algo, keep=cfg.ckpt_keep, async_save=cfg.ckpt_async
             )
             self._fingerprint = resume_fingerprint(cfg)
+        # Telemetry plane (None unless cfg.telemetry_enabled).
+        self.aggregator = None
+        self.ledger = None
+        self._perf = None
+        self._slo = None
+        self._history = None
+        self._prof = None
+        self._http = None
+        self._json_exp = None
+        self._setup_telemetry()
 
     # ------------------------------------------------------------ device init
     def init_carry(self, generator: torch.Generator | None = None) -> dict:
@@ -242,10 +295,121 @@ class ColocatedLoop:
             )
         return state
 
+    # ------------------------------------------------------------- telemetry
+    def _setup_telemetry(self) -> None:
+        cfg = self.cfg
+        if not cfg.telemetry_enabled:
+            return
+        self.aggregator = TelemetryAggregator(
+            registry=MetricsRegistry(role="colocated"), stale_after_s=cfg.telemetry_stale_s
+        )
+        self.ledger = GoodputLedger("colocated")
+        self._perf = PerfTracker(self.device)
+        self._slo = maybe_slo_engine(cfg)
+        self._history = maybe_history(cfg)
+        if cfg.result_dir is not None:
+            self._prof = ProfilerCapture(os.path.join(cfg.result_dir, "prof"), self.device)
+        if cfg.telemetry_port > 0:
+            self._http = TelemetryHTTPServer(
+                self.aggregator,
+                cfg.telemetry_port,
+                slo=self._slo.report if self._slo is not None else None,
+                prof=self._prof.capture_async if self._prof is not None else None,
+                goodput=self._goodput_payload,
+                query=self._history.http_query if self._history is not None else None,
+            )
+        if cfg.result_dir is not None:
+            self._json_exp = JsonExporter(
+                self.aggregator,
+                os.path.join(cfg.result_dir, "telemetry.json"),
+                interval_s=cfg.telemetry_interval_s,
+            )
+
+    def _telemetry_tick(
+        self, updates: int, env_steps: int, episodes: int, ups: float, tps: float,
+        chunk_s: float, mean_ret: float,
+    ) -> None:
+        if self.aggregator is None:
+            return
+        reg = self.aggregator.registry
+        reg.counter("colocated-updates").set_total(updates)
+        reg.counter("colocated-env-steps").set_total(env_steps)
+        reg.counter("colocated-episodes").set_total(episodes)
+        reg.gauge("colocated-updates-per-s").set(ups)
+        reg.gauge("colocated-env-steps-per-s").set(tps)
+        reg.gauge("colocated-mean-episode-return").set(mean_ret)
+        reg.histogram("colocated-scan-chunk-s").observe(chunk_s)
+        if self._perf is not None:
+            # chunk_s is the per-update mean measured against a blocking
+            # read: the dispatch interval the tracker wants.
+            self._perf.note(chunk_s)
+            reg.gauge("colocated-flops-per-step").set(self._perf.flops_per_call)
+            achieved = self._perf.achieved_flops_per_s()
+            if achieved is not None:
+                reg.gauge("colocated-achieved-flops").set(achieved)
+            mfu = self._perf.mfu()
+            if mfu is not None:
+                reg.gauge("colocated-mfu").set(mfu)
+            reg.counter("colocated-xla-recompiles").set_total(self._perf.recompiles)
+            in_use, peak = device_memory_bytes(self.device)
+            reg.gauge("colocated-device-mem-bytes").set(in_use)
+            reg.gauge("colocated-device-mem-peak-bytes").set(peak)
+            rss, n_fds = process_self_stats()
+            reg.gauge("colocated-rss-bytes").set(rss)
+            reg.gauge("colocated-open-fds").set(float(n_fds))
+        if self.ledger is not None:
+            self.ledger.publish(reg)
+        if self._slo is not None:
+            self._slo.evaluate(self.aggregator)
+        if self._json_exp is not None and self._json_exp.maybe_export():
+            if self._history is not None:
+                # one history row per export, on the exporter's cadence
+                self._history.record(self.aggregator)
+            if self.ledger is not None:
+                append_jsonl(self.cfg.result_dir, "goodput.jsonl", self._goodput_payload())
+
+    def _goodput_payload(self) -> dict:
+        """The GET /goodput document of the single-process deployment: this
+        loop's ledger snapshot (no fleet, so no stragglers)."""
+        return {
+            "colocated": self.ledger.snapshot() if self.ledger is not None else None,
+            "roles": {},
+            "stragglers": [],
+        }
+
+    def _record_resume(self, idx: int) -> None:
+        """One resume record in result_dir/learner_resume.jsonl, the file
+        and schema ``{"idx", "epoch", "t"}`` of ``tpu_rl``'s learner and
+        colocated loop."""
+        append_resume(self.cfg.result_dir, idx, self.run_epoch)
+
+    @property
+    def slo_failed(self) -> bool:
+        """Whether the latest SLO verdict fails a rule: the
+        ``Config.slo_fail_run`` gate of :meth:`run`."""
+        return self._slo is not None and self._slo.failed
+
     def close(self) -> None:
         if self.ckpt is not None:
             self.ckpt.close()
             self.ckpt = None
+        if self._http is not None:
+            self._http.close()
+            self._http = None
+        if self._prof is not None:
+            self._prof.close()
+            self._prof = None
+        if self._slo is not None and self.cfg.result_dir is not None:
+            os.makedirs(self.cfg.result_dir, exist_ok=True)
+            with open(os.path.join(self.cfg.result_dir, "slo.json"), "w") as f:
+                json.dump(self._slo.report(), f, indent=2)
+        if self._json_exp is not None:
+            # a final write whatever the exporter's cadence
+            self._json_exp.maybe_export(now=float("inf"))
+        if self._history is not None:
+            self._history.record(self.aggregator)
+            self._history.close()
+            self._history = None
 
     # --------------------------------------------------------------- run loop
     def run(self, log: bool = True) -> dict:
@@ -259,43 +423,85 @@ class ColocatedLoop:
         cfg = self.cfg
         n, s = cfg.batch_size, cfg.seq_len
         timer = ExecutionTimer(num_transition=n * s)
+        writer = make_writer(cfg.result_dir)
         state = self.state
         if self.ckpt is not None:
             state = self.restore(state)
-            if log and self.run_epoch:
-                print(
-                    f"[colocated] resumed from committed checkpoint idx {self._start_it} "
-                    f"(run epoch {self.run_epoch})",
-                    flush=True,
-                )
+            if self.run_epoch:
+                self._record_resume(self._start_it)
+                if log:
+                    print(
+                        f"[colocated] resumed from committed checkpoint idx {self._start_it} "
+                        f"(run epoch {self.run_epoch})",
+                        flush=True,
+                    )
         carry = self.init_carry()
         stats = self.init_stats()
+        ledger, perf = self.ledger, self._perf
+        # Learning-dynamics plane: each update's diag folds into the device
+        # accumulator (a few device ops, no sync), drained at the log
+        # cadence. Colocated rollouts train the iteration they are made,
+        # so every row is staleness 0. Built only where the document has
+        # somewhere to go.
+        diag_acc = DiagAccumulator() if cfg.learn_diag and cfg.telemetry_enabled else None
+        stale0 = None
         log_every = max(1, cfg.loss_log_interval)
         it = last_it = self._start_it
         last_ep, last_ret = 0, 0.0
         mean_ret, best_ret = 0.0, float("-inf")
         t0 = t_mark = time.perf_counter()
         while self.max_updates is None or it < self.max_updates:
-            state, carry, stats, metrics = self.program(state, carry, stats)
+            t_disp = time.perf_counter()
+            if perf is not None:
+                # the first update is the one whose FLOPs are counted
+                state, carry, stats, metrics = perf.call(self.program, state, carry, stats)
+            else:
+                state, carry, stats, metrics = self.program(state, carry, stats)
+            diag = metrics.pop("diag", None)
+            if diag_acc is not None and diag is not None:
+                if stale0 is None:
+                    n_rows = next(iter(diag["rows"].values())).shape[0] if diag["rows"] else 0
+                    stale0 = torch.zeros((n_rows,), dtype=torch.float32, device=self.device)
+                diag_acc.add(diag, stale0)
+            if ledger is not None:
+                ledger.add(COMPUTE, time.perf_counter() - t_disp)
             it += 1
             if self.ckpt is not None and it % cfg.model_save_interval == 0:
+                t_ck = time.perf_counter()
                 self.ckpt.save(state, it, meta=self.save_meta())
+                if ledger is not None:
+                    ledger.add(CKPT, time.perf_counter() - t_ck)
                 self._last_saved = it
             if it % log_every and it != self.max_updates:
                 continue
             # The host reads block on iteration `it`, so the clock below
-            # covers the device's work.
+            # covers the device's work (and the ledger's compute bucket).
+            t_get = time.perf_counter()
             episodes = int(stats["episodes"])
             ret_sum = float(stats["ret_sum"])
-            host_metrics = {k: float(v) for k, v in metrics.items() if k != "diag"}
+            host_metrics = {k: float(v) for k, v in metrics.items()}
             now = time.perf_counter()
+            if ledger is not None:
+                ledger.add(COMPUTE, now - t_get)
             iters = it - last_it
             chunk_s = (now - t_mark) / max(1, iters)
             timer.record("colocated-iteration", chunk_s, check_throughput=True)
-            tps = iters * n * s / max(now - t_mark, 1e-9)
+            ups = iters / max(now - t_mark, 1e-9)
+            tps = ups * n * s
             if episodes > last_ep:
                 mean_ret = (ret_sum - last_ret) / (episodes - last_ep)
                 best_ret = max(best_ret, mean_ret)
+            self._telemetry_tick(it, it * n * s, episodes, ups, tps, chunk_s, mean_ret)
+            if diag_acc is not None:
+                diag_doc = diag_acc.drain(it)
+                if diag_doc is not None:
+                    if self.aggregator is not None:
+                        publish_diag(self.aggregator.registry, diag_doc)
+                    append_jsonl(cfg.result_dir, "learn.jsonl", learn_record(it, diag_doc))
+            for name, val in host_metrics.items():
+                writer.add_scalar(f"loss/{name}", val, it)
+            writer.add_scalar("colocated/env_steps_per_s", tps, it)
+            writer.add_scalar("colocated/mean_episode_return", mean_ret, it)
             if log:
                 print(
                     f"[colocated] update {it}  tps {tps:,.0f}  episodes {episodes}  "
@@ -310,11 +516,16 @@ class ColocatedLoop:
         elapsed = time.perf_counter() - t0
         if self.ckpt is not None and it > self._start_it and it != self._last_saved:
             # the newest state is left durable when the run ends between saves
+            t_ck = time.perf_counter()
             self.ckpt.save(state, it, meta=self.save_meta())
+            if ledger is not None:
+                ledger.add(CKPT, time.perf_counter() - t_ck)
             self._last_saved = it
+        writer.flush()
+        writer.close()
         self.close()
         self.state = state
-        return {
+        totals = {
             "updates": it,
             "env_steps": it * n * s,
             "episodes": episodes,
@@ -325,3 +536,9 @@ class ColocatedLoop:
             "transitions_per_s": (it - self._start_it) * n * s / max(elapsed, 1e-9),
             "scalars": timer.scalars(),
         }
+        if cfg.slo_fail_run and self.slo_failed:
+            failing = [r["rule"] for r in self._slo.report()["rules"] if r["ok"] is False]
+            raise SloFailedError(
+                f"the final SLO verdict fails {failing} (slo_fail_run); run totals: {totals}"
+            )
+        return totals

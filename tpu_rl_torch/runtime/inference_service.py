@@ -22,6 +22,15 @@ The served params are kept at ``Config.inference_dtype``
 quantized when the service takes them, and widened to f32 inside each act
 step before the act computation runs; ``param_bytes`` is their size.
 
+With the telemetry plane on (``cfg.telemetry_enabled``), the serve thread
+keeps a goodput ledger (compute, idle, queue-wait and wire time around the
+batching loop) and one :class:`~tpu_rl_torch.obs.PerfTracker` per bucket,
+which counts the FLOPs of that bucket's warm-up call (the fused kernel is
+charged its formula) and watches its argument signatures: ``recompiles``
+sums them, and stays 0 while every flush runs at a warmed bucket's shape.
+:meth:`InferenceService.publish_serving_metrics` replays the counters into
+a metrics registry. The chaos hooks come with the operations planes.
+
 The router is passed in: anything with ``recv(timeout_ms)``, ``drain()`` and
 ``send(identity, proto, payload)`` — :class:`~tpu_rl_torch.runtime.local_router.LocalRouter`
 in this slice. The service runs on ``device="cuda"`` unless the caller passes
@@ -42,6 +51,8 @@ from tpu_rl_torch import resolve_device
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.models.families import to_device_params
 from tpu_rl_torch.models.quant import dequantize_tree, make_act_fn, quantize_tree, tree_bytes
+from tpu_rl_torch.obs.goodput import COMPUTE, IDLE, QUEUE_WAIT, WIRE, GoodputLedger
+from tpu_rl_torch.obs.perf import PerfTracker, signature
 from tpu_rl_torch.runtime.protocol import Protocol
 from tpu_rl_torch.utils.timer import ExecutionTimer
 
@@ -138,6 +149,9 @@ class InferenceService:
         self.timer = timer or ExecutionTimer()
         self.seed = seed
         self._params = self._quantize(params)
+        # The served params' shapes, dtypes and devices, taken once per swap:
+        # the part of an act step's argument signature a flush cannot change.
+        self._params_sig = signature(self._params)
         # Bytes of the served params (tpu_rl's inference-param-bytes gauge).
         self.param_bytes = tree_bytes(self._params)
         # Policy version of the params served, echoed in every reply ("ver").
@@ -157,6 +171,13 @@ class InferenceService:
         self.n_flush_bucket: dict[int, int] = {}
         self.buckets: list[int] = []
         self.error: BaseException | None = None
+        # Telemetry (built by the serve thread iff cfg.telemetry_enabled):
+        # one tracker per bucket, the serve thread's goodput ledger, and the
+        # per-bucket flush counts already replayed into a registry's
+        # histogram.
+        self.perf_buckets: dict[int, PerfTracker] = {}
+        self.ledger: GoodputLedger | None = None
+        self._hist_emitted: dict[int, int] = {}
 
     # --------------------------------------------------------------- control
     def start(self) -> "InferenceService":
@@ -184,8 +205,10 @@ class InferenceService:
         new = self._quantize(params)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        sig = signature(new)
         with self._lock:
             self._params = new
+            self._params_sig = sig
             self._version = version
             self.param_bytes = tree_bytes(new)
 
@@ -242,12 +265,20 @@ class InferenceService:
         a, logits, log_prob, h2, c2 = act(params, obs, h, c, generator)
         return a, logits, log_prob, h, c, h2, c2
 
-    def _run(self, act, st: _Staging, params, generator) -> list[np.ndarray]:
+    def _run(self, act, st: _Staging, params, params_sig, generator) -> list[np.ndarray]:
         """One host-to-device copy, one act step, one device-to-host copy.
-        Returns host copies of the outputs, in ``_Staging.out_shapes``."""
+        Returns host copies of the outputs, in ``_Staging.out_shapes``.
+        With telemetry on, the bucket's tracker watches the step's argument
+        signature: ``params_sig`` (taken when the params were swapped in)
+        and the staging views' own, not a walk of the params tree."""
         dev_in = st.in_host.to(self.device, non_blocking=True)
         obs, first, h, c = _views(dev_in, st.in_shapes)
-        outs = self._step(act, params, obs, h, c, first, generator)
+        tracker = self.perf_buckets.get(st.rows)
+        if tracker is not None:
+            sig = (params_sig, signature((obs, h, c, first)))
+            outs = tracker.call(self._step, act, params, obs, h, c, first, generator, sig=sig)
+        else:
+            outs = self._step(act, params, obs, h, c, first, generator)
         st.out_host.copy_(torch.cat([t.reshape(-1) for t in outs]), non_blocking=True)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
@@ -278,11 +309,38 @@ class InferenceService:
         client's timeout. A generator of its own keeps the serving stream's
         draws independent of the ladder."""
         with self._lock:
-            params = self._params
+            params, params_sig = self._params, self._params_sig
+        if self.cfg.telemetry_enabled:
+            self.ledger = GoodputLedger("inference")
+            # Each bucket's warm-up is its tracker's first call: its FLOPs
+            # are counted there, at the only shape that bucket dispatches.
+            self.perf_buckets = {rows: PerfTracker(self.device) for rows in staging}
         generator = torch.Generator(self.device).manual_seed(self.seed)
         for st in staging.values():
             st.reset()
-            self._run(act, st, params, generator)
+            self._run(act, st, params, params_sig, generator)
+
+    @property
+    def recompiles(self) -> int:
+        """Act-step argument signatures after each bucket's warm-up, summed
+        over the buckets (``inference-xla-recompiles``); 0 when telemetry
+        is off (no watches)."""
+        return sum(t.recompiles for t in self.perf_buckets.values())
+
+    def publish_serving_metrics(self, registry) -> None:
+        """Replay the serving counters into a MetricsRegistry (called by
+        whoever owns it). Cumulative counters use set_total; the bucket
+        histogram replays per-bucket flush-count deltas, so repeated calls
+        never observe a flush twice."""
+        registry.counter("inference-xla-recompiles").set_total(self.recompiles)
+        registry.gauge("inference-param-bytes").set(self.param_bytes)
+        hist = registry.histogram("inference-bucket-rows")
+        for rows, n in list(self.n_flush_bucket.items()):
+            registry.counter("inference-bucket-flushes", labels={"rows": str(rows)}).set_total(n)
+            prev = self._hist_emitted.get(rows, 0)
+            if n > prev:
+                hist.observe_n(rows, n - prev)
+                self._hist_emitted[rows] = n
 
     def _loop(self, act, staging: dict[int, _Staging], generator) -> None:
         """Max-batch-or-deadline dynamic batching into the smallest covering
@@ -294,6 +352,7 @@ class InferenceService:
         pending: list[_Pending] = []
         pending_rows = 0
         flush_s = cfg.inference_flush_us / 1e6
+        ledger = self.ledger
         while not self._stop.is_set():
             # Bounded wait: until the flush deadline when requests are
             # pending (fractional ms: a sub-ms deadline is not truncated to
@@ -303,7 +362,14 @@ class InferenceService:
                 timeout_ms = max(0.0, budget * 1e3)
             else:
                 timeout_ms = 20.0
+            t_recv = time.perf_counter()
             got = router.recv(timeout_ms=timeout_ms)
+            if ledger is not None:
+                # Holding a partial batch for the deadline is queue-wait; a
+                # bare poll that delivered a request is wire; a bare
+                # timeout is idle.
+                recv_bucket = QUEUE_WAIT if pending else (WIRE if got is not None else IDLE)
+                ledger.add(recv_bucket, time.perf_counter() - t_recv)
             if got is not None:
                 for parts in (got, *router.drain()):
                     req = self._ingest(*parts)
@@ -328,7 +394,10 @@ class InferenceService:
                     rows += req.obs.shape[0]
                 pending_rows -= rows
                 bucket = buckets[bisect_left(buckets, rows)]
+                t_fl = time.perf_counter()
                 self._flush(act, staging[bucket], chunk, rows, generator)
+                if ledger is not None:
+                    ledger.add(COMPUTE, time.perf_counter() - t_fl)
                 if rows < cfg.inference_batch:
                     break  # partial tail came from the deadline, done
 
@@ -380,9 +449,10 @@ class InferenceService:
             offsets.append(off)
             off += n
         with self._lock:
-            params = self._params
-            version = self._version
-        a, logits, log_prob, h_pre, c_pre, h2, c2 = self._run(act, st, params, generator)
+            params, params_sig, version = self._params, self._params_sig, self._version
+        a, logits, log_prob, h_pre, c_pre, h2, c2 = self._run(
+            act, st, params, params_sig, generator
+        )
         # Counted before the replies go out, so a client that holds its reply
         # also sees the flush counted.
         self.n_batches += 1
@@ -405,4 +475,8 @@ class InferenceService:
             self.router.send(req.identity, Protocol.Act, reply)
             self.n_replies += 1
         self.timer.record_gauge("inference-batch-size", rows)
-        self.timer.record("inference-step-time", time.perf_counter() - t0)
+        flush_secs = time.perf_counter() - t0
+        self.timer.record("inference-step-time", flush_secs)
+        tracker = self.perf_buckets.get(st.rows)
+        if tracker is not None:
+            tracker.note(flush_secs)
