@@ -6,10 +6,11 @@
 It drives the port's serving path (f32, bf16 and int8 weights), its
 colocated LSTM training path (with checkpoint and resume), bf16-compute
 LSTM training, the other algorithms' train steps and colocated loops
-(IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous) and the transformer's
-PPO training (its train step at full width, and its colocated loop) end to
-end, and holds every hand-written kernel of those paths against its plain
-PyTorch version:
+(IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous), the transformer's
+PPO, IMPALA and V-MPO training (train steps at full width with flash and
+blockwise attention, and its colocated loop) and the transformer's serving
+end to end, and holds every hand-written kernel of those paths against its
+plain PyTorch version:
 
 1. device check: a CUDA card is required (else exit 1, no result printed);
    prints the card's name and power limit as nvidia-smi reports them and
@@ -74,8 +75,8 @@ PyTorch version:
 8b. colocated IMPALA and V-MPO on CartPole and PPO-Continuous on Pendulum
    through ``ColocatedLoop.program`` at 128 envs, 1 + 2 updates: ms per
    update, finite metrics and params, launches = updates x K_epoch; then
-   an IMPALA learning run on step 7's recipe, its best window printed with
-   no bar;
+   an IMPALA learning run on step 7's recipe for 900 updates, its best
+   window printed with no bar;
 8c. bf16 compute (tpu_rl's mixed precision; the recurrence is the bf16
    scan, never B1/B2): ``mixed_dot`` on the card against the CPU (1e-5)
    and, at the wide recurrence, against the float64 product (f32 sums);
@@ -99,7 +100,15 @@ PyTorch version:
    element by element) and the median |ref|, the kernels', the plain
    versions' and ``scaled_dot_product_attention``'s times (the same mask as
    a boolean attn_mask), and the bound;
-10. transformer training: small f32 and bf16 train steps on the card
+10. blockwise attention (the plain tile loop, block 512) at bench.py's
+   longctx-blockwise shape (16,2048,8,64), f32 and bf16, seams from
+   CartPole-like episodes: output and gradients of a weighted loss against
+   full attention (f32: tpu_rl's bars; bf16: against full attention in f32
+   on the same bf16 inputs, two bf16 ulps of each tensor's largest
+   element), the share of each bar used; peak memory of a forward and
+   backward, which must sit one (B,H,T,T) f32 score tensor or more below
+   full attention's; device times beside B4's on the same inputs;
+10a. transformer training: small f32 and bf16 train steps on the card
    against the CPU's plain path (loss, grad norm), then
    ``get_algo("PPO").build`` at
    bench.py's ``PPO-transformer@longctx-flash`` model (d512, 8 heads, 4
@@ -107,11 +116,31 @@ PyTorch version:
    on a seeded 16 x 2048 batch with seams, 2 warm-up
    then 10 timed updates: ms per update, transitions/s, peak memory, B4's
    share of device time over a profiler window, finite loss, and B4 launch
-   counts equal to n_layers x K_epoch x updates;
+   counts equal to n_layers x K_epoch x updates; then the
+   ``PPO-transformer@longctx-blockwise`` row (the same with blockwise
+   attention, 5 timed updates, B4 launches 0, the tiles' share of device
+   time);
+10b. the transformer's IMPALA and V-MPO: each step at 128 x 16, d64, 4
+   heads, 2 layers (full attention, f32) on the card against the CPU's at
+   the @ref bars, then at the longctx-flash width for 2 timed updates with
+   B4's launches counted (n_layers x K_epoch x updates);
 11. the transformer's colocated loop: ``ColocatedLoop.program`` on
-   ``configs/longcontext_singlechip.example.json`` with the flash impl
-   (CartPole, KV-cached acting, 8 x 4096) for 2 updates, finite metrics and
-   the launches as counted;
+   ``configs/longcontext_singlechip.example.json`` as shipped (blockwise;
+   CartPole, KV-cached acting, 8 x 4096) for 1 update, finite metrics, no
+   B4 launch, one tick's host and device time; then the same with flash
+   attention for 1 update, B4 launches n_layers x K_epoch each way;
+11a. transformer serving: the long-context config's model (d256, 8 heads,
+   4 layers, act_ctx 512, bf16 compute; obs 4, 2 actions) behind
+   ``InferenceService`` with its KV caches in the service's carry table on
+   the card, at inference_dtype f32, bf16 and int8, under mix 1 (2 x 4 x
+   1000, the ring wraps) and mix 2 (64 x 4 x 100) with CartPole-like
+   resets: no failure; mix 1's clients 0 and 1 equal to a replay of
+   ``family.act`` on the card, bit for bit; client 0's env 0 against
+   ``_act_transformer_window`` for act_ctx steps; host-to-device bytes =
+   obs, first and slot per row; a param swap; acts/s, p50/p99, flush_ms,
+   the act step's device time at 256 rows and per flush (profiler), carry
+   bytes on the card, param_bytes; then both mixes at f32 compute, mix 2's
+   clients 0, 21, 42 and 63 against their replay at 1e-5;
 12. the telemetry and performance plane (``telemetry_phase``): (a) the
    training config's colocated loop through ``ColocatedLoop.run`` with the
    plane on (result_dir, an HTTP port, SLO rules, the diag accumulator,
@@ -177,6 +206,9 @@ LEARN_CFG = dict(
     loss_log_interval=200,
 )
 LEARN_UPDATES, LEARN_BAR, LEARN_EPISODES = 1800, 60.0, 100
+# The IMPALA learning run (no bar) at half that depth since the transformer
+# serving phases came in, to keep the whole run near its earlier length.
+IMPALA_LEARN_UPDATES = 900
 
 # (B, S, H) at which B1 and B2 are held against the plain versions: the
 # training path, the learning run, a ragged batch, and two wide shapes
@@ -219,7 +251,36 @@ TF_TRAIN_CFG = dict(
     action_space=8,
 )
 TF_WARMUP, TF_UPDATES, TF_PROFILE = 2, 10, 2
-TF_COLOCATED_UPDATES = 2
+# The colocated long-context loop: one update (two until the transformer
+# serving phases came in), ~4096 host-bound decode ticks.
+TF_COLOCATED_UPDATES = 1
+# bench.py's PPO-transformer@longctx-blockwise row (bench.py:276-284) is
+# TF_TRAIN_CFG with blockwise attention; its timed updates.
+TF_BLOCKWISE_UPDATES = 5
+# Its attention alone, (B, T, H, D), held against full attention. bf16: each
+# output within this share of its tensor's largest element (two bf16 ulps),
+# against full attention in f32 on the same bf16 inputs.
+BLOCKWISE_SHAPE = (16, 2048, 8, 64)
+BLOCKWISE_BF16_BAR = 2.0**-6
+# CartPole-like episode lengths (uniform) for segment seams and serving
+# resets: a random policy's ~20 steps up to a learning one's ~200.
+EPISODE_LO, EPISODE_HI = 10, 200
+# The transformer's IMPALA and V-MPO: the card's step against the CPU's at
+# 128 x 16 (full attention, f32: head width 16 is no B4 width), then at
+# TF_TRAIN_CFG's width with flash for TF_ALGO_UPDATES timed updates.
+TF_REF = dict(model="transformer", batch_size=128, seq_len=16, hidden_size=64, n_heads=4,
+              n_layers=2, obs_shape=(4,), action_space=2)
+TF_ALGO_UPDATES = 2
+# Transformer serving: acts a client in the profiled mix-2 burst.
+TF_SERVE_PROFILED = 5
+# Transformer serving: the clients whose every reply is replayed through
+# family.act on the card, and the replay's bar on the logits. Mix 1 runs at
+# the replay's own 8 rows (the ladder's floor), so its replies must equal
+# the replay bit for bit under any compute dtype; mix 2's flushes run at
+# other row counts than the replay's 16, so it is replayed under f32
+# compute only, at 1e-5.
+TF_SERVE_KEEP = {"mix1": (0, 1), "mix2": (0, 21, 42, 63)}
+TF_REPLAY_BAR = {"mix1": 0.0, "mix2": 1e-5}
 # Checkpoint and resume: the default config's colocated loop saving every
 # CKPT_INTERVAL updates (async), CKPT_KEEP kept, CKPT_UPDATES updates, then
 # resumed to CKPT_RESUMED_TO; CKPT_SAVES saves timed each way.
@@ -430,14 +491,20 @@ def kernel_phase() -> list[dict]:
 
 
 # ----------------------------------------------------------------- serving
-def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
+def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str, streams=None,
+          keep=(), carry: bool = True) -> dict:
     """``n_clients`` threads, each one client of ``envs`` env rows, each
-    sending ``acts`` timed ObsRequests after one untimed priming act.
-    Checks every reply's shapes, finiteness and log-prob."""
+    sending ``acts`` timed ObsRequests: ``streams(k)``'s obs (acts, envs, D)
+    and firsts (acts, envs) for client ``k``, or, without ``streams``, one
+    untimed priming act with ``first`` set, then its obs with ``first``
+    clear. Checks every reply's shapes, finiteness and log-prob, and that it
+    carries the pre-step carry iff ``carry``; keeps the replies of the
+    clients in ``keep``."""
     barrier = threading.Barrier(n_clients + 1)
     failures = [0] * n_clients
     bad = [0] * n_clients
     lat: list[list[float]] = [[] for _ in range(n_clients)]
+    kept: dict[int, list] = {k: [] for k in keep}
     A = int(cfg.action_space)
 
     def check(reply) -> bool:
@@ -446,7 +513,7 @@ def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
         lp = reply["log_prob"]
         if act.shape != (envs, 1) or logits.shape != (envs, A) or lp.shape != (envs, 1):
             return False
-        if not (np.isfinite(logits).all() and np.isfinite(lp).all()):
+        if ("hx" in reply) != carry or not (np.isfinite(logits).all() and np.isfinite(lp).all()):
             return False
         idx = act[:, 0].astype(np.int64)
         if idx.min() < 0 or idx.max() >= A:
@@ -458,22 +525,27 @@ def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
 
     def run(k: int) -> None:
         cl = router.client(f"{tag}-{k}".encode())
-        rng = np.random.default_rng(k)
-        obs = rng.standard_normal((envs, int(cfg.obs_shape[0]))).astype(np.float32)
-        first = np.ones(envs, np.float32)
-        reply = cl.act(obs, first)
-        if reply is None or not check(reply):
-            failures[k] += 1
+        if streams is None:
+            rng = np.random.default_rng(k)
+            obs = rng.standard_normal((envs, int(cfg.obs_shape[0]))).astype(np.float32)
+            reply = cl.act(obs, np.ones(envs, np.float32))
+            if reply is None or not check(reply):
+                failures[k] += 1
+            obs_t, first_t = [obs] * acts, [np.zeros(envs, np.float32)] * acts
+        else:
+            obs_t, first_t = streams(k)
         barrier.wait()
-        first = np.zeros(envs, np.float32)
-        for _ in range(acts):
+        for t in range(acts):
             t0 = time.perf_counter()
-            reply = cl.act(obs, first)
+            reply = cl.act(obs_t[t], first_t[t])
             lat[k].append(time.perf_counter() - t0)
             if reply is None:
                 failures[k] += 1
-            elif not check(reply):
+                continue
+            if not check(reply):
                 bad[k] += 1
+            if k in kept:
+                kept[k].append(reply)
 
     threads = [threading.Thread(target=run, args=(k,), daemon=True) for k in range(n_clients)]
     for t in threads:
@@ -489,7 +561,7 @@ def drive(cfg, router, n_clients: int, envs: int, acts: int, tag: str) -> dict:
         acts_per_s=n_clients * acts * envs / dt,
         p50_ms=all_lat[int(0.50 * (len(all_lat) - 1))] * 1e3,
         p99_ms=all_lat[int(0.99 * (len(all_lat) - 1))] * 1e3,
-        client_failures=sum(failures), bad_replies=sum(bad),
+        client_failures=sum(failures), bad_replies=sum(bad), kept=kept,
     )
 
 
@@ -1219,6 +1291,40 @@ def step_noise(name: str, cfg, batch, g: torch.Generator) -> dict:
     return {}
 
 
+def card_vs_cpu(tag: str, got, want, got_state, want_state) -> tuple[dict, dict]:
+    """One train step on the card against the same step on the CPU: the
+    metrics and the new state's params and moments, at REF_TOL; fails
+    otherwise. Returns the errors by kind and where each was largest."""
+    errs = {"loss": 0.0, "metrics": 0.0, "grad-norms": 0.0, "params": 0.0, "moments": 0.0}
+    worst = {}
+    gm, wm = metric_leaves(got), metric_leaves(want)
+    if set(gm) != set(wm):
+        fail(f"{tag}: the card's metrics {sorted(gm)} are not the CPU's {sorted(wm)}")
+    finite = True
+    for k, w in wm.items():
+        g = gm[k].cpu()
+        finite &= bool(torch.isfinite(g).all())
+        kind = "loss" if k == "loss" else "grad-norms" if "grad-norm" in k else "metrics"
+        # loss: relative; the rest absolute up to magnitude 1 and relative
+        # above it (an f32 ulp is 1.2e-4 at 1024: the diag w2 rows reach
+        # ~10^3 where the batch's behaviour log-probs lie far below the
+        # learner's)
+        scale = w.abs() if kind == "loss" else w.abs().clamp(min=1.0)
+        err = float(((g - w).abs() / scale).max())
+        if err >= errs[kind]:
+            errs[kind], worst[kind] = err, k
+    gs, ws = state_leaves(got_state), state_leaves(want_state)
+    for kind in ("params", "moments"):
+        for g, w in zip(gs[kind], ws[kind], strict=True):
+            finite &= bool(torch.isfinite(g).all())
+            errs[kind] = max(errs[kind], max_err(g.cpu(), w))
+    counts_equal = [int(g) for g in gs["counts"]] == [int(w) for w in ws["counts"]]
+    if not (finite and counts_equal and all(errs[k] <= REF_TOL[k] for k in errs)):
+        fail(f"{tag} train step on the card vs the CPU: {errs} (bars {REF_TOL}; largest at "
+             f"{worst}), finite {finite}, counts equal {counts_equal}")
+    return errs, worst
+
+
 def ref_row_phase(name: str, card: str) -> dict:
     """One bench.py @ref row (bench.py:234-239: 128 x 5, H 64; CartPole's
     (4,)/2 for the discrete algorithms, (2,)/1 for the continuous): one
@@ -1240,34 +1346,7 @@ def ref_row_phase(name: str, card: str) -> dict:
     want_state, want = step_cpu(state_cpu, batch_cpu, **noise)
     got_state, got = step_dev(state_to(state_cpu, "cuda"), batch, **on_device(noise, "cuda"))
     torch.cuda.synchronize()
-
-    errs = {"loss": 0.0, "metrics": 0.0, "grad-norms": 0.0, "params": 0.0, "moments": 0.0}
-    worst = {}
-    gm, wm = metric_leaves(got), metric_leaves(want)
-    if set(gm) != set(wm):
-        fail(f"{name}@ref: the card's metrics {sorted(gm)} are not the CPU's {sorted(wm)}")
-    finite = True
-    for k, w in wm.items():
-        g = gm[k].cpu()
-        finite &= bool(torch.isfinite(g).all())
-        kind = "loss" if k == "loss" else "grad-norms" if "grad-norm" in k else "metrics"
-        # loss: relative; the rest absolute up to magnitude 1 and relative
-        # above it (an f32 ulp is 1.2e-4 at 1024: the diag w2 rows reach
-        # ~10^3 where the batch's behaviour log-probs lie far below the
-        # learner's)
-        scale = w.abs() if kind == "loss" else w.abs().clamp(min=1.0)
-        err = float(((g - w).abs() / scale).max())
-        if err >= errs[kind]:
-            errs[kind], worst[kind] = err, k
-    gs, ws = state_leaves(got_state), state_leaves(want_state)
-    for kind in ("params", "moments"):
-        for g, w in zip(gs[kind], ws[kind], strict=True):
-            finite &= bool(torch.isfinite(g).all())
-            errs[kind] = max(errs[kind], max_err(g.cpu(), w))
-    counts_equal = [int(g) for g in gs["counts"]] == [int(w) for w in ws["counts"]]
-    if not (finite and counts_equal and all(errs[k] <= REF_TOL[k] for k in errs)):
-        fail(f"{name}@ref train step on the card vs the CPU: {errs} (bars {REF_TOL}; largest at "
-             f"{worst}), finite {finite}, counts equal {counts_equal}")
+    errs, worst = card_vs_cpu(f"{name}@ref", got, want, got_state, want_state)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     state = got_state
@@ -1354,15 +1433,16 @@ def colocated_algos_phase(card: str) -> dict:
 
 def impala_learn_phase(card: str) -> dict:
     """IMPALA through ColocatedLoop.run on learn_phase's recipe (seed 0,
-    LEARN_UPDATES updates): its best window and episodes are printed with no
-    bar (tpu_rl has none for IMPALA); the launches must equal the updates."""
+    IMPALA_LEARN_UPDATES updates): its best window and episodes are printed
+    with no bar (tpu_rl has none for IMPALA); the launches must equal the
+    updates."""
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import lstm as L
     from tpu_rl_torch.runtime.colocated import ColocatedLoop
 
     L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
     loop = ColocatedLoop(Config(**dict(LEARN_CFG, algo="IMPALA")), seed=0,
-                         max_updates=LEARN_UPDATES, device="cuda")
+                         max_updates=IMPALA_LEARN_UPDATES, device="cuda")
     out = loop.run(log=True)
     fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
     print(
@@ -2010,32 +2090,37 @@ def tf_reference_check(dtype: str) -> dict:
     return {k: dict(card=g, cpu=w, rtol=rtol) for k, (g, w) in out.items()}
 
 
-def tf_train_phase(card: str) -> dict:
-    """The transformer's learner path at full width: get_algo("PPO").build
-    and its train_step on one seeded 16 x 2048 batch, TF_WARMUP untimed then
-    TF_UPDATES timed updates. The B4 launch counters are zeroed just before
-    the timed updates and read just after."""
+def tf_train_row(card: str, algo: str = "PPO", impl: str = "flash", updates: int = TF_UPDATES,
+                 warmup: int = TF_WARMUP, profiled: int = TF_PROFILE) -> dict:
+    """The transformer's learner at full width (TF_TRAIN_CFG) with ``algo``
+    and attention ``impl``: get_algo(algo).build and its train_step on one
+    seeded 16 x 2048 batch, ``warmup`` untimed then ``updates`` timed
+    updates, then ``profiled`` updates under the profiler. The B4 launch
+    counters are zeroed just before the timed updates and read just after:
+    n_layers x K_epoch x updates each with flash, 0 otherwise. With
+    blockwise, the tiles' share of device time is the attention's own
+    forward and backward (timed alone on the step's shape and segments) x
+    n_layers x K_epoch over the update's device time."""
     from tpu_rl_torch.algos.registry import get_algo
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import attention as A
 
-    reference = {dt: tf_reference_check(dt) for dt in ("float32", "bfloat16")}
-    cfg = Config.from_dict(TF_TRAIN_CFG)
-    _family, state, train_step = get_algo("PPO").build(
+    cfg = Config.from_dict(dict(TF_TRAIN_CFG, algo=algo, attention_impl=impl))
+    _family, state, train_step = get_algo(algo).build(
         cfg, torch.Generator().manual_seed(0), device="cuda"
     )
     # the bf16 model's build makes its products reduce in f32, as tpu_rl's do
     if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
         fail("building the bf16 transformer left cuBLAS free to reduce bf16 products in bf16")
     batch = tf_batch(cfg, 0, "cuda")
-    for _ in range(TF_WARMUP):
+    for _ in range(warmup):
         state, metrics = train_step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
     enqueue = []  # host time until train_step returns: what the host spends issuing it
     t0 = time.perf_counter()
-    for _ in range(TF_UPDATES):
+    for _ in range(updates):
         t1 = time.perf_counter()
         state, metrics = train_step(state, batch)
         enqueue.append(time.perf_counter() - t1)
@@ -2043,15 +2128,16 @@ def tf_train_phase(card: str) -> dict:
     dt = time.perf_counter() - t0
     fwd, bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    want = cfg.n_layers * cfg.K_epoch * TF_UPDATES
+    want = cfg.n_layers * cfg.K_epoch * updates if impl == "flash" else 0
+    tag = f"transformer training {algo} {impl}"
     if fwd != want or bwd != want:
-        fail(f"transformer training launched flash_attn_fwd {fwd} and flash_attn_bwd {bwd} "
-             f"times, want {want} each")
+        fail(f"{tag} launched flash_attn_fwd {fwd} and flash_attn_bwd {bwd} times, want {want} "
+             "each")
     host = {k: float(v) for k, v in metrics.items() if k != "diag"}
     if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
-        fail(f"transformer training metrics not finite: {host}")
+        fail(f"{tag} metrics not finite: {host}")
     if not all(bool(torch.isfinite(p).all()) for p in state.params["actor"].values()):
-        fail("transformer training params not finite")
+        fail(f"{tag} params not finite")
 
     # B4's share of device time, device time per update and the device
     # busy share over a few updates.
@@ -2061,7 +2147,7 @@ def tf_train_phase(card: str) -> dict:
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
-            for _ in range(TF_PROFILE):
+            for _ in range(profiled):
                 state, _m = train_step(state, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
@@ -2070,46 +2156,70 @@ def tf_train_phase(card: str) -> dict:
         if device_us > 0:
             busy = device_us / 1e6 / wall
             b4_share = sum(e.self_device_time_total for e in events if "flash_" in e.key) / device_us
-            device_ms_per_update = device_us / 1e3 / TF_PROFILE
+            device_ms_per_update = device_us / 1e3 / profiled
     except (RuntimeError, AttributeError) as e:
-        print(f"transformer profile: not measured ({e!r})", flush=True)
+        print(f"{tag} profile: not measured ({e!r})", flush=True)
+    tiles = tiles_share = None
+    if impl == "blockwise":
+        tiles = blockwise_step_ms(cfg, batch)
+        if device_ms_per_update is not None:
+            tiles_share = cfg.n_layers * cfg.K_epoch * tiles / device_ms_per_update
 
     n, s = cfg.batch_size, cfg.seq_len
     out = dict(
-        updates=TF_UPDATES, batch=n, seq=s, hidden=cfg.hidden_size, heads=cfg.n_heads,
-        layers=cfg.n_layers, dtype=cfg.compute_dtype, ms_per_update=dt / TF_UPDATES * 1e3,
-        transitions_per_s=TF_UPDATES * n * s / dt, max_memory_allocated=peak,
-        enqueue_ms=statistics.median(enqueue) * 1e3, device_ms_per_update=device_ms_per_update,
-        b4_device_share=b4_share, device_busy=busy, flash_attn_fwd_launches=fwd,
-        flash_attn_bwd_launches=bwd, loss=host["loss"], reference=reference,
+        algo=algo, impl=impl, updates=updates, batch=n, seq=s, hidden=cfg.hidden_size,
+        heads=cfg.n_heads, layers=cfg.n_layers, dtype=cfg.compute_dtype,
+        ms_per_update=dt / updates * 1e3, transitions_per_s=updates * n * s / dt,
+        max_memory_allocated=peak, enqueue_ms=statistics.median(enqueue) * 1e3,
+        device_ms_per_update=device_ms_per_update, b4_device_share=b4_share,
+        blockwise_fwd_bwd_ms=tiles, tiles_device_share=tiles_share, device_busy=busy,
+        flash_attn_fwd_launches=fwd, flash_attn_bwd_launches=bwd, loss=host["loss"],
     )
+    nm = "not measured"
     print(
-        f"transformer training PPO B={n} T={s} d={cfg.hidden_size} heads={cfg.n_heads} "
-        f"layers={cfg.n_layers} {cfg.compute_dtype} flash: {TF_UPDATES} updates, "
-        f"ms/update={out['ms_per_update']:.4f} transitions/s={out['transitions_per_s']:.1f} "
-        f"host enqueue ms/update={out['enqueue_ms']:.4f} device ms/update="
-        f"{'not measured' if device_ms_per_update is None else f'{device_ms_per_update:.4f}'} "
+        f"{tag} B={n} T={s} d={cfg.hidden_size} heads={cfg.n_heads} layers={cfg.n_layers} "
+        f"{cfg.compute_dtype}: {updates} updates, ms/update={out['ms_per_update']:.4f} "
+        f"transitions/s={out['transitions_per_s']:.1f} host enqueue ms/update="
+        f"{out['enqueue_ms']:.4f} device ms/update="
+        f"{nm if device_ms_per_update is None else f'{device_ms_per_update:.4f}'} "
         f"max_memory_allocated={peak} B4 share of device time="
-        f"{'not measured' if b4_share is None else f'{b4_share:.4f}'} device_busy="
-        f"{'not measured' if busy is None else f'{busy:.4f}'} loss={host['loss']:.6f} "
-        f"flash_attn_fwd launches={fwd} flash_attn_bwd launches={bwd} "
-        f"(= n_layers x K_epoch x updates {want}) [{card}]",
+        f"{nm if b4_share is None else f'{b4_share:.4f}'}"
+        + ("" if impl != "blockwise" else
+           f" blockwise attention fwd+bwd {tiles:.4f} ms a layer, tiles' share of device time="
+           f"{nm if tiles_share is None else f'{tiles_share:.4f}'}")
+        + f" device_busy={nm if busy is None else f'{busy:.4f}'} loss={host['loss']:.6f} "
+        f"flash_attn_fwd launches={fwd} flash_attn_bwd launches={bwd} (want {want}) [{card}]",
         flush=True,
     )
     return out
 
 
-def tf_colocated_phase(card: str) -> dict:
+def tf_train_phase(card: str) -> dict:
+    """The transformer's learner: the small card-vs-CPU PPO steps, then
+    bench.py's PPO-transformer@longctx-flash row and, beside it, its
+    longctx-blockwise row (the same model and batch, blockwise attention:
+    B4 launches 0)."""
+    reference = {dt: tf_reference_check(dt) for dt in ("float32", "bfloat16")}
+    flash = tf_train_row(card)
+    blockwise = tf_train_row(card, impl="blockwise", updates=TF_BLOCKWISE_UPDATES)
+    return dict(flash, reference=reference, blockwise=blockwise)
+
+
+def tf_colocated_phase(card: str, impl: str = "blockwise") -> dict:
     """The transformer's colocated loop: ColocatedLoop.program on
-    configs/longcontext_singlechip.example.json with the flash impl for
-    TF_COLOCATED_UPDATES updates (KV-cached acting, training through B4)."""
+    configs/longcontext_singlechip.example.json (env_mode set to colocated)
+    for TF_COLOCATED_UPDATES updates of KV-cached acting and training, with
+    the config's own blockwise attention (B4 launches 0) or with ``impl``
+    in its place (flash: B4 launches n_layers x K_epoch x updates each
+    way)."""
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import attention as A
     from tpu_rl_torch.runtime.colocated import ColocatedLoop
 
     raw = json.loads((ROOT / "configs" / "longcontext_singlechip.example.json").read_text())
-    raw.update(attention_impl="flash", env_mode="colocated")
-    cfg = Config.from_dict(raw)
+    if raw["attention_impl"] != "blockwise":
+        fail(f"the long-context config asks for {raw['attention_impl']!r}, not blockwise")
+    cfg = Config.from_dict(dict(raw, env_mode="colocated", attention_impl=impl))
     loop = ColocatedLoop(cfg, seed=0, device="cuda")
     state, carry, stats = loop.state, loop.init_carry(), loop.init_stats()
     torch.cuda.synchronize()
@@ -2120,9 +2230,9 @@ def tf_colocated_phase(card: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     fwd, bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
-    want = cfg.n_layers * cfg.K_epoch * TF_COLOCATED_UPDATES
+    want = cfg.n_layers * cfg.K_epoch * TF_COLOCATED_UPDATES if impl == "flash" else 0
     if fwd != want or bwd != want:
-        fail(f"transformer colocated loop launched flash_attn_fwd {fwd} and flash_attn_bwd "
+        fail(f"the {impl} colocated loop launched flash_attn_fwd {fwd} and flash_attn_bwd "
              f"{bwd} times, want {want} each")
     host = {k: float(v) for k, v in metrics.items() if k != "diag"}
     if not all(np.isfinite(v) for v in host.values()) or host["nonfinite-updates"] != 0.0:
@@ -2158,7 +2268,7 @@ def tf_colocated_phase(card: str) -> dict:
             print(f"tick profile: not measured ({e!r})", flush=True)
     n, s = loop.cfg.batch_size, loop.cfg.seq_len
     out = dict(
-        updates=TF_COLOCATED_UPDATES, batch=n, seq=s, act_ctx=cfg.effective_act_ctx,
+        impl=impl, updates=TF_COLOCATED_UPDATES, batch=n, seq=s, act_ctx=cfg.effective_act_ctx,
         ms_per_update=dt / TF_COLOCATED_UPDATES * 1e3,
         transitions_per_s=TF_COLOCATED_UPDATES * n * s / dt, episodes=episodes,
         mean_return=float(stats["ret_sum"]) / episodes, loss=host["loss"],
@@ -2167,12 +2277,399 @@ def tf_colocated_phase(card: str) -> dict:
     )
     print(
         f"transformer colocated PPO CartPole B={n} T={s} act_ctx={cfg.effective_act_ctx} "
-        f"d={cfg.hidden_size} {cfg.compute_dtype} flash: {TF_COLOCATED_UPDATES} updates, "
-        f"ms/update={out['ms_per_update']:.1f} transitions/s={out['transitions_per_s']:.1f} "
-        f"episodes={episodes} mean_return={out['mean_return']:.2f} loss={host['loss']:.6f} "
-        f"flash launches {fwd}/{bwd} (= {want}); one tick {tick_ms:.4f} ms, device "
+        f"d={cfg.hidden_size} {cfg.compute_dtype} {cfg.attention_impl}: {TF_COLOCATED_UPDATES} "
+        f"updates, ms/update={out['ms_per_update']:.1f} transitions/s="
+        f"{out['transitions_per_s']:.1f} episodes={episodes} mean_return="
+        f"{out['mean_return']:.2f} loss={host['loss']:.6f} flash launches {fwd}/{bwd} (want "
+        f"{want}: n_layers x K_epoch x updates with flash, 0 with blockwise); one tick "
+        f"{tick_ms:.4f} ms, device "
         f"{'not measured' if tick_device_ms is None else f'{tick_device_ms:.4f}'} ms in "
         f"{tick_events} device events [{card}]",
+        flush=True,
+    )
+    return out
+
+
+# ------------------------------------------------- blockwise attention
+def episode_firsts(B: int, T: int, g: torch.Generator, lo: int = EPISODE_LO,
+                   hi: int = EPISODE_HI) -> torch.Tensor:
+    """(B, T) int32 episode firsts from CartPole-like episode lengths, drawn
+    uniformly from [lo, hi]; every row starts an episode."""
+    firsts = torch.zeros((B, T), dtype=torch.int32)
+    for b in range(B):
+        t = 0
+        while t < T:
+            firsts[b, t] = 1
+            t += int(torch.randint(lo, hi + 1, (1,), generator=g))
+    return firsts
+
+
+def seg_pos(firsts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Segment ids and segment-relative positions from (B, T) firsts, as the
+    transformer's unroll makes them."""
+    B, T = firsts.shape
+    idx = torch.arange(T, dtype=torch.int32).expand(B, T)
+    seam = torch.cummax(torch.where(firsts > 0, idx, 0), dim=1).values
+    return torch.cumsum(firsts, 1, dtype=torch.int32), (idx - seam).to(torch.int32)
+
+
+def blockwise_phase(card: str) -> list[dict]:
+    """Blockwise attention (the port's plain-PyTorch tile loop, block 512)
+    against full attention on the card at bench.py's longctx-blockwise
+    attention shape (16, 2048, 8, 64), with seams from CartPole-like
+    episodes: the output and the q/k/v gradients of a weighted loss. f32:
+    tpu_rl's bars (value rtol 2e-5; o and grads rtol and atol 2e-4). bf16:
+    blockwise and full round different values to bf16 (the unnormalised
+    tile probabilities; the softmax), so each is held against full attention
+    in f32 on the same bf16 inputs within BLOCKWISE_BF16_BAR x max|ref| per
+    tensor (full in bf16's own share is printed beside). The peak memory of
+    one forward and backward of each (torch.cuda.max_memory_allocated above
+    the inputs) must differ by one (B,H,T,T) f32 score tensor or more; the
+    device times of the forward and backward are timed beside B4's on the
+    same inputs (B4 launches here are comparisons, not the main path)."""
+    from tpu_rl_torch.ops import attention as A
+    from tpu_rl_torch.parallel.sequence import BLOCKWISE_BLOCK, blockwise_attention, full_attention
+
+    B, T, H, D = BLOCKWISE_SHAPE
+    g = torch.Generator().manual_seed(17)
+    seg, pos = (x.cuda() for x in seg_pos(episode_firsts(B, T, g)))
+    scores_bytes = B * H * T * T * 4
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((B, T, 3, H, D), generator=g).to(dtype).cuda()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        w = torch.randn((B, T, H, D), generator=g).cuda()
+
+        def run(fn, dt):
+            xs = [x.detach().to(dt).requires_grad_() for x in (q, k, v)]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o = fn(*xs, pos, seg)
+            loss = (o.float() * w).sum()  # a sum: O(1) gradients, so the f32 bars bite
+            grads = torch.autograd.grad(loss, xs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            return float(loss.detach()), [o.detach(), *grads], peak
+
+        got_loss, got, blk_peak = run(blockwise_attention, dtype)
+        ref_loss, ref, _ = run(full_attention, torch.float32)
+        _full_loss, full, full_peak = run(full_attention, dtype)
+        names = ("o", "dq", "dk", "dv")
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        if dtype == torch.float32:
+            val_used = abs(got_loss - ref_loss) / (2e-5 * abs(ref_loss))
+            used = {n: float(((a - r).abs() / (2e-4 + 2e-4 * r.abs())).max())
+                    for n, a, r in zip(names, got, ref, strict=True)}
+            full_used = None
+        else:
+            val_used = None
+            bar = {n: BLOCKWISE_BF16_BAR * float(r.abs().max()) for n, r in zip(names, ref)}
+            used = {n: max_err(a, r) / bar[n] for n, a, r in zip(names, got, ref, strict=True)}
+            full_used = {n: max_err(a, r) / bar[n] for n, a, r in zip(names, full, ref, strict=True)}
+        errs = {n: max_err(a, r) for n, a, r in zip(names, got, ref, strict=True)}
+        saved = full_peak - blk_peak
+        tag = f"blockwise attention B={B} T={T} H={H} D={D} {str(dtype).split('.')[-1]}"
+        if not finite or max(used.values()) > 1.0 or (val_used is not None and val_used > 1.0):
+            fail(f"{tag} vs full: errors {errs}, share of the bar {used}, value {val_used}, "
+                 f"finite {finite}")
+        if saved < scores_bytes:
+            fail(f"{tag}: peak memory {blk_peak} bytes, full attention's {full_peak}: below by "
+                 f"{saved}, less than one (B,H,T,T) f32 score tensor ({scores_bytes})")
+
+        kw = dict(iters=3, reps=3, warmup=1)
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = blockwise_attention(*xs, pos, seg)
+        do = torch.randn(out.shape, generator=g).to(dtype).cuda()
+        with torch.no_grad():
+            fwd_ms = device_ms(lambda: blockwise_attention(q, k, v, pos, seg), **kw)
+        bwd_ms = device_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True), **kw)
+        plan = A.tile_plan(seg) if dtype == torch.bfloat16 else None
+        o4, lse4 = A.flash_fwd(q, k, v, seg, plan)
+        b4_fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg, plan), **kw)
+        b4_bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o4, lse4, do, plan), **kw)
+        row = dict(dtype=str(dtype).split(".")[-1], shape=dict(B=B, T=T, H=H, D=D),
+                   block=BLOCKWISE_BLOCK, errs=errs, bar_used=used, value_bar_used=val_used,
+                   full_bf16_bar_used=full_used, peak_bytes=blk_peak, full_peak_bytes=full_peak,
+                   saved_bytes=saved, fwd_ms=fwd_ms, bwd_ms=bwd_ms, b4_fwd_ms=b4_fwd_ms,
+                   b4_bwd_ms=b4_bwd_ms)
+        rows.append(row)
+        print(
+            f"{tag} block {BLOCKWISE_BLOCK} vs full: max_abs_err "
+            + ", ".join(f"{n} {errs[n]:.3e} (used {used[n]:.3f})" for n in names)
+            + ("" if val_used is None else f", value used {val_used:.3f} (rtol 2e-5)")
+            + ("" if full_used is None else
+               f"; bar {BLOCKWISE_BF16_BAR:g} x max|ref| vs full in f32 on the same bf16 inputs, "
+               "full attention in bf16 uses " + ", ".join(f"{n} {full_used[n]:.3f}" for n in names))
+            + f"; peak memory {blk_peak} vs full {full_peak} bytes (below by {saved}, bar "
+            f"{scores_bytes}); device ms fwd {fwd_ms:.4f} bwd {bwd_ms:.4f}, B4 fwd "
+            f"{b4_fwd_ms:.4f} bwd {b4_bwd_ms:.4f} [{card}]",
+            flush=True,
+        )
+        del qkv, q, k, v, w, got, ref, full, xs, out, do, o4, lse4, plan
+        torch.cuda.empty_cache()
+    return rows
+
+
+def blockwise_step_ms(cfg, batch) -> float:
+    """Device ms of one blockwise attention forward and backward at the
+    train step's shape (B, T, heads, hidden/heads), in the compute dtype,
+    on the batch's segments and positions: one layer's tiles."""
+    from tpu_rl_torch.parallel.sequence import blockwise_attention
+
+    B, T, H = cfg.batch_size, cfg.seq_len, cfg.n_heads
+    D = cfg.hidden_size // H
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    seg, pos = (x.cuda() for x in seg_pos(batch.is_fir[..., 0].cpu().to(torch.int32)))
+    g = torch.Generator().manual_seed(23)
+    xs = [torch.randn((B, T, H, D), generator=g).to(dtype).cuda().requires_grad_()
+          for _ in range(3)]
+    do = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
+
+    def fwd_bwd():
+        torch.autograd.grad(blockwise_attention(*xs, pos, seg), xs, do)
+
+    return device_ms(fwd_bwd, iters=3, reps=3, warmup=1)
+
+
+# ------------------------------------------- transformer IMPALA and V-MPO
+def tf_algos_phase(card: str) -> dict:
+    """IMPALA and V-MPO on the transformer: each TF_REF row's step on the
+    card against the same step on the CPU, from one seeded state, batch and
+    shared noise, at REF_TOL; then each at full width (TF_TRAIN_CFG, flash)
+    for TF_ALGO_UPDATES timed updates with the B4 launches counted."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+
+    out = {}
+    for algo in ("IMPALA", "V-MPO"):
+        cfg = Config.from_dict(dict(TF_REF, algo=algo))
+        _f, state_cpu, step_cpu = get_algo(algo).build(cfg, torch.Generator().manual_seed(0),
+                                                       device="cpu")
+        _f, _s, step_dev = get_algo(algo).build(cfg, torch.Generator().manual_seed(0),
+                                                device="cuda")
+        noise = step_noise(algo, cfg, None, torch.Generator().manual_seed(2))
+        want_state, want = step_cpu(state_cpu, tf_batch(cfg, 1, "cpu"), **noise)
+        got_state, got = step_dev(state_to(state_cpu, "cuda"), tf_batch(cfg, 1, "cuda"),
+                                  **on_device(noise, "cuda"))
+        torch.cuda.synchronize()
+        tag = f"transformer {algo}@ref"
+        errs, worst = card_vs_cpu(tag, got, want, got_state, want_state)
+        print(
+            f"{tag} B={cfg.batch_size} T={cfg.seq_len} d={cfg.hidden_size} heads={cfg.n_heads} "
+            f"layers={cfg.n_layers} {cfg.attention_impl} f32: the card's step vs the CPU's: "
+            + " ".join(f"{k} {v:.3e} (bar {REF_TOL[k]:g}{', ' + worst[k] if k in worst else ''})"
+                       for k, v in errs.items()) + f" [{card}]",
+            flush=True,
+        )
+        wide = tf_train_row(card, algo, "flash", updates=TF_ALGO_UPDATES, warmup=1, profiled=1)
+        out[algo] = dict(ref=dict(errs=errs, worst=worst, tol=REF_TOL), wide=wide)
+    return out
+
+
+# ------------------------------------------------- transformer serving
+def tf_serve_cfg(dtype: str, compute_dtype: str | None = None, **kw):
+    """configs/longcontext_singlechip.example.json's model (CartPole's obs 4
+    and 2 actions) behind the serving keys of SERVE_CFG, unfused
+    (act_kernel "xla": the fused kernel covers the LSTM only), at
+    ``inference_dtype=dtype``."""
+    from tpu_rl_torch.config import Config
+
+    raw = json.loads((ROOT / "configs" / "longcontext_singlechip.example.json").read_text())
+    serve = {k: v for k, v in SERVE_CFG.items() if k.startswith(("inference", "worker"))}
+    raw.update(serve, obs_shape=(4,), action_space=2, act_kernel="xla", inference_dtype=dtype,
+               **kw)
+    if compute_dtype is not None:
+        raw["compute_dtype"] = compute_dtype
+    return Config.from_dict(raw)
+
+
+def tf_streams(k: int, envs: int, acts: int) -> tuple[np.ndarray, np.ndarray]:
+    """Client ``k``'s obs (acts, envs, 4) and firsts (acts, envs): env 0 runs
+    one episode through every act (past act_ctx, so its ring wraps); the
+    others restart after CartPole-like lengths (``episode_firsts``)."""
+    g = torch.Generator().manual_seed(1000 + k)
+    obs = (0.5 * torch.randn((acts, envs, 4), generator=g)).numpy()
+    firsts = episode_firsts(envs, acts, g).T.numpy().astype(np.float32)
+    firsts[1:, 0] = 0.0
+    return obs, firsts
+
+
+def tf_serve_phase(card: str, dtype: str = "f32", compute_dtype: str | None = None,
+                   mixes: tuple = SERVE_MIXES) -> dict:
+    """The transformer served through InferenceService over a LocalRouter
+    (tf_serve_cfg), KV caches in the service's carry table on the card:
+    the mixes with episode resets; every reply of the TF_SERVE_KEEP clients
+    (mix 1's always, mix 2's under f32 compute) against a replay of
+    family.act on the card from their obs and first streams (the served,
+    widened params), at TF_REPLAY_BAR; mix 1's client 0's env 0, whose
+    episode runs through the mix, against _act_transformer_window for its
+    first act_ctx steps (1e-5 under f32 compute, tpu_rl's bf16 bar, rtol
+    0.05 and atol 0.03, under bf16 compute); host-to-device bytes per flush
+    against obs, first and slot alone; a param swap served with its
+    version; the device time and kernels of the act step per 256-row flush
+    under the profiler."""
+    from tpu_rl_torch.models.families import _act_transformer_window, build_family
+    from tpu_rl_torch.models.quant import dequantize_tree, quantize_tree
+    from tpu_rl_torch.runtime.inference_service import InferenceService
+    from tpu_rl_torch.runtime.local_router import LocalRouter
+    from tpu_rl_torch.utils.timer import ExecutionTimer
+
+    cfg = tf_serve_cfg(dtype, compute_dtype)
+    family = build_family(cfg, device="cuda")
+    params = seeded_params(family, 0)
+    served = {"actor": dequantize_tree(quantize_tree(params, dtype))["actor"]}
+    tol = (0.0, 1e-5) if cfg.compute_dtype == "float32" else (0.05, 0.03)  # (rtol, atol)
+    tag = f"transformer serving {dtype} weights, {cfg.compute_dtype} compute"
+    router = LocalRouter()
+    timer = ExecutionTimer(window=1_000_000)
+    svc = InferenceService(cfg, family, params, router, timer, seed=0, device="cuda").start()
+    results = []
+    try:
+        if not svc.wait_ready(300.0) or svc.error is not None:
+            fail(f"{tag}: the service did not start: {svc.error!r}")
+        f32 = cfg.compute_dtype == "float32"
+        for n_clients, acts, name in mixes:
+            timer.elapsed.clear()
+            timer.gauges.clear()
+            mix = drive(cfg, router, n_clients, 4, acts, f"{dtype}-{name}",
+                        streams=lambda k, acts=acts: tf_streams(k, 4, acts),
+                        keep=TF_SERVE_KEEP[name] if name == "mix1" or f32 else (), carry=False)
+            mix["flush_ms"] = timer.mean_elapsed("inference-step-time") * 1e3
+            mix["flush_rows"] = timer.mean_gauge("inference-batch-size")
+            mix["name"] = name
+            results.append(mix)
+            if mix["client_failures"] or mix["bad_replies"]:
+                fail(f"{tag} {name}: {mix['client_failures']} requests unanswered, "
+                     f"{mix['bad_replies']} replies malformed")
+
+        # the host-to-device copies so far: obs, first and slot per row of
+        # each warm-up and flush, at the bucket's rows
+        row_bytes = 4 * (int(cfg.obs_shape[0]) + 2)
+        want_h2d = sum((svc.n_flush_bucket.get(b, 0) + 1) * b * row_bytes for b in svc.buckets)
+        if svc.h2d_bytes != want_h2d:
+            fail(f"{tag}: {svc.h2d_bytes} bytes went to the card, want obs/first/slot's "
+                 f"{want_h2d}")
+        flushes = svc.n_batches
+
+        # replay the kept clients' streams through family.act on the card
+        hw, cw = family.carry_widths
+        replays = {}
+        for mix in results:
+            ks = sorted(mix["kept"])
+            if not ks:
+                continue
+            streams = [tf_streams(k, 4, mix["acts"]) for k in ks]
+            h = torch.zeros((4 * len(ks), hw), device="cuda")
+            c = torch.zeros((4 * len(ks), cw), device="cuda")
+            err = 0.0
+            with torch.no_grad():
+                for t in range(mix["acts"]):
+                    obs = torch.from_numpy(np.concatenate([s[0][t] for s in streams])).cuda()
+                    keep_ = torch.from_numpy(np.concatenate([s[1][t] for s in streams]) < 0.5)
+                    keep_ = keep_.cuda()[:, None]
+                    h, c = torch.where(keep_, h, 0.0), torch.where(keep_, c, 0.0)
+                    _a, logits, _lp, h, c = family.act(served, obs, h, c)
+                    got = np.concatenate([mix["kept"][k][t]["logits"] for k in ks])
+                    err = max(err, float(np.abs(got - logits.cpu().numpy()).max()))
+            replays[mix["name"]] = dict(clients=list(ks), err=err, bar=TF_REPLAY_BAR[mix["name"]])
+            if err > TF_REPLAY_BAR[mix["name"]]:
+                fail(f"{tag} {mix['name']}: clients {ks}' replies differ from their replay by "
+                     f"{err:.3e}, bar {TF_REPLAY_BAR[mix['name']]:g}")
+        # the window oracle: mix 1's client 0's env 0 for its first act_ctx steps
+        mix1 = next(m for m in results if m["name"] == "mix1")
+        obs0 = tf_streams(0, 4, mix1["acts"])[0]
+        ctx = cfg.effective_act_ctx
+        hist, count = torch.zeros((1, ctx * 4), device="cuda"), torch.zeros((1, 1), device="cuda")
+        window_used = window_err = 0.0
+        with torch.no_grad():
+            for t in range(min(ctx, mix1["acts"])):
+                obs = torch.from_numpy(obs0[t][:1]).cuda()
+                _a, logits, _lp, hist, count = _act_transformer_window(
+                    family.actor, ctx, 4, served, obs, hist, count)
+                want = logits.cpu().numpy()
+                got = mix1["kept"][0][t]["logits"][:1]
+                err = np.abs(got - want)
+                window_err = max(window_err, float(err.max()))
+                window_used = max(window_used, float((err / (tol[1] + tol[0] * np.abs(want))).max()))
+        if window_used > 1.0:
+            fail(f"{tag}: replies vs the window oracle {window_err:.3e} (share "
+                 f"{window_used:.3f}); bar rtol {tol[0]} atol {tol[1]}")
+
+        # the act step alone at 256 rows, caches full (device time); then
+        # the device time and kernels per flush of a mix-2 burst under the
+        # profiler (gather, widening, act step, scatter, copies)
+        g = torch.Generator().manual_seed(29)
+        obs = torch.randn((256, 4), generator=g).cuda()
+        h = torch.randn((256, hw), generator=g).cuda()
+        c = torch.randn((256, cw), generator=g).cuda()
+        c[:, -1] = ctx - 1
+        with torch.no_grad():
+            act_ms = device_ms(lambda: family.act(served, obs, h, c), iters=5, reps=3, warmup=2)
+        del h, c
+        flush_device_ms = flush_kernels = flush_rows = None
+        big = [m for m in mixes if m[2] == "mix2"]
+        if big:
+            from torch.profiler import ProfilerActivity, profile
+
+            before, by_bucket = svc.n_batches, dict(svc.n_flush_bucket)
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    drive(cfg, router, big[0][0], 4, TF_SERVE_PROFILED, f"{dtype}-prof",
+                          streams=lambda k: tf_streams(k, 4, TF_SERVE_PROFILED), carry=False)
+                    torch.cuda.synchronize()
+                n = svc.n_batches - before
+                events = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                if events and n:
+                    flush_device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+                    flush_kernels = sum(e.count for e in events) / n
+                    flush_rows = sum(b * (k - by_bucket.get(b, 0))
+                                     for b, k in svc.n_flush_bucket.items()) / n
+            except (RuntimeError, AttributeError) as e:
+                print(f"{tag} profile: not measured ({e!r})", flush=True)
+
+        probe = router.client(b"probe")
+        first = np.ones(4, np.float32)
+        r1 = probe.act(obs0[0], first)
+        svc.set_params(seeded_params(family, 1), version=7)
+        r2 = probe.act(obs0[0], first)
+        if r1 is None or r2 is None or r2["ver"] != 7 or np.allclose(r1["logits"], r2["logits"]):
+            fail(f"{tag}: a param swap was not served with its version")
+    finally:
+        svc.close()
+    if svc.error is not None:
+        fail(f"{tag}: the service died: {svc.error!r}")
+    out = dict(
+        dtype=dtype, compute_dtype=cfg.compute_dtype, act_ctx=cfg.effective_act_ctx,
+        mixes=[{k: v for k, v in m.items() if k != "kept"} for m in results],
+        flushes=flushes, n_flush_bucket=dict(sorted(svc.n_flush_bucket.items())),
+        h2d_bytes=svc.h2d_bytes, h2d_bytes_per_row=row_bytes, carry_bytes=svc.carry_bytes,
+        carry_bytes_per_row=4 * (hw + cw), param_bytes=svc.param_bytes,
+        replays=replays, window_err=window_err,
+        window_bar_used=window_used, act_device_ms_256=act_ms,
+        flush_device_ms=flush_device_ms, flush_kernels=flush_kernels,
+        flush_bucket_rows=flush_rows,
+    )
+    for m in out["mixes"]:
+        print(f"{tag} {m['name']} {m['clients']} clients x {m['envs']} envs x {m['acts']} acts: "
+              f"acts/s={m['acts_per_s']:.1f} p50_ms={m['p50_ms']:.4f} p99_ms={m['p99_ms']:.4f} "
+              f"flush_ms={m['flush_ms']:.4f} flush_rows={m['flush_rows']:.1f} client_failures="
+              f"{m['client_failures']} [{card}]", flush=True)
+    nm = "not measured"
+    print(
+        f"{tag}: flushes per bucket {out['n_flush_bucket']}; host-to-device {svc.h2d_bytes} bytes "
+        f"= {row_bytes} a row (obs, first, slot) over warm-ups and flushes; carry table "
+        f"{svc.carry_bytes} bytes on the card ({out['carry_bytes_per_row']} a row); param_bytes "
+        f"{svc.param_bytes}; replays: "
+        + "; ".join(f"{n} clients {r['clients']}: max err {r['err']:.3e} (bar {r['bar']:g})"
+                    for n, r in replays.items())
+        + f"; window oracle over {min(ctx, mix1['acts'])} steps: "
+        f"{window_err:.3e} (share {window_used:.3f}); family.act alone at 256 rows, caches "
+        f"full: {act_ms:.4f} device ms; a mix-2 burst under the profiler: "
+        f"{nm if flush_device_ms is None else f'{flush_device_ms:.4f}'} device ms and "
+        f"{nm if flush_kernels is None else f'{flush_kernels:.1f}'} kernels a flush "
+        f"(mean bucket rows {nm if flush_rows is None else f'{flush_rows:.1f}'}) [{card}]",
         flush=True,
     )
     return out
@@ -2543,8 +3040,13 @@ def main() -> None:
     colocated_algos = colocated_algos_phase(card)
     impala_learning = impala_learn_phase(card)
     attn_rows = attention_phase()
+    blockwise_rows = blockwise_phase(card)
     tf_training = tf_train_phase(card)
+    tf_algos = tf_algos_phase(card)
     tf_colocated = tf_colocated_phase(card)
+    tf_colocated_flash = tf_colocated_phase(card, "flash")
+    tf_serving = {m: tf_serve_phase(card, m) for m in ("f32", *SERVE_DTYPES)}
+    tf_serving["f32 compute"] = tf_serve_phase(card, "f32", "float32")
     telemetry = telemetry_phase(card)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
@@ -2652,6 +3154,16 @@ def main() -> None:
             tiles_visited=attn_main["tiles_visited"],
             tiles_causal=attn_main["tiles_causal"],
             plan_ms=attn_main["plan_ms"],
+            # this kernel's launches on each transformer path of the run,
+            # counted the same way (blockwise attention runs none)
+            launches_by_path={
+                "PPO longctx-flash": tf_training[f"{name}_launches"],
+                "PPO longctx-blockwise": tf_training["blockwise"][f"{name}_launches"],
+                **{f"{a} longctx-flash": r["wide"][f"{name}_launches"]
+                   for a, r in tf_algos.items()},
+                "colocated longcontext config (blockwise)": tf_colocated[f"{name}_launches"],
+                "colocated longcontext config (flash)": tf_colocated_flash[f"{name}_launches"],
+            },
             card=card,
             shapes=[dict(shape=x["shape"], checks=x["checks"], tiles_visited=x["tiles_visited"],
                          tiles_causal=x["tiles_causal"], **x[name])
@@ -2670,6 +3182,9 @@ def main() -> None:
         "ref_rows": ref_rows,
         "colocated_algos": colocated_algos, "impala_learning": impala_learning,
         "transformer_training": tf_training, "transformer_colocated": tf_colocated,
+        "transformer_colocated_flash": tf_colocated_flash,
+        "blockwise_attention": blockwise_rows, "transformer_algos": tf_algos,
+        "transformer_serving": tf_serving,
         "telemetry": telemetry}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

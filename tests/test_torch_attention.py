@@ -230,7 +230,7 @@ def test_flash_attention_is_causal_only():
     q = torch.zeros((1, 4, 1, 8))
     with pytest.raises(NotImplementedError, match="causal only"):
         S.flash_attention(q, q, q, None, torch.zeros((1, 4), dtype=torch.int32), causal=False)
-    assert set(S.ATTENTION_IMPLS) == {"full", "flash"}
+    assert set(S.ATTENTION_IMPLS) == {"full", "flash", "blockwise"}
 
 
 # ------------------------------------------------- the bf16 kernels' tile rule

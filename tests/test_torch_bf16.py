@@ -325,7 +325,9 @@ def test_fused_act_refuses_bf16_compute():
     fam = build_family(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="computes in f32 only"):
         make_fused_act(fam)
-    # the f32 LSTM and the bf16 transformer still load with 'pallas'
+    # the f32 LSTM still loads with 'pallas'; the transformer, which the
+    # fused kernel does not cover, is refused whatever its dtype (ROADMAP C 5)
     assert Config.from_dict({"act_kernel": "pallas"}).act_kernel == "pallas"
-    assert Config.from_dict({"act_kernel": "pallas", "compute_dtype": "bfloat16",
-                             "model": "transformer"}).model == "transformer"
+    with pytest.raises(NotImplementedError, match="model='transformer'"):
+        Config.from_dict({"act_kernel": "pallas", "compute_dtype": "bfloat16",
+                          "model": "transformer"})

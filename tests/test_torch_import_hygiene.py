@@ -109,10 +109,13 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     for kw, slice_name in (
         ({"model": "transformer", "attention_impl": "ring"}, "sequence-parallel slice"),
         ({"model": "transformer", "attention_impl": "ulysses"}, "sequence-parallel slice"),
-        ({"model": "transformer", "attention_impl": "blockwise"}, "blockwise-attention slice"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             build_family(Config.from_dict(kw), device="cpu")
+    # blockwise attention builds now
+    fam = build_family(Config.from_dict({"model": "transformer", "attention_impl": "blockwise"}),
+                       device="cpu")
+    assert fam.actor.block0.attn.attention_impl == "blockwise"
     # bf16 compute: the LSTM takes it too now; with the fused act kernel,
     # which computes in f32 only, it is refused
     assert build_family(Config.from_dict({"compute_dtype": "bfloat16"}), device="cpu").actor.dtype \

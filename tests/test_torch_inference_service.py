@@ -126,6 +126,48 @@ def test_carry_lives_server_side_and_resets_on_first(service):
     assert set(svc.clients) == {b"w0", b"w1"}
 
 
+def test_a_client_changing_its_row_count_reuses_rows(service):
+    """A client that changes its row count starts over from zero rows and
+    gives its old rows back: over three changes the carry table keeps the
+    size it had after both clients' first contact, and the other client's
+    rows are untouched."""
+    cfg, _family, _params, router, svc = service
+    a, b = router.client(b"a"), router.client(b"b")
+    a.act(_obs(4, cfg), np.ones(4, np.float32))
+    b.act(_obs(2, cfg, seed=1), np.ones(2, np.float32))
+    b.act(_obs(2, cfg, seed=2), np.zeros(2, np.float32))
+    flat, b_rows = svc.carry_bytes, svc.clients[b"b"].h
+    for n in (2, 4, 2):
+        r = a.act(_obs(n, cfg, seed=n), np.zeros(n, np.float32))
+        np.testing.assert_array_equal(r["hx"], 0.0)
+        np.testing.assert_array_equal(r["cx"], 0.0)
+        r = a.act(_obs(n, cfg, seed=n), np.zeros(n, np.float32))
+        assert r["hx"].shape == (n, cfg.hidden_size) and np.abs(r["hx"]).max() > 0
+        assert svc.carry_bytes == flat, n
+    np.testing.assert_array_equal(svc.clients[b"b"].h, b_rows)
+
+
+def test_carry_table_free_list():
+    """Released ranges merge with their free neighbours, are handed out
+    again (zeroed) before the table grows, and a free range at the end goes
+    back to the unused tail."""
+    from tpu_rl_torch.runtime.inference_service import _CarryTable
+
+    t = _CarryTable(3, 2, torch.device("cpu"))
+    bases = [t.alloc(n) for n in (2, 3, 4)]
+    assert bases == [1, 3, 6] and t.rows == 10
+    t.h[1:10] = 7.0
+    cap = t.h.shape[0]
+    t.release(1, 2)
+    t.release(3, 3)
+    assert t.free == [(1, 5)]
+    assert t.alloc(4) == 1 and t.free == [(5, 1)]
+    assert (t.h[1:5] == 0).all() and (t.c[1:5] == 0).all() and (t.h[6:10] == 7).all()
+    t.release(6, 4)
+    assert t.free == [] and t.rows == 5  # (5, 1) and (6, 4) went back to the tail
+    assert t.alloc(4) == 5 and t.h.shape[0] == cap and (t.h[5:9] == 0).all()
+
+
 def test_nan_carry_does_not_survive_a_reset(service):
     """The reset is a ``where``, not a multiply: a NaN carry row is zeroed by
     ``first`` and the reply is finite."""

@@ -3,6 +3,8 @@
 code for code (``q8`` equal, ``scale`` and the bf16 leaves bit for bit,
 after the bridge carries ``tpu_rl``'s quantized tree across),
 ``dequantize_tree`` (exact: both widen the same numbers), idempotence,
+the transformer's tree (int8 leaves only its 2-D Dense weights: LayerNorm
+scales and every bias stay f32, as in ``tpu_rl``),
 ``quant_spec`` through the bridge's names, ``tree_bytes``, and the policy
 bar of ``tests/test_quant.py:140-157`` on its margin-scaled head (argmax
 agreement >= 99%, mean log-prob drift <= 0.05 bf16 / 0.08 int8)."""
@@ -34,6 +36,7 @@ CONFIGS = {
                            obs_shape=(3,), action_space=1),
     "SAC-Continuous": dict(algo="SAC-Continuous", is_continuous=True, hidden_size=32,
                            obs_shape=(2,), action_space=1),
+    "transformer": dict(model="transformer", hidden_size=32, n_heads=4, n_layers=2, seq_len=16),
 }
 
 
@@ -86,6 +89,17 @@ def test_dequantize_matches_tpu_rl(mode):
         if mode == "int8" and sd[k].dim() >= 2:
             bound = max(float(sd[k].abs().max()) / 254.0, 1e-7)
             assert float((got[k] - sd[k]).abs().max()) <= bound + 1e-7, k
+
+
+def test_transformer_int8_keeps_layernorm_and_biases_f32():
+    _tree, sd = _actor("transformer")
+    q = quantize_tree(sd, "int8")
+    for k, v in q.items():
+        if sd[k].dim() >= 2:
+            assert is_q8_leaf(v) and v["q8"].dtype == torch.int8, k
+        else:
+            assert v.dtype == torch.float32 and torch.equal(v, sd[k]), k
+    assert any(k.endswith("ln1.weight") for k in q) and q["ln_f.bias"].dtype == torch.float32
 
 
 def test_quantize_is_idempotent_and_keeps_biases_f32():

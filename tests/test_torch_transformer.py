@@ -3,16 +3,17 @@ family in ``tpu_rl_torch.models.families``) against ``tpu_rl``'s on the CPU,
 with ``tpu_rl``'s weights through the bridge (biases and LayerNorm scales
 perturbed from their init) and the same numpy inputs:
 
-- ``TransformerActorCritic.unroll`` logits and value, with both attention
-  impls (``tpu_rl``'s "flash" takes ``full_attention`` off the TPU; the
-  port's runs B4's plain versions): f32 at 1e-5, bf16 at the reference's own
-  bf16 bar (rtol 0.05, atol 0.03, ``tests/test_transformer.py``);
+- ``TransformerActorCritic.unroll`` logits and value, with the three
+  attention impls (``tpu_rl``'s "flash" takes ``full_attention`` off the
+  TPU; the port's runs B4's plain versions; "blockwise" at 6-row tiles in
+  both): f32 at 1e-5, bf16 at the reference's own bf16 bar (rtol 0.05,
+  atol 0.03, ``tests/test_transformer.py``);
 - ``decode`` over several steps, with per-row counts that wrap the ring:
   logits, value and caches at 1e-5;
 - ``family.act`` under shared Gumbel noise: equal actions, log-probs at
   1e-6, caches at 1e-5;
-- one PPO train step and ``ColocatedLoop.program`` fed ``tpu_rl``'s rollout
-  batch, at the tolerances of ``tests/test_torch_ppo.py``."""
+- one PPO train step (each impl) and ``ColocatedLoop.program`` fed
+  ``tpu_rl``'s rollout batch, at the tolerances of ``tests/test_torch_ppo.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -79,9 +80,23 @@ def _close(got, want, what, **tol):
     )
 
 
+def small_blocks(monkeypatch, block=6):
+    """Both packages' "blockwise" entry with ``block``-row tiles, so a short
+    sequence spans several tiles and a padded one."""
+    from functools import partial
+
+    import tpu_rl.parallel.sequence as jseq
+    import tpu_rl_torch.parallel.sequence as tseq
+
+    for mod in (jseq, tseq):
+        monkeypatch.setitem(mod.ATTENTION_IMPLS, "blockwise",
+                            partial(mod.blockwise_attention, block=block))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("impl", ["full", "flash"])
-def test_unroll_matches_tpu_rl(impl, dtype):
+@pytest.mark.parametrize("impl", ["full", "flash", "blockwise"])
+def test_unroll_matches_tpu_rl(impl, dtype, monkeypatch):
+    small_blocks(monkeypatch)
     jcfg, jfam, jparams, cfg, fam, params = _setup(attention_impl=impl, compute_dtype=dtype)
     rng = np.random.default_rng(2)
     obs = rng.normal(size=(3, 16, 4)).astype(np.float32)
@@ -171,11 +186,13 @@ def _batch_np(B, S, seed):
 
 
 @pytest.mark.parametrize("k_epoch", [1, 2])
-@pytest.mark.parametrize("impl", ["full", "flash"])
-def test_train_step_matches_tpu_rl(impl, k_epoch):
+@pytest.mark.parametrize("impl", ["full", "flash", "blockwise"])
+def test_train_step_matches_tpu_rl(impl, k_epoch, monkeypatch):
     """One PPO train step of the transformer family in f32 from one state
     (after a JAX warm-up step, so RMSprop nu is nonzero) on one batch with
-    seams: loss at rtol 1e-5, every metric incl. diag, params and nu."""
+    seams: loss at rtol 1e-5, every metric incl. diag, params and nu.
+    Blockwise runs 6-row tiles over the 16 steps (3 tiles, 2 padded rows)."""
+    small_blocks(monkeypatch)
     kw = dict(attention_impl=impl, K_epoch=k_epoch, learn_diag=True, update_guard=True)
     jcfg = small_config(**{**TF, **kw})
     _fam, jstate, jstep = jax_get_algo("PPO").build(jcfg, jax.random.key(0))
@@ -219,11 +236,22 @@ def test_colocated_program_matches_tpu_rl(monkeypatch):
     """tpu_rl's colocated rollout of the transformer gives one batch (with
     its 1-wide carry placeholders); the port's ``program`` from the bridged
     state, fed that rollout, matches tpu_rl's standalone train step."""
+    _colocated_program_parity(monkeypatch, "flash")
+
+
+def test_colocated_blockwise_program_matches_tpu_rl(monkeypatch):
+    """The same with blockwise attention, 6-row tiles over the 8 steps."""
+    _colocated_program_parity(monkeypatch, "blockwise")
+
+
+def _colocated_program_parity(monkeypatch, impl):
     import tpu_rl.algos.registry as jax_registry
 
+    small_blocks(monkeypatch)
     jax_get = jax_registry.get_algo
     monkeypatch.setattr(jax_registry, "get_algo", lambda name: _WithoutMesh(jax_get(name)))
-    jloop = JaxColocatedLoop(JaxConfig(**COLOCATED))
+    cfg = dict(COLOCATED, attention_impl=impl)
+    jloop = JaxColocatedLoop(JaxConfig(**cfg))
     jstate = jloop.state.replace(params={"actor": perturbed(jloop.state.params["actor"], 5)})
     k_roll, k_train = jax.random.split(jax.random.PRNGKey(42))
     _c, jbatch, jdone, jret = jloop.rollout(
@@ -232,7 +260,7 @@ def test_colocated_program_matches_tpu_rl(monkeypatch):
     jnew, jmetrics = jax.jit(jloop._train_step)(jstate, jbatch, k_train)
     assert np.asarray(jbatch.hx).shape == (4, 8, 1)
 
-    loop = ColocatedLoop(Config(**COLOCATED), device="cpu")
+    loop = ColocatedLoop(Config(**cfg), device="cpu")
     state = train_state_from_flax(jax.device_get(jstate))
     batch = Batch.from_mapping({f: np.array(getattr(jbatch, f)) for f in BATCH_FIELDS}, device="cpu")
     done, ep_ret = torch.from_numpy(np.array(jdone)), torch.from_numpy(np.array(jret))
@@ -280,9 +308,9 @@ def test_family_owns_its_carry_storage_and_bf16_reduction(monkeypatch):
 
 def test_config_carries_tpu_rl_transformer_fields():
     """n_heads, n_layers, attention_impl and act_ctx load with tpu_rl's names
-    and defaults; the long-context example config loads with the flash impl
-    (its blockwise impl waits for its slice); the transformer is refused for
-    off-policy algos and, for now, by the inference service."""
+    and defaults; the long-context example config loads as shipped, with
+    its blockwise impl, and equal to tpu_rl's; the transformer is refused
+    for off-policy algos and served by the inference service."""
     import json
     from pathlib import Path
 
@@ -292,10 +320,8 @@ def test_config_carries_tpu_rl_transformer_fields():
     for name in ("n_heads", "n_layers", "attention_impl", "act_ctx"):
         assert getattr(Config(), name) == getattr(JaxConfig(), name), name
     raw = json.loads((Path(__file__).parent.parent / "configs/longcontext_singlechip.example.json").read_text())
-    with pytest.raises(NotImplementedError, match="blockwise-attention slice"):
-        Config.from_dict(raw)
-    raw.update(attention_impl="flash", env_mode="colocated")
     cfg, jcfg = Config.from_dict(raw), JaxConfig.from_dict(raw)
+    assert cfg.attention_impl == "blockwise"
     for name in ("model", "compute_dtype", "hidden_size", "n_heads", "n_layers", "seq_len",
                  "act_ctx", "effective_act_ctx", "batch_size", "attention_impl"):
         assert getattr(cfg, name) == getattr(jcfg, name), name
@@ -304,5 +330,5 @@ def test_config_carries_tpu_rl_transformer_fields():
         Config.from_dict({"model": "transformer", "algo": "SAC"})
     cfg = Config.from_dict(TF)
     fam = build_family(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="transformer-serving slice"):
-        InferenceService(cfg, fam, fam.init_params(), LocalRouter(), device="cpu")
+    svc = InferenceService(cfg, fam, fam.init_params(), LocalRouter(), device="cpu")
+    assert svc.carry_bytes == 4 * sum(fam.carry_widths)  # the padding row alone

@@ -68,8 +68,9 @@ class Config:
     model: str = "lstm"
     n_heads: int = 4
     n_layers: int = 2
-    # Attention of the transformer: "full" (materialized scores) or "flash"
-    # (kernel B4). tpu_rl's "blockwise", "ring" and "ulysses" come later.
+    # Attention of the transformer: "full" (materialized scores), "blockwise"
+    # (tiles with the online softmax) or "flash" (kernel B4). tpu_rl's
+    # "ring" and "ulysses" come later.
     attention_impl: str = "full"
     # Acting context (KV-cache length) of the transformer; 0 = seq_len.
     act_ctx: int = 0
@@ -270,11 +271,6 @@ class Config:
         ), f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype!r}"
         assert self.model in ("lstm", "transformer"), self.model
         assert self.attention_impl in ("full", "blockwise", "flash", "ring", "ulysses")
-        if self.attention_impl == "blockwise":
-            raise NotImplementedError(
-                "attention_impl='blockwise': blockwise attention comes with the "
-                "blockwise-attention slice of the port"
-            )
         if self.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r}: ring and Ulysses attention "
@@ -297,6 +293,14 @@ class Config:
         assert self.inference_dtype in ("f32", "bf16", "int8"), self.inference_dtype
         assert self.inference_buckets >= 0, self.inference_buckets
         assert self.act_kernel in ("xla", "pallas"), self.act_kernel
+        if self.act_kernel == "pallas" and self.model == "transformer":
+            # tpu_rl serves the transformer unfused (family.act); the port
+            # refuses instead
+            raise NotImplementedError(
+                "act_kernel='pallas' with model='transformer': the fused act kernel "
+                "covers the LSTM actor-critic only, and tpu_rl serves the transformer "
+                "unfused (family.act); use act_kernel='xla'"
+            )
         if self.act_kernel == "pallas" and self.compute_dtype == "bfloat16" and self.model == "lstm":
             # tpu_rl serves this unfused (family.act); the port refuses instead
             raise NotImplementedError(

@@ -15,7 +15,8 @@ deterministic act.
 Families by ``cfg.algo``: PPO, IMPALA and V-MPO share the LSTM
 ``DiscreteActorCritic`` (or, with ``cfg.model="transformer"``, the
 ``TransformerActorCritic``, which acts through KV-cached ``decode`` and
-carries its caches in the (h, c) slots); PPO-Continuous the
+carries its caches in the (h, c) slots; ``_act_transformer_window``, the
+full-window recompute, is the oracle that act is held against); PPO-Continuous the
 ``ContinuousActorCritic``; SAC and SAC-Continuous an actor with a separate
 twin critic.
 """
@@ -192,6 +193,44 @@ def _act_transformer(
     h2 = k2.reshape(B, -1)
     c2 = torch.cat([v2.reshape(B, -1), (count + 1).float()[:, None]], dim=1)
     return a[..., None].float(), logits, log_prob[..., None], h2, c2
+
+
+def _act_transformer_window(
+    actor: TransformerActorCritic,
+    ctx: int,
+    obs_dim: int,
+    params: Params,
+    obs: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    generator: torch.Generator | None = None,
+    gumbel: torch.Tensor | None = None,
+):
+    """Full-window recompute acting, one env row: ``h`` is the flattened
+    history of the last ``ctx`` observations (newest last), ``c`` a 1-float
+    count of valid steps. O(ctx²·d) a step: the oracle that the KV-cached
+    :func:`_act_transformer` is held against while an episode fits the
+    window; nothing on the acting path calls it."""
+    hist = h.reshape(1, ctx, obs_dim)
+    hist = torch.cat([hist[:, 1:], obs[:, None, :]], dim=1)
+    n_valid = torch.clamp(c[0, 0] + 1.0, max=float(ctx))
+    n = n_valid.to(torch.int32)
+    idx = torch.arange(ctx, device=obs.device)
+    # Rows before the episode get segment 0, its rows segment 1: the query
+    # (the last row) is always valid, so the padding is masked out exactly.
+    seg = (idx >= ctx - n)[None].to(torch.int32)
+    # Episode-relative positions: the oldest valid row is position 0 (or the
+    # sliding offset once the episode outgrows the window).
+    pos = torch.clamp(idx - (ctx - n), min=0)[None].to(torch.int32)
+    firsts = torch.zeros((1, ctx, 1), device=obs.device)
+    logits, _value, _ = functional_call(
+        actor, params["actor"], (hist, None, firsts), {"pos": pos, "seg": seg}
+    )
+    last = logits[:, -1]
+    a = D.categorical_sample(last, generator, gumbel=gumbel)
+    log_prob = D.categorical_log_prob(last, a)
+    return (a[..., None].float(), last, log_prob[..., None], hist.reshape(1, ctx * obs_dim),
+            torch.zeros_like(c) + n_valid)
 
 
 def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> ModelFamily:

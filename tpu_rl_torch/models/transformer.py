@@ -222,10 +222,11 @@ class TransformerActorCritic(nn.Module):
         logits, value = self._heads(x)
         return logits[:, 0], value[:, 0], torch.stack(new_k, dim=1), torch.stack(new_v, dim=1)
 
-    def forward(self, obs, carry, firsts=None):
+    def forward(self, obs, carry, firsts=None, pos=None, seg=None):
         """``torch.func.functional_call`` calls ``forward``: one decode step
         without ``firsts`` (``carry = (k_caches, v_caches, count)``), the
-        sequence unroll with them."""
+        sequence unroll with them (and, optionally, explicit positions and
+        segment ids)."""
         if firsts is None:
             return self.decode(obs, *carry)
-        return self.unroll(obs, carry, firsts)
+        return self.unroll(obs, carry, firsts, pos, seg)

@@ -58,6 +58,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from tpu_rl_torch import counted, on_card
 from tpu_rl_torch.kernels import build
+from tpu_rl_torch.ops.matmul import mm_f32
 
 # Kernel launches made through lstm_fwd / lstm_bwd (plain-version calls
 # excluded).
@@ -595,32 +596,20 @@ def lstm_unroll(xp, wh, h0, c0, keep):
 
 
 # ------------------------------------------------- bf16 compute (no kernel)
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of two bf16 matrices with an f32 result that is not rounded
-    to bf16 (``preferred_element_type=jnp.float32``). On the card it is
-    cuBLAS's bf16 product with an f32 output; on the CPU, which has no such
-    product, the operands are widened first: the products of two bf16
-    numbers are exact in f32, so that is the same function up to the order
-    of the f32 sums."""
-    if a.device.type == "cuda":
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
 class _MixedDot(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, dtype):
         # residuals saved already cast, as tpu_rl's _mixed_dot_fwd saves them
         ad, bd = a.to(dtype), b.to(dtype)
         ctx.save_for_backward(ad, bd)
-        return _mm_f32(ad, bd)
+        return mm_f32(ad, bd)
 
     @staticmethod
     def backward(ctx, g):
         ad, bd = ctx.saved_tensors
         gd = g.to(ad.dtype)
-        da = _mm_f32(gd, bd.t()) if ctx.needs_input_grad[0] else None
-        db = _mm_f32(ad.t(), gd) if ctx.needs_input_grad[1] else None
+        da = mm_f32(gd, bd.t()) if ctx.needs_input_grad[0] else None
+        db = mm_f32(ad.t(), gd) if ctx.needs_input_grad[1] else None
         return da, db, None
 
 

@@ -19,8 +19,10 @@ no ZMQ, no shared-memory ring. One iteration (:meth:`ColocatedLoop.program`):
 2. The algorithm's ``train_step(state, batch, generator=...)`` on that
    batch while it is still on the device (V-MPO draws its KL bound from the
    loop's generator); its LSTM unroll runs the kernels of
-   :mod:`tpu_rl_torch.ops.lstm`, the transformer's attention kernel B4
-   (:mod:`tpu_rl_torch.ops.attention`) with ``attention_impl="flash"``.
+   :mod:`tpu_rl_torch.ops.lstm`; the transformer attends through
+   ``cfg.attention_impl``: kernel B4 (:mod:`tpu_rl_torch.ops.attention`)
+   with ``"flash"``, the plain tile loop with ``"blockwise"`` (the
+   long-context config as shipped), or the full scores with ``"full"``.
 
 Episode counts and return sums accumulate on the device; the host reads
 them, and the metrics, only every ``cfg.loss_log_interval`` updates.

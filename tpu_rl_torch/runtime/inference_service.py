@@ -7,15 +7,25 @@ accumulate until ``Config.inference_batch`` rows are pending or the oldest is
 ``Config.inference_flush_us`` old; then each chunk of whole clients is padded
 to the smallest covering bucket of the power-of-two ladder
 (``Config.inference_buckets``) and runs ONE act step on the device. The
-service keeps each client's LSTM carry, zeroed where the request flags an
-episode first, and answers every request with one ``Act`` reply
-``{"seq", "act", "logits", "log_prob", "ver", "hx", "cx"}`` (``hx``/``cx``
-are the pre-step carry rows the learner trains from).
+service keeps each client's acting carry (the LSTM's (h, c), or the
+transformer's K/V caches and step counter), zeroed where the request flags
+an episode first, and answers every request with one ``Act`` reply
+``{"seq", "act", "logits", "log_prob", "ver"}``, plus ``"hx", "cx"`` (the
+pre-step carry rows the learner trains from) for a family that stores its
+carry (``family.store_carry``; not the transformer's).
 
-A flush stages obs, first and the gathered carries into one pinned host
-buffer at the bucket's padded shape, makes one host-to-device copy, runs the
-act step (``Config.act_kernel``: the fused CUDA kernel, or the unfused module
-forward) and brings every output back in one device-to-host copy.
+Every client's carry rows live on the service's device, in one table
+(:class:`_CarryTable`): a client owns ``n`` consecutive rows from its first
+contact on, and gives them back when it changes its row count. A flush
+stages obs, first and each row's table index into one pinned host buffer at
+the bucket's padded shape and makes one host-to-device copy; on the card it
+gathers the carry rows by index, runs the act step (``Config.act_kernel``:
+the fused CUDA kernel, or the unfused module forward), scatters the
+post-step carry back into the table, and brings act, logits and log-prob
+(and, where stored, the pre-step carry) back in one device-to-host copy. No
+carry crosses the bus on its way into a flush, which matters for the
+transformer: at ``act_ctx`` 512, hidden 256 and 4 layers its K/V caches are
+4 MiB a row.
 
 The served params are kept at ``Config.inference_dtype``
 (:func:`~tpu_rl_torch.models.quant.quantize_tree`: f32, bf16 or int8),
@@ -57,16 +67,95 @@ from tpu_rl_torch.runtime.protocol import Protocol
 from tpu_rl_torch.utils.timer import ExecutionTimer
 
 
+class _CarryTable:
+    """The carry rows of every client on the service's device: ``h`` (rows,
+    hw) and ``c`` (rows, cw). Row 0 belongs to padding: a padding row is
+    always reset before use and never written back, so its contents are
+    never read. A client holds one range of rows; a range given back goes
+    on the free list (merged with its free neighbours, or returned to the
+    unused tail) and is handed out again before the table grows. The table
+    grows by doubling, so a growth briefly holds the old table beside the
+    new one. Rows are zeroed when they are handed out."""
+
+    def __init__(self, hw: int, cw: int, device: torch.device):
+        self.h = torch.zeros((1, hw), device=device)
+        self.c = torch.zeros((1, cw), device=device)
+        self.rows = 1  # the end of the rows in use or on the free list
+        self.free: list[tuple[int, int]] = []  # (first row, count), ascending, never adjacent
+
+    def alloc(self, n: int) -> int:
+        """The first of ``n`` zeroed rows: the first free range that holds
+        them, else the unused tail."""
+        for i, (base, m) in enumerate(self.free):
+            if m >= n:
+                if m == n:
+                    del self.free[i]
+                else:
+                    self.free[i] = (base + n, m - n)
+                break
+        else:
+            base, need = self.rows, self.rows + n
+            if need > self.h.shape[0]:
+                cap = max(need, 2 * self.h.shape[0])
+                self.h, self.c = (
+                    torch.cat([t, t.new_zeros((cap - t.shape[0], t.shape[1]))])
+                    for t in (self.h, self.c)
+                )
+            self.rows = need
+        self.h[base:base + n] = 0.0
+        self.c[base:base + n] = 0.0
+        return base
+
+    def release(self, base: int, n: int) -> None:
+        """Give rows ``base .. base + n`` back."""
+        free = sorted([*self.free, (base, n)])
+        merged: list[tuple[int, int]] = []
+        for b, m in free:
+            if merged and merged[-1][0] + merged[-1][1] == b:
+                merged[-1] = (merged[-1][0], merged[-1][1] + m)
+            else:
+                merged.append((b, m))
+        if merged and merged[-1][0] + merged[-1][1] == self.rows:
+            self.rows = merged.pop()[0]
+        self.free = merged
+
+    @property
+    def nbytes(self) -> int:
+        return self.h.nbytes + self.c.nbytes
+
+
 class _ClientState:
-    """Per-identity acting state: the env-slot carries (host rows) and the
-    row count the client established on first contact."""
+    """Per-identity acting state: the row count the client established on
+    first contact and its first row in the carry table. ``h``/``c`` read
+    (host copies) and write the client's carry rows."""
 
-    __slots__ = ("n", "h", "c")
+    __slots__ = ("n", "base", "table")
 
-    def __init__(self, n: int, h: np.ndarray, c: np.ndarray):
+    def __init__(self, n: int, base: int, table: _CarryTable):
         self.n = n
-        self.h = h
-        self.c = c
+        self.base = base
+        self.table = table
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.base:self.base + self.n]
+
+    @property
+    def h(self) -> np.ndarray:
+        return self._rows(self.table.h).cpu().numpy()
+
+    @h.setter
+    def h(self, value) -> None:
+        with torch.inference_mode():  # the serve thread made the table there
+            self._rows(self.table.h).copy_(torch.as_tensor(np.asarray(value, np.float32)))
+
+    @property
+    def c(self) -> np.ndarray:
+        return self._rows(self.table.c).cpu().numpy()
+
+    @c.setter
+    def c(self, value) -> None:
+        with torch.inference_mode():  # the serve thread made the table there
+            self._rows(self.table.c).copy_(torch.as_tensor(np.asarray(value, np.float32)))
 
 
 class _Pending:
@@ -81,26 +170,28 @@ class _Pending:
 
 
 class _Staging:
-    """Host buffers of one bucket: the inputs ``[obs | first | h | c]`` and
-    the outputs ``[act | logits | log_prob | h_pre | c_pre | h2 | c2]``, each
-    one flat (pinned, on CUDA) buffer so a flush makes one copy each way."""
+    """Host buffers of one bucket: the inputs ``[obs | first | slot]`` (slot:
+    each row's carry-table index, as a float, exact below 2**24 rows) and the
+    outputs ``[act | logits | log_prob]``, plus ``[h_pre | c_pre]`` where
+    the family stores its carry; each one flat (pinned, on CUDA) buffer so a
+    flush makes one copy each way."""
 
     def __init__(
-        self, rows: int, obs_dim: int, hw: int, cw: int, n_actions: int, wide: int, pin: bool
+        self, rows: int, obs_dim: int, carry: tuple[int, int] | None, n_actions: int, wide: int,
+        pin: bool,
     ):
         self.rows = rows
-        self.in_shapes = [(rows, obs_dim), (rows,), (rows, hw), (rows, cw)]
+        self.in_shapes = [(rows, obs_dim), (rows,), (rows,)]
         # act and log_prob: 1 wide for a categorical policy, A for a Gaussian
-        self.out_shapes = [
-            (rows, wide), (rows, n_actions), (rows, wide), (rows, hw), (rows, cw), (rows, hw),
-            (rows, cw),
-        ]
+        self.out_shapes = [(rows, wide), (rows, n_actions), (rows, wide)]
+        if carry is not None:
+            self.out_shapes += [(rows, carry[0]), (rows, carry[1])]
         self.in_host = torch.zeros(_numel(self.in_shapes), pin_memory=pin)
         self.out_host = torch.zeros(_numel(self.out_shapes), pin_memory=pin)
-        self.obs, self.first, self.h, self.c = _views(self.in_host.numpy(), self.in_shapes)
+        self.obs, self.first, self.slot = _views(self.in_host.numpy(), self.in_shapes)
 
     def reset(self) -> None:
-        """All rows to padding: zero obs and carry, ``first=1``."""
+        """All rows to padding: zero obs, ``first=1``, the padding row."""
         self.in_host.zero_()
         self.first[:] = 1.0
 
@@ -138,11 +229,6 @@ class InferenceService:
         device: str | torch.device | None = "cuda",
     ):
         self.device = resolve_device(device)
-        if cfg.model != "lstm":
-            raise NotImplementedError(
-                f"model={cfg.model!r}: serving the transformer comes with the "
-                "transformer-serving slice of the port"
-            )
         self.cfg = cfg
         self.family = family
         self.router = router
@@ -161,6 +247,10 @@ class InferenceService:
         self._ready = threading.Event()  # set once every bucket ran
         self._lock = threading.Lock()  # guards the params slot
         self.clients: dict[bytes, _ClientState] = {}
+        self._table = _CarryTable(*family.carry_widths, self.device)
+        # Bytes copied host to device by flushes and warm-ups: obs, first and
+        # the slot indices, never a carry.
+        self.h2d_bytes = 0
         self.n_requests = 0
         self.n_replies = 0
         self.n_batches = 0
@@ -235,12 +325,12 @@ class InferenceService:
             with torch.inference_mode(), on_card:
                 act = make_act_fn(self.cfg, self.family)
                 self.buckets = self._bucket_ladder()
-                hw, cw = self.family.carry_widths
+                fam = self.family
                 staging = {
                     rows: _Staging(
-                        rows, int(self.cfg.obs_shape[0]), hw, cw, self.family.n_actions,
-                        self.family.n_actions if self.family.continuous else 1,
-                        pin=self.device.type == "cuda",
+                        rows, int(self.cfg.obs_shape[0]),
+                        fam.carry_widths if fam.store_carry else None, fam.n_actions,
+                        fam.n_actions if fam.continuous else 1, pin=self.device.type == "cuda",
                     )
                     for rows in self.buckets
                 }
@@ -265,20 +355,30 @@ class InferenceService:
         a, logits, log_prob, h2, c2 = act(params, obs, h, c, generator)
         return a, logits, log_prob, h, c, h2, c2
 
-    def _run(self, act, st: _Staging, params, params_sig, generator) -> list[np.ndarray]:
-        """One host-to-device copy, one act step, one device-to-host copy.
-        Returns host copies of the outputs, in ``_Staging.out_shapes``.
-        With telemetry on, the bucket's tracker watches the step's argument
-        signature: ``params_sig`` (taken when the params were swapped in)
-        and the staging views' own, not a walk of the params tree."""
+    def _run(self, act, st: _Staging, rows: int, params, params_sig, generator) -> list[np.ndarray]:
+        """One host-to-device copy; on the device the carry rows gathered
+        from the table, one act step, the first ``rows`` rows' post-step
+        carry scattered back; one device-to-host copy. Returns host copies
+        of the outputs, in ``_Staging.out_shapes``. With telemetry on, the
+        bucket's tracker watches the step's argument signature:
+        ``params_sig`` (taken when the params were swapped in) and the
+        step's tensors' own, not a walk of the params tree."""
         dev_in = st.in_host.to(self.device, non_blocking=True)
-        obs, first, h, c = _views(dev_in, st.in_shapes)
+        self.h2d_bytes += st.in_host.nbytes
+        obs, first, slot = _views(dev_in, st.in_shapes)
+        slot = slot.long()
+        table = self._table
+        h, c = table.h[slot], table.c[slot]
         tracker = self.perf_buckets.get(st.rows)
         if tracker is not None:
             sig = (params_sig, signature((obs, h, c, first)))
             outs = tracker.call(self._step, act, params, obs, h, c, first, generator, sig=sig)
         else:
             outs = self._step(act, params, obs, h, c, first, generator)
+        a, logits, log_prob, h_pre, c_pre, h2, c2 = outs
+        table.h[slot[:rows]] = h2[:rows]
+        table.c[slot[:rows]] = c2[:rows]
+        outs = (a, logits, log_prob, h_pre, c_pre)[:len(st.out_shapes)]
         st.out_host.copy_(torch.cat([t.reshape(-1) for t in outs]), non_blocking=True)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
@@ -318,7 +418,13 @@ class InferenceService:
         generator = torch.Generator(self.device).manual_seed(self.seed)
         for st in staging.values():
             st.reset()
-            self._run(act, st, params, params_sig, generator)
+            self._run(act, st, 0, params, params_sig, generator)
+
+    @property
+    def carry_bytes(self) -> int:
+        """Bytes of the carry table on the service's device (every client's
+        rows, the padding row and the room grown for more)."""
+        return self._table.nbytes
 
     @property
     def recompiles(self) -> int:
@@ -427,9 +533,12 @@ class InferenceService:
         self.n_requests += 1
         client = self.clients.get(identity)
         if client is None or client.n != obs.shape[0]:
-            hw, cw = self.family.carry_widths
+            # fresh zero rows: a client that changes its row count starts
+            # over, as in tpu_rl, and gives its old rows back first
+            if client is not None:
+                self._table.release(client.base, client.n)
             n = obs.shape[0]
-            client = _ClientState(n, np.zeros((n, hw), np.float32), np.zeros((n, cw), np.float32))
+            client = _ClientState(n, self._table.alloc(n), self._table)
             self.clients[identity] = client
         return _Pending(identity, seq, obs, first, time.perf_counter())
 
@@ -441,27 +550,21 @@ class InferenceService:
         offsets = []
         for req in chunk:
             n = req.obs.shape[0]
-            client = self.clients[req.identity]
+            base = self.clients[req.identity].base
             st.obs[off:off + n] = req.obs
             st.first[off:off + n] = req.first
-            st.h[off:off + n] = client.h
-            st.c[off:off + n] = client.c
+            st.slot[off:off + n] = np.arange(base, base + n)
             offsets.append(off)
             off += n
         with self._lock:
             params, params_sig, version = self._params, self._params_sig, self._version
-        a, logits, log_prob, h_pre, c_pre, h2, c2 = self._run(
-            act, st, params, params_sig, generator
-        )
+        a, logits, log_prob, *carry = self._run(act, st, rows, params, params_sig, generator)
         # Counted before the replies go out, so a client that holds its reply
         # also sees the flush counted.
         self.n_batches += 1
         self.n_flush_bucket[st.rows] = self.n_flush_bucket.get(st.rows, 0) + 1
         for req, off in zip(chunk, offsets, strict=True):
             n = req.obs.shape[0]
-            client = self.clients[req.identity]
-            client.h = h2[off:off + n]
-            client.c = c2[off:off + n]
             reply = {
                 "seq": req.seq,
                 "act": a[off:off + n],
@@ -469,9 +572,9 @@ class InferenceService:
                 "log_prob": log_prob[off:off + n],
                 "ver": version,
             }
-            if self.family.store_carry:
-                reply["hx"] = h_pre[off:off + n]
-                reply["cx"] = c_pre[off:off + n]
+            if carry:
+                reply["hx"] = carry[0][off:off + n]
+                reply["cx"] = carry[1][off:off + n]
             self.router.send(req.identity, Protocol.Act, reply)
             self.n_replies += 1
         self.timer.record_gauge("inference-batch-size", rows)
