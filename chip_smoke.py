@@ -8,9 +8,11 @@ colocated LSTM training path (with checkpoint and resume), bf16-compute
 LSTM training, the other algorithms' train steps and colocated loops
 (IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous), the transformer's
 PPO, IMPALA and V-MPO training (train steps at full width with flash and
-blockwise attention, and its colocated loop) and the transformer's serving
-end to end, and holds every hand-written kernel of those paths against its
-plain PyTorch version:
+blockwise attention, and its colocated loop), the transformer's serving,
+the single-process off-policy path (the inline trainer with SAC learning
+from its replay, the host data plane feeding the card) and the run
+reports end to end, and holds every hand-written kernel of those paths
+against its plain PyTorch version:
 
 1. device check: a CUDA card is required (else exit 1, no result printed);
    prints the card's name and power limit as nvidia-smi reports them and
@@ -157,6 +159,32 @@ plain PyTorch version:
    against the flushes and B3's launches, no recompile, each bucket's FLOPs
    by B3's formula; (d) one full-width transformer train step counted: B4
    charged its formula once per launch;
+12a. the off-policy slice's inline trainer (``inline_sac_phase``):
+   ``tpu_rl_torch.examples.train_inline.run`` on the card with SAC-Continuous
+   learning from its replay: on MountainCarContinuous-v0 with
+   examples/run_baselines.py's recipe (bar: the 50-episode target 90 and a
+   greedy eval >= 90) where gymnasium is installed, else on Pendulum-v1
+   over the port's device dynamics behind a gymnasium-shaped stand-in
+   (``DeviceSpecEnv``; bar: a 50-episode mean >= -400 within the budget at
+   which tpu_rl's trainer reaches it); the env source printed; updates, env
+   steps, wallclock, env steps/s; B1/B2 launches per update = 8/5 x
+   K_epoch; B1/B2 at (32,5,64) beside their bounds; one train step's host
+   enqueue vs device time (profiler); the act step's host ms per env step;
+   then SAC on CartPole-v1 for 200 updates after a 2000-step warm-up:
+   launches 8/3 per update, every loss finite;
+12b. the data plane onto the card (``replay_feed_phase``): a ReplayStore at
+   the reference's capacity (10240 windows at SAC@ref's 128 x 5, H 64, obs
+   4) filled by a spawn child; 50 SAC train steps fed by SynchronousFeed and
+   by PrefetchPipeline(depth 2), both through ``device_batch`` (pinned
+   staging buffers, a side stream, an event the consumer waits on), from
+   one state, sampler seed and train generator: every batch on the card
+   equal to its numpy sample and the final states equal, bit for bit; then
+   the same on an OnPolicyStore at IMPALA@wide-lstm's shape (1024 x 16,
+   H 1024, ~139 MB a batch, a spawn writer per run) with ms/update sync vs
+   prefetch and one batch's host copy and H2D time (no bar);
+12c. ``obs.report.main`` and ``obs.compare.main`` of the port over the
+   result dir of step 12's colocated run, compared with itself: both exit
+   0, no regression;
 13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
@@ -291,6 +319,41 @@ WIDE_LSTM_CFG = dict(
     algo="PPO", batch_size=1024, seq_len=16, hidden_size=1024, obs_shape=(64,), action_space=8,
 )
 WIDE_WARMUP, WIDE_UPDATES, WIDE_PROFILE = 2, 5, 2
+# The off-policy slice: (a) the inline trainer. SAC-Continuous on
+# MountainCarContinuous-v0 with examples/run_baselines.py:120-158's recipe
+# (tpu_rl solves it on one CPU core in 2121-2192 updates, greedy eval
+# 94.4-95.6: BASELINE_RESULTS.md:11-14) and its bar, target 90 and greedy
+# >= 90, where gymnasium is installed. Else Pendulum-v1 over the port's
+# device dynamics (DeviceSpecEnv), bar a 50-episode mean >= -400 within
+# INLINE_CONT_DEVICE's budget: the first of 3000, 4000, ... updates at
+# which tpu_rl's own trainer reaches that bar on gymnasium's Pendulum-v1
+# with the same recipe and seed (5369 updates, PERF.md §6). The recipe is
+# train_inline's defaults with lr 1e-3: at its 3e-4 tpu_rl's trainer stays
+# far from the bar after 6000 updates (lab/inline_lab.py reruns both).
+INLINE_CONT_GYM = dict(
+    updates=6000, algo="SAC-Continuous", env_name="MountainCarContinuous-v0", seed=0,
+    target=90.0, log_every=500, overrides=dict(
+        action_repeat=8, time_horizon=999, reward_scale=0.1, lr=3e-4, buffer_size=32768,
+        gamma=0.99, warmup_steps=10_000),
+)
+INLINE_GREEDY_BAR = 90.0
+INLINE_CONT_DEVICE = dict(updates=6000, algo="SAC-Continuous", env_name="Pendulum-v1", seed=0,
+                          target=-400.0, log_every=500, overrides=dict(lr=1e-3))
+# SAC on CartPole-v1 (run_baselines.py's warm-up; no learning bar: tpu_rl
+# needs 27k+ updates), and one inline train step timed and profiled.
+INLINE_SAC = dict(updates=200, algo="SAC", env_name="CartPole-v1", seed=0, log_every=100,
+                  overrides=dict(warmup_steps=2000))
+INLINE_STEP_TIMED, INLINE_STEP_PROFILED = 20, 5
+# (b) the data plane onto the card: a ReplayStore at the reference's replay
+# capacity (BASELINE.md:20, 10240 windows) at SAC@ref's shape, and an
+# OnPolicyStore at IMPALA@wide-lstm's (a pool of WIDE_FEED_POOL distinct
+# windows, written in turn); the prefetch pipeline's depth.
+REPLAY_FEED_CFG = dict(algo="SAC", obs_shape=(4,), action_space=2, batch_size=128, seq_len=5,
+                       hidden_size=64, buffer_size=10240)
+REPLAY_FEED_UPDATES = 50
+WIDE_FEED_CFG = dict(WIDE_LSTM_CFG, algo="IMPALA")
+WIDE_FEED_UPDATES, WIDE_FEED_POOL = 10, 64
+PREFETCH_DEPTH = 2
 # bench.py's @ref rows of the other algorithms (bench.py:234-239): the
 # reference quantum, 128 x 5 with H 64; CartPole's spaces for the discrete
 # ones, bench.py's (2,)/1 for the continuous ones.
@@ -2698,6 +2761,7 @@ def telemetry_colocated_check(card: str) -> dict:
     FLOPs per update (against the CPU's count of the same update), the B1/B2
     launches (= updates) and the trace's kernel names. Then ms/update with
     the plane on and off in turns, and params bit for bit equal."""
+    import shutil
     import tempfile
     import urllib.request
 
@@ -2749,6 +2813,9 @@ def telemetry_colocated_check(card: str) -> dict:
         if os.path.exists(trace_path):
             events = json.loads(open(trace_path).read()).get("traceEvents", [])
             kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        # the run's files but the profiler trace, for report_compare_check
+        kept_dir = tempfile.mkdtemp(prefix="tpu_rl_telemetry_run_")
+        shutil.copytree(d, kept_dir, ignore=shutil.ignore_patterns("prof"), dirs_exist_ok=True)
     gauges = {g[0]: g[2] for src in doc["sources"] for g in src["gauges"] + src["counters"]
               if not g[1]}
     want = TELEMETRY_UPDATES * cfg.K_epoch
@@ -2822,7 +2889,8 @@ def telemetry_colocated_check(card: str) -> dict:
     )
     if not equal:
         fail("telemetry (a): params with the plane on differ from the plane off")
-    return dict(updates=TELEMETRY_UPDATES, flops_per_update=gauges.get("colocated-flops-per-step"),
+    return dict(updates=TELEMETRY_UPDATES, result_dir=kept_dir,
+                flops_per_update=gauges.get("colocated-flops-per-step"),
                 cpu_flops_per_update=cpu_flops,
                 achieved_flops=gauges.get("colocated-achieved-flops"),
                 mfu=gauges.get("colocated-mfu"), lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
@@ -2971,6 +3039,522 @@ def telemetry_phase(card: str) -> dict:
                 transformer=telemetry_transformer_count(card))
 
 
+# ------------------------------------------------ the off-policy slice
+class DeviceSpecEnv:
+    """A gymnasium-shaped env (``reset(seed=)``, ``step`` returning
+    terminated and truncated, ``observation_space.shape``,
+    ``action_space.n`` or ``.shape``) over one of the port's device env
+    specs: one env on the CPU, truncated at gymnasium's horizon. It stands
+    in for gymnasium where gymnasium is not installed (:func:`env_source`);
+    the dynamics are the port's float32 copies of gymnasium's
+    (``tpu_rl_torch/envs``)."""
+
+    HORIZON = {"CartPole-v1": 500, "Pendulum-v1": 200}
+
+    def __init__(self, name: str):
+        from types import SimpleNamespace
+
+        from tpu_rl_torch.envs import get_spec
+
+        self.spec = get_spec(name)
+        self.horizon = self.HORIZON[name]
+        self.observation_space = SimpleNamespace(shape=self.spec.obs_shape)
+        self.action_space = (SimpleNamespace(shape=(self.spec.action_space,))
+                             if self.spec.is_continuous else SimpleNamespace(n=self.spec.action_space))
+        self.generator = torch.Generator()
+        self.state, self.t = None, 0
+
+    def reset(self, seed: int | None = None):
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        self.state, obs = self.spec.reset(1, self.generator, torch.device("cpu"))
+        self.t = 0
+        return obs[0].numpy(), {}
+
+    def step(self, action):
+        a = torch.as_tensor(np.asarray(action, np.float32).reshape(1, 1))
+        self.state, obs, rew, term = self.spec.step(self.state, a)
+        self.t += 1
+        return obs[0].numpy(), float(rew[0]), bool(term[0]), self.t >= self.horizon, {}
+
+    def close(self) -> None:
+        pass
+
+
+def env_source() -> str:
+    """Where the inline trainer's envs come from: gymnasium when it is
+    installed; else a stand-in ``gymnasium`` module whose ``make`` builds a
+    :class:`DeviceSpecEnv` (CartPole-v1 and Pendulum-v1)."""
+    try:
+        import gymnasium
+
+        return f"gymnasium {gymnasium.__version__}"
+    except ImportError:
+        from types import ModuleType
+
+        stand_in = ModuleType("gymnasium")
+        stand_in.make = DeviceSpecEnv
+        sys.modules["gymnasium"] = stand_in
+        return "chip_smoke.DeviceSpecEnv over tpu_rl_torch/envs (gymnasium is not installed)"
+
+
+def inline_run(run_kw: dict) -> dict:
+    """``tpu_rl_torch.examples.train_inline.run(**run_kw)`` on the card, with
+    the family's act timed (host clock around the act and the read back the
+    trainer makes right after it) and every update's loss and skip count
+    kept; B1/B2's counts are set to 0 just before the run and read just
+    after."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from tpu_rl_torch.examples import train_inline
+    from tpu_rl_torch.ops import lstm as L
+
+    rec = dict(act_s=[], losses=[], nonfinite=[])
+    real_get = train_inline.get_algo
+
+    def get_algo(name):
+        spec = real_get(name)
+
+        def build(cfg, generator, device):
+            family, state, step = spec.build(cfg, generator, device=device)
+            act = family.act
+
+            def timed_act(*a, **kw):
+                t0 = time.perf_counter()
+                out = act(*a, **kw)
+                torch.cuda.synchronize()  # the trainer reads the action back next
+                rec["act_s"].append(time.perf_counter() - t0)
+                return out
+
+            def kept_step(state, batch, generator=None):
+                state, metrics = step(state, batch, generator=generator)
+                rec["losses"].append(metrics["loss"].detach())
+                rec["nonfinite"].append(metrics["nonfinite-updates"].detach())
+                return state, metrics
+
+            rec["cfg"] = cfg
+            return dataclasses.replace(family, act=timed_act), state, kept_step
+
+        return SimpleNamespace(name=spec.name, make_train_step=spec.make_train_step, build=build)
+
+    train_inline.get_algo = get_algo
+    try:
+        L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+        stats = train_inline.run(**run_kw, device="cuda")
+        fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    finally:
+        train_inline.get_algo = real_get
+    losses = torch.stack(rec["losses"]).cpu()
+    act_s = rec["act_s"][: stats["env_steps"]]  # the training steps' (the eval's follow)
+    return dict(stats=stats, cfg=rec["cfg"], lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+                losses_finite=bool(torch.isfinite(losses).all()) and len(losses) == stats["updates"],
+                nonfinite_updates=float(torch.stack(rec["nonfinite"]).sum()),
+                act_ms_median=statistics.median(act_s) * 1e3,
+                act_ms_mean=sum(act_s) / len(act_s) * 1e3,
+                act_share_of_wallclock=sum(act_s) / max(stats["wallclock_s"], 1e-9))
+
+
+def inline_step_profile(cfg, card: str) -> dict:
+    """One train step of ``cfg`` (the inline run's algorithm and shape) on a
+    seeded batch: host enqueue (median over INLINE_STEP_TIMED updates), the
+    synchronized ms per update, and device time per update over a profiler
+    window of INLINE_STEP_PROFILED updates with B1 + B2's share of it."""
+    from tpu_rl_torch.algos.registry import get_algo
+
+    _family, state, step = get_algo(cfg.algo).build(cfg, torch.Generator().manual_seed(0),
+                                                    device="cuda")
+    batch = lstm_batch(cfg, 0, continuous=cfg.is_continuous)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(3):
+        state, _m = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    enqueue = []
+    t0 = time.perf_counter()
+    for _ in range(INLINE_STEP_TIMED):
+        t1 = time.perf_counter()
+        state, _m = step(state, batch, generator=gen)
+        enqueue.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    ms_per_update = (time.perf_counter() - t0) / INLINE_STEP_TIMED * 1e3
+    device_ms = share = kernels = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(INLINE_STEP_PROFILED):
+                state, _m = step(state, batch, generator=gen)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        if device_us > 0:
+            device_ms = device_us / 1e3 / INLINE_STEP_PROFILED
+            share = sum(e.self_device_time_total for e in events
+                        if "lstm_fwd_" in e.key or "lstm_bwd_" in e.key) / device_us
+            kernels = sum(e.count for e in events) / INLINE_STEP_PROFILED
+    except (RuntimeError, AttributeError) as e:
+        print(f"inline step profile: not measured ({e!r})", flush=True)
+    out = dict(enqueue_ms=statistics.median(enqueue) * 1e3, ms_per_update=ms_per_update,
+               device_ms_per_update=device_ms, b1_b2_device_share=share,
+               device_kernels_per_update=kernels)
+    print(
+        f"inline {cfg.algo} train step B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size}: "
+        f"host enqueue {out['enqueue_ms']:.4f} ms (median of {INLINE_STEP_TIMED}), "
+        f"{ms_per_update:.4f} ms/update synchronized; device "
+        f"{'not measured' if device_ms is None else f'{device_ms:.4f}'} ms/update in "
+        f"{'not measured' if kernels is None else f'{kernels:.1f}'} device kernels over "
+        f"{INLINE_STEP_PROFILED} profiled updates, B1+B2 share "
+        f"{'not measured' if share is None else f'{share:.4f}'} [{card}]",
+        flush=True,
+    )
+    return out
+
+
+def inline_sac_phase(card: str, lstm_rows: list[dict]) -> dict:
+    """(a) SAC-Continuous learns from its replay through the port's inline
+    trainer on the card: MountainCarContinuous-v0 with run_baselines.py's
+    recipe and bar where gymnasium is installed, else Pendulum-v1 over the
+    device dynamics with its bar; B1/B2 launches per update =
+    LAUNCHES_PER_EPOCH x K_epoch; B1/B2's kernel time at the inline shape
+    (32,5,64) beside its bound (lstm_phase's row); one train step's host vs
+    device time; the act step's host time per env step. Then SAC on
+    CartPole-v1 (INLINE_SAC): launches 8/3 per epoch, every loss finite."""
+    from tpu_rl_torch.config import Config
+
+    source = env_source()
+    gym = source.startswith("gymnasium")
+    cont = INLINE_CONT_GYM if gym else INLINE_CONT_DEVICE
+    print(f"inline: env source {source}; {cont['algo']} on {cont['env_name']}, "
+          f"{cont['updates']} updates at most, target {cont['target']} [{card}]", flush=True)
+    runs = {}
+    for tag, run_kw in (("continuous", cont), ("discrete", INLINE_SAC)):
+        r = inline_run(run_kw)
+        st, cfg = r["stats"], r["cfg"]
+        want = tuple(n * cfg.K_epoch for n in LAUNCHES_PER_EPOCH[cfg.algo])
+        per_update = (r["lstm_fwd_launches"] / st["updates"], r["lstm_bwd_launches"] / st["updates"])
+        checks = {
+            "launches": per_update == want,
+            "losses_finite": r["losses_finite"],
+            "no_skipped_update": r["nonfinite_updates"] == 0.0,
+        }
+        if tag == "continuous":
+            checks["reached_target"] = st["reached_target"] is True
+            if gym:
+                checks["greedy"] = (st["greedy_eval_mean_20"] is not None
+                                    and st["greedy_eval_mean_20"] >= INLINE_GREEDY_BAR)
+        else:
+            checks["updates"] = st["updates"] == run_kw["updates"]
+        print(
+            f"inline {cfg.algo} on {cfg.env} (seed {st['seed']}): updates {st['updates']} env "
+            f"steps {st['env_steps']} wallclock {st['wallclock_s']} s env_steps_per_s "
+            f"{st['env_steps_per_s']} reached_target {st['reached_target']} (target "
+            f"{st['target']}) time_to_target {st['time_to_target_s']} s final_mean_50 "
+            f"{st['final_mean_50']:.4f} best_episode {st['best_epi_rew']} greedy_eval_mean_20 "
+            f"{st['greedy_eval_mean_20']}; lstm launches {r['lstm_fwd_launches']}/"
+            f"{r['lstm_bwd_launches']} = {per_update[0]}/{per_update[1]} per update (want "
+            f"{want[0]}/{want[1]}); act step {r['act_ms_median']:.4f} ms median, "
+            f"{r['act_ms_mean']:.4f} ms mean per env step (host clock, read back included), "
+            f"{r['act_share_of_wallclock']:.4f} of the wallclock [{card}]",
+            flush=True,
+        )
+        print(f"inline {cfg.algo} checks {checks}", flush=True)
+        if not all(checks.values()):
+            fail(f"inline {cfg.algo}: failed checks {[k for k, v in checks.items() if not v]}")
+        runs[tag] = dict({k: v for k, v in r.items() if k != "cfg"}, checks=checks)
+        if tag == "continuous":
+            step_cfg = cfg
+    step = inline_step_profile(Config.from_dict(dict(
+        algo=step_cfg.algo, obs_shape=step_cfg.obs_shape, action_space=step_cfg.action_space,
+        is_continuous=True, batch_size=step_cfg.batch_size, seq_len=step_cfg.seq_len,
+        hidden_size=step_cfg.hidden_size, lr=step_cfg.lr)), card)
+    row = next(x for x in lstm_rows if x["shape"] == dict(B=32, S=5, H=64))
+    for name in ("lstm_fwd", "lstm_bwd"):
+        print(f"inline {name} at (32,5,64): {row[name]['ms']:.6f} ms vs bound "
+              f"{row[name]['bound_ms']:.6f} ms ({row[name]['bound_by']}), plain "
+              f"{row[name]['plain_ms']:.6f} ms [{card}]", flush=True)
+    return dict(env_source=source, runs=runs, step=step,
+                lstm_fwd_launches=runs["continuous"]["lstm_fwd_launches"],
+                lstm_bwd_launches=runs["continuous"]["lstm_bwd_launches"],
+                kernel_ms={n: row[n]["ms"] for n in ("lstm_fwd", "lstm_bwd")},
+                bound_ms={n: row[n]["bound_ms"] for n in ("lstm_fwd", "lstm_bwd")})
+
+
+def seeded_window(layout, rng, n_actions: int) -> dict:
+    """One seeded trajectory window: obs and carries N(0, 1) and N(0,
+    0.25), action indices below ``n_actions``, log-softmax logits and the
+    action's log-prob, small rewards, an episode start at step 0 with
+    probability 1/4."""
+    from tpu_rl_torch.types import BATCH_FIELDS
+
+    S = layout.seq_len
+    w = {f: np.empty((S, layout.width(f)), np.float32) for f in BATCH_FIELDS}
+    w["obs"][:] = rng.normal(size=w["obs"].shape)
+    w["act"][:] = rng.integers(0, n_actions, size=w["act"].shape)
+    logits = rng.normal(size=w["logits"].shape)
+    w["logits"][:] = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    w["log_prob"][:] = np.take_along_axis(w["logits"], w["act"].astype(np.int64), -1)
+    w["rew"][:] = 0.1 * rng.normal(size=w["rew"].shape)
+    w["is_fir"][:] = 0.0
+    w["is_fir"][0] = float(rng.random() < 0.25)
+    w["hx"][:] = 0.5 * rng.normal(size=w["hx"].shape)
+    w["cx"][:] = 0.5 * rng.normal(size=w["cx"].shape)
+    return w
+
+
+def feed_writer(handles, cfg_kw: dict, n_windows: int, pool: int, seed: int, stop) -> None:
+    """The storage side, in a spawn child: ``pool`` seeded windows written in
+    order, window i = pool[i % pool], ``n_windows`` in all, through the
+    port's store over the parent's handles (put_many bursts of one batch;
+    an on-policy store takes them as the learner consumes)."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.data import BatchLayout, make_store
+
+    cfg = Config(**cfg_kw)
+    layout = BatchLayout.from_config(cfg)
+    store = make_store(cfg, layout, handles)
+    rng = np.random.default_rng(seed)
+    windows = [seeded_window(layout, rng, cfg.action_space) for _ in range(pool)]
+    i = 0
+    while i < n_windows and not stop.is_set():
+        k = min(cfg.batch_size, n_windows - i)
+        n = store.put_many([windows[(i + j) % pool] for j in range(k)], list(range(i, i + k)))
+        i += n
+        if n == 0:
+            time.sleep(0.0002)
+
+
+def start_writer(cfg, n_windows: int, pool: int, seed: int):
+    """A fresh store for ``cfg`` and a spawn child writing into it."""
+    import dataclasses
+    import multiprocessing as mp
+
+    from tpu_rl_torch.data import BatchLayout, make_store
+    from tpu_rl_torch.data.shm_ring import alloc_handles
+
+    ctx = mp.get_context("spawn")
+    layout = BatchLayout.from_config(cfg)
+    off = cfg.algo.startswith("SAC")
+    handles = alloc_handles(layout, cfg.buffer_size if off else cfg.batch_size, ctx=ctx)
+    stop = ctx.Event()
+    cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "extra"}
+    child = ctx.Process(target=feed_writer, args=(handles, cfg_kw, n_windows, pool, seed, stop),
+                        daemon=True)
+    child.start()
+    return make_store(cfg, layout, handles), child, stop
+
+
+def stop_writer(child, stop) -> None:
+    stop.set()
+    child.join(60)
+    if child.is_alive():
+        child.terminate()
+        child.join(10)
+
+
+def feed_run(cfg, store, kind: str, updates: int) -> dict:
+    """``updates`` train steps of ``cfg.algo`` on the card from one initial
+    state (seed 0) and train generator, fed by ``kind`` ("sync":
+    SynchronousFeed, "prefetch": PrefetchPipeline at PREFETCH_DEPTH) with
+    device_batch through pinned staging on a side stream; the sampler's
+    generator is seeded the same way each run. After each step a copy of
+    the batch is made on the consumer's stream (so the batch itself is
+    dropped while the step may still read it); every raw batch the feed
+    fetched is kept on the host."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import is_off_policy
+    from tpu_rl_torch.data import PrefetchPipeline, SynchronousFeed
+    from tpu_rl_torch.data.prefetch import DeviceStager, device_batch, wait_ready
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.types import BATCH_FIELDS
+
+    _family, state, step = get_algo(cfg.algo).build(cfg, torch.Generator().manual_seed(0),
+                                                    device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(7)
+    raws = []
+
+    def fetch():
+        raw = store.sample(cfg.batch_size, rng) if is_off_policy(cfg.algo) else store.consume()
+        if raw is not None:
+            raws.append(raw)
+        return raw
+
+    stager = DeviceStager("cuda", slots=PREFETCH_DEPTH + 1)
+
+    def assemble(r):
+        return device_batch(r, "cuda", stager)
+
+    feed = (SynchronousFeed(fetch, assemble) if kind == "sync"
+            else PrefetchPipeline(fetch, assemble, depth=PREFETCH_DEPTH))
+    kept, feed_secs = [], []
+    torch.cuda.synchronize()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    deadline = time.time() + 300
+    while len(kept) < updates:
+        if time.time() > deadline:
+            feed.close()
+            fail(f"feed {kind} {cfg.algo}: {len(kept)} of {updates} batches in 300 s")
+        item = feed.get(timeout=0.05)
+        if item is None:
+            time.sleep(feed.poll_sleep)
+            continue
+        batch = wait_ready(item[0])
+        state, _metrics = step(state, batch, generator=gen)
+        kept.append({f: getattr(batch, f).clone() for f in BATCH_FIELDS})
+        feed_secs.append(item[1])
+        del batch, item
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    feed.close()
+    equal = all(
+        torch.equal(k[f].cpu(), torch.from_numpy(raw[f]))
+        for k, raw in zip(kept, raws, strict=False) for f in BATCH_FIELDS
+    ) and len(raws) >= updates
+    want = tuple(updates * cfg.K_epoch * n for n in LAUNCHES_PER_EPOCH[cfg.algo])
+    return dict(state=state, raw=raws[0], ms_per_update=dt / updates * 1e3, batches_equal=equal,
+                lstm_fwd_launches=fwd, lstm_bwd_launches=bwd, launches_ok=(fwd, bwd) == want,
+                feed_ms_median=statistics.median(feed_secs) * 1e3, h2d_bytes=stager.h2d_bytes)
+
+
+def h2d_ms(raw: dict) -> dict:
+    """One raw batch's host copy into pinned buffers (host clock) and its
+    host-to-device copy (CUDA events on a side stream), medians of 5."""
+    from tpu_rl_torch.types import BATCH_FIELDS
+
+    pinned = {f: torch.empty(raw[f].shape, pin_memory=True) for f in BATCH_FIELDS}
+    stream = torch.cuda.Stream()
+    host, dev = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for f in BATCH_FIELDS:
+            np.copyto(pinned[f].numpy(), raw[f])
+        host.append((time.perf_counter() - t0) * 1e3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record()
+            _out = [pinned[f].to("cuda", non_blocking=True) for f in BATCH_FIELDS]
+            end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    nbytes = sum(raw[f].nbytes for f in BATCH_FIELDS)
+    return dict(bytes=nbytes, host_copy_ms=statistics.median(host), h2d_ms=statistics.median(dev),
+                h2d_gb_per_s=nbytes / (statistics.median(dev) * 1e-3) / 1e9)
+
+
+def states_equal(a, b) -> bool:
+    """Two train states (TrainState or SACState) equal bit for bit."""
+    import dataclasses
+
+    from tpu_rl_torch.utils.tree import tree_leaves
+
+    for f in dataclasses.fields(a):
+        la, lb = tree_leaves(getattr(a, f.name)), tree_leaves(getattr(b, f.name))
+        if len(la) != len(lb) or not all(torch.equal(x, y) for x, y in zip(la, lb, strict=True)):
+            return False
+    return True
+
+
+def replay_feed_phase(card: str) -> dict:
+    """(b) The data plane onto the card. A ReplayStore at the reference's
+    capacity (REPLAY_FEED_CFG: 10240 windows at SAC@ref's 128 x 5, H 64, obs
+    4) filled by a spawn child with seeded windows; REPLAY_FEED_UPDATES SAC
+    train steps through SynchronousFeed and through PrefetchPipeline from one
+    state, sampler seed and train generator: every batch on the card equals
+    its numpy sample bit for bit, and the final states are equal bit for
+    bit. Then the same on an OnPolicyStore at IMPALA@wide-lstm's shape
+    (WIDE_FEED_CFG, a fresh writer per run): ms/update sync vs prefetch and
+    the host-to-device time of one batch, with no bar."""
+    from tpu_rl_torch.config import Config
+
+    out = {}
+    for tag, cfg, updates, pool in (
+        ("replay SAC@ref", Config.from_dict(REPLAY_FEED_CFG), REPLAY_FEED_UPDATES, None),
+        ("on-policy IMPALA@wide-lstm", Config.from_dict(WIDE_FEED_CFG), WIDE_FEED_UPDATES,
+         WIDE_FEED_POOL),
+    ):
+        off = pool is None
+        runs = {}
+        if off:  # one ring, filled once, sampled by both runs
+            store, child, stop = start_writer(cfg, cfg.buffer_size, cfg.buffer_size, 0)
+            deadline = time.time() + 120
+            while store.total_puts < cfg.buffer_size and time.time() < deadline:
+                time.sleep(0.05)
+            if store.total_puts < cfg.buffer_size:
+                fail(f"feed {tag}: the writer filled {store.total_puts} of {cfg.buffer_size}")
+        for kind in ("sync", "prefetch"):
+            if not off:  # a fresh store and writer: both runs consume the same windows
+                store, child, stop = start_writer(cfg, updates * cfg.batch_size, pool, 0)
+                deadline = time.time() + 120  # the child's start is no part of the run
+                while store.size < cfg.batch_size and time.time() < deadline:
+                    time.sleep(0.01)
+            runs[kind] = feed_run(cfg, store, kind, updates)
+            if not off:
+                stop_writer(child, stop)
+        if off:
+            stop_writer(child, stop)
+        h2d = h2d_ms(runs["sync"]["raw"])
+        equal_states = states_equal(runs["sync"]["state"], runs["prefetch"]["state"])
+        checks = {"batches_equal_sync": runs["sync"]["batches_equal"],
+                  "batches_equal_prefetch": runs["prefetch"]["batches_equal"],
+                  "final_state_equal": equal_states,
+                  "launches": runs["sync"]["launches_ok"] and runs["prefetch"]["launches_ok"]}
+        print(
+            f"feed {tag} B={cfg.batch_size} S={cfg.seq_len} H={cfg.hidden_size} capacity "
+            f"{cfg.buffer_size if off else cfg.batch_size}, {updates} updates: ms/update sync "
+            f"{runs['sync']['ms_per_update']:.4f} prefetch(depth {PREFETCH_DEPTH}) "
+            f"{runs['prefetch']['ms_per_update']:.4f}; feed ms a batch (fetch + staging, median) "
+            f"sync {runs['sync']['feed_ms_median']:.4f} prefetch "
+            f"{runs['prefetch']['feed_ms_median']:.4f}; a batch {h2d['bytes']} bytes: host copy "
+            f"into pinned {h2d['host_copy_ms']:.4f} ms, H2D {h2d['h2d_ms']:.4f} ms "
+            f"({h2d['h2d_gb_per_s']:.2f} GB/s); lstm launches sync "
+            f"{runs['sync']['lstm_fwd_launches']}/{runs['sync']['lstm_bwd_launches']} prefetch "
+            f"{runs['prefetch']['lstm_fwd_launches']}/{runs['prefetch']['lstm_bwd_launches']} "
+            f"[{card}]",
+            flush=True,
+        )
+        print(f"feed {tag} checks {checks}", flush=True)
+        if not all(checks.values()):
+            fail(f"feed {tag}: failed checks {[k for k, v in checks.items() if not v]}")
+        out[tag] = dict(updates=updates, h2d=h2d, checks=checks,
+                        **{k: {m: v for m, v in r.items() if m not in ("state", "raw")}
+                           for k, r in runs.items()})
+    return out
+
+
+def report_compare_check(result_dir: str, card: str) -> dict:
+    """(c) The port's ``obs.report.main`` over the result dir of the
+    telemetry phase's colocated run, and ``obs.compare.main`` comparing the
+    run with itself: both exit 0 and the comparison reports no regression."""
+    import shutil
+
+    from tpu_rl_torch.obs import compare, report
+
+    try:
+        rc_report = report.main([result_dir])
+        doc_path = os.path.join(result_dir, "compare.json")
+        rc_compare = compare.main([result_dir, result_dir, "--json", doc_path])
+        doc = json.loads(open(doc_path).read())
+        files = sorted(os.listdir(result_dir))
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    checks = {
+        "report_exit_0": rc_report == 0,
+        "report_files": {"report.json", "report.md", "report.html"} <= set(files),
+        "compare_exit_0": rc_compare == 0,
+        "no_regression": doc["ok"] is True and not any(
+            doc["counts"].get(v) for v in ("regressed", "no-data")),
+    }
+    print(f"report/compare over the telemetry run: report exit {rc_report}, compare exit "
+          f"{rc_compare}, verdicts {doc['counts']}, {len(doc['rows'])} channels [{card}]",
+          flush=True)
+    print(f"report/compare checks {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"report/compare: failed checks {[k for k, v in checks.items() if not v]}")
+    return dict(counts=doc["counts"], channels=len(doc["rows"]), checks=checks)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs one CUDA card")
@@ -3048,6 +3632,9 @@ def main() -> None:
     tf_serving = {m: tf_serve_phase(card, m) for m in ("f32", *SERVE_DTYPES)}
     tf_serving["f32 compute"] = tf_serve_phase(card, "f32", "float32")
     telemetry = telemetry_phase(card)
+    inline = inline_sac_phase(card, lstm_rows)
+    feeds = replay_feed_phase(card)
+    reports = report_compare_check(telemetry["colocated"].pop("result_dir"), card)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -3128,7 +3715,17 @@ def main() -> None:
                 # the colocated loop with the telemetry plane on
                 "telemetry colocated PPO": telemetry["colocated"][f"{name}_launches"],
                 "telemetry wide IMPALA": telemetry["wide"][f"{name}_launches"],
+                # the inline trainer: the whole learning run, and
+                # SAC on CartPole
+                **{f"inline {r['stats']['algo']} ({r['stats']['env']}, {r['stats']['updates']} "
+                   f"updates)": r[f"{name}_launches"] for r in inline["runs"].values()},
+                # the learner feed onto the card, each run
+                **{f"feed {tag} {kind}": r[kind][f"{name}_launches"]
+                   for tag, r in feeds.items() for kind in ("sync", "prefetch")},
             },
+            # the inline trainer's shape (32,5,64), lstm_phase's row
+            inline_ms=inline["kernel_ms"][name],
+            inline_bound_ms=inline["bound_ms"][name],
             card=card,
             shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
         ))
@@ -3185,7 +3782,8 @@ def main() -> None:
         "transformer_colocated_flash": tf_colocated_flash,
         "blockwise_attention": blockwise_rows, "transformer_algos": tf_algos,
         "transformer_serving": tf_serving,
-        "telemetry": telemetry}, default=str), flush=True)
+        "telemetry": telemetry, "inline": inline, "feeds": feeds,
+        "report_compare": reports}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

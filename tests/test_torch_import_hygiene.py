@@ -31,7 +31,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpu_rl"))
-print(json.dumps({"imported": names, "bad": bad}))
+gym = sorted(m for m in sys.modules if m.split(".")[0] == "gymnasium")
+print(json.dumps({"imported": names, "bad": bad, "gymnasium": gym}))
 """
 
 
@@ -43,6 +44,8 @@ def test_port_imports_no_jax_and_no_tpu_rl():
     )
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["bad"] == [], doc["bad"]
+    # the env adapter and the inline trainer import gymnasium only when run
+    assert doc["gymnasium"] == [], doc["gymnasium"]
     # every module of the slice was really imported
     for name in (
         "tpu_rl_torch.config", "tpu_rl_torch.bridge", "tpu_rl_torch.utils.timer",
@@ -62,6 +65,9 @@ def test_port_imports_no_jax_and_no_tpu_rl():
             "registry", "aggregator", "goodput", "audit", "flightrec", "perf", "learn",
             "exporters", "slo", "anomaly", "history")),
         "tpu_rl_torch.utils.metrics",
+        "tpu_rl_torch.runtime.env", "tpu_rl_torch.examples.train_inline",
+        *(f"tpu_rl_torch.data.{m}" for m in ("layout", "assembler", "shm_ring", "prefetch")),
+        "tpu_rl_torch.obs.report", "tpu_rl_torch.obs.compare",
     ):
         assert name in doc["imported"], name
 

@@ -77,6 +77,9 @@ class Config:
     seq_len: int = 5
     # Reset the LSTM carry at in-sequence episode seams (tpu_rl default).
     reset_carry_on_first: bool = True
+    # R2D2-style zero-init of the recurrent carry at training-window starts
+    # (types.maybe_zero_carry); False = the stored carry, as the reference.
+    zero_window_carry: bool = False
     # Compute dtype of the train step ("float32" or "bfloat16": params stay
     # f32, the products run in bf16 with f32 sums).
     compute_dtype: str = "float32"
@@ -99,6 +102,9 @@ class Config:
     act_kernel: str = "xla"
     # rollout
     time_horizon: int = 500
+    # Hold each policy action for k underlying env steps, summing rewards
+    # (runtime/env.EnvAdapter.step); 1 = no repeat.
+    action_repeat: int = 1
     reward_scale: float = 0.1
     batch_size: int = 128
     buffer_size: int = 10240
@@ -208,6 +214,7 @@ class Config:
         assert self.buffer_size >= self.batch_size
         assert 0.0 <= self.gamma <= 1.0
         assert 0.0 <= self.lmbda <= 1.0
+        assert self.height >= 1 and self.width >= 1, (self.height, self.width)
         assert self.hidden_size >= 1, self.hidden_size
         assert self.n_heads >= 1 and self.n_layers >= 1, (self.n_heads, self.n_layers)
         assert self.act_ctx >= 0, self.act_ctx
@@ -265,6 +272,10 @@ class Config:
                 f"trains once, no replay); {self.algo} needs "
                 f"env_mode='distributed'"
             )
+            assert not self.need_conv, (
+                "colocated mode has no image-env dynamics (tpu_rl_torch.envs)"
+            )
+        assert self.action_repeat >= 1, self.action_repeat
         assert self.compute_dtype in (
             "float32",
             "bfloat16",
@@ -286,6 +297,20 @@ class Config:
                 f"algo {self.algo!r} is discrete-only but env {self.env!r} "
                 "has a continuous action space; use PPO-Continuous or "
                 "SAC-Continuous"
+            )
+        if self.zero_window_carry and self.algo.removesuffix(
+            "-Continuous"
+        ) in ("PPO", "V-MPO"):  # PPO-Continuous shares ppo.td_target_and_gae
+            # tpu_rl's warning, word for word: measured there, zeroed
+            # training carries fail GAE-based algorithms under async lag.
+            import warnings
+
+            warnings.warn(
+                f"zero_window_carry=True with {self.algo}: GAE-based "
+                "algorithms measurably fail under async lag with zeroed "
+                "training carries (capped/flat fleet reward); use stored "
+                "carries (zero_window_carry=False) for PPO/V-MPO — "
+                "zero-init is the V-trace/IMPALA fix (CLUSTER_R5_PPO.md)",
             )
         assert self.worker_num_envs >= 1, self.worker_num_envs
         assert self.inference_batch >= 1, self.inference_batch

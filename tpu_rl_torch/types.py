@@ -5,6 +5,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 
 from tpu_rl_torch import resolve_device
@@ -73,3 +74,16 @@ class Batch:
             k: torch.as_tensor(m[k]).to(device=dev, dtype=torch.float32, copy=True)
             for k in BATCH_FIELDS
         })
+
+
+def maybe_zero_carry(cfg, mapping: dict) -> dict:
+    """R2D2-style zero-init of the training windows' stored carry, gated on
+    ``cfg.zero_window_carry`` (``tpu_rl.types.maybe_zero_carry``): numpy in,
+    numpy out; ``mapping`` itself when the gate is off, else a shallow copy
+    with ``hx`` and ``cx`` zeroed."""
+    if not getattr(cfg, "zero_window_carry", False):
+        return mapping
+    out = dict(mapping)
+    out["hx"] = np.zeros_like(mapping["hx"])
+    out["cx"] = np.zeros_like(mapping["cx"])
+    return out
