@@ -4,6 +4,7 @@
     python3 chip_smoke.py
 
 It drives the port's serving path (f32, bf16 and int8 weights), its
+distributed runtime (worker -> manager -> storage -> learner processes), its
 colocated LSTM training path (with checkpoint and resume), bf16-compute
 LSTM training, the other algorithms' train steps and colocated loops
 (IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous), the transformer's
@@ -20,7 +21,8 @@ against its plain PyTorch version:
 2. build: every ``tpu_rl_torch/csrc/*.cu`` with nvcc (``kernels/build.py``),
    printing ptxas's registers and spill stores for every kernel instance;
 3. kernel vs plain: the fused act kernel at the serving ladder, ragged row
-   counts, the default model, the wide model and two edge widths (ragged
+   counts, the default model (8, 64 and 128 rows: 64 is the cluster's
+   remote-acting flush), the wide model and two edge widths (ragged
    unit slices; H not a multiple of 4), on seeded inputs and the
    port's own init with seeded nonzero biases; per shape the launch plan
    (``ops.fused_act.act_launch_plan``: rows and units per block, cluster
@@ -185,6 +187,21 @@ against its plain PyTorch version:
 12c. ``obs.report.main`` and ``obs.compare.main`` of the port over the
    result dir of step 12's colocated run, compared with itself: both exit
    0, no regression;
+12d. the distributed runtime (``cluster_phase``): ``runtime.runner.local_cluster``
+   with tpu_rl's default config (PPO, CartPole-v1, H 64, seq_len 5, batch
+   128; one worker machine of 2 processes, worker_num_envs 1, no worker
+   throttle) to 50 updates, twice: (a) local acting, TCP, the raw relay;
+   (b) every act step served by the learner's InferenceService through B3,
+   the manager -> storage hop over shm. Where gymnasium is missing, a
+   stand-in ``gymnasium`` package over ``DeviceSpecEnv`` goes first on
+   every child's path. Per run: the learner's exit code (0), updates/s and
+   env steps/s ingested by storage (telemetry.json, storage's clock),
+   the learner's host enqueue vs device ms an update (its profiler window
+   over 5 updates), frames rejected (must be 0) and dropped, B1/B2
+   launches = updates x K_epoch and, for (b), B3 launches = warm-ups +
+   flushes with no remote-acting fallback, all read from the learner's
+   closing telemetry snapshot; only the learner child holds a CUDA context
+   (nvidia-smi's compute PIDs mid-run);
 13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
@@ -415,7 +432,9 @@ QUANT_AGREE, QUANT_DRIFT = 0.99, {"bf16": 0.05, "int8": 0.08}
 # (rows, D, H, A) checked against the plain version.
 SERVING_LADDER = [(b, 4, 256, 2) for b in (8, 16, 32, 64, 128, 256)]
 RAGGED = [(b, 4, 256, 2) for b in (1, 3, 100)]
-DEFAULT_MODEL = [(b, 4, 64, 2) for b in (8, 128)]
+# the default config's model; 64 rows is the cluster's remote-acting flush
+# (inference_batch 64, one padded bucket)
+DEFAULT_MODEL = [(b, 4, 64, 2) for b in (8, 64, 128)]
 WIDE_MODEL = [(256, 64, 1024, 8)]
 # Beside those: H=100 (13 unit slices, the last of 4 units) and H=50 (not a
 # multiple of 4: the kernel's 4-byte-copy path; the last slice of 2 units).
@@ -3555,6 +3574,323 @@ def report_compare_check(result_dir: str, card: str) -> dict:
     return dict(counts=doc["counts"], channels=len(doc["rows"]), checks=checks)
 
 
+
+# ------------------------------------------------- the distributed runtime
+# tpu_rl's default config (PPO, CartPole-v1, H 64, seq_len 5, batch 128; one
+# worker machine of 2 processes, worker_num_envs 1) with the worker throttle
+# off, run (a) with local acting over TCP and the raw relay, run (b) with
+# every act step served by the learner's InferenceService through B3 and
+# the manager -> storage hop over shm. inference_timeout_ms 60000 is tpu_rl's
+# own remote-acting test recipe: a worker's first request must not time out
+# into local acting while the learner starts.
+CLUSTER_UPDATES = 50
+CLUSTER_PROFILE = (20, 5)  # profile_start, profile_steps (updates)
+CLUSTER_RUNS = (
+    ("a", dict(act_mode="local", transport="tcp", relay_mode="raw")),
+    ("b", dict(act_mode="remote", act_kernel="pallas", transport="auto",
+               inference_timeout_ms=60000)),
+)
+CLUSTER_TIMEOUT_S = 300.0
+
+
+def gym_stand_in() -> str:
+    """Where the cluster's worker processes get their envs. Where gymnasium
+    is not installed, write a stand-in ``gymnasium`` package whose ``make``
+    is :class:`DeviceSpecEnv` into the git-ignored ``.chip_scratch/`` and put
+    it first on ``PYTHONPATH`` and on this process's ``sys.path`` (spawned
+    children take their ``sys.path`` from this process)."""
+    mod = sys.modules.get("gymnasium")
+    if mod is not None and getattr(mod, "__file__", None) and "gym_stand_in" not in mod.__file__:
+        return f"gymnasium {mod.__version__}"
+    if mod is None:
+        try:
+            import gymnasium
+
+            return f"gymnasium {gymnasium.__version__}"
+        except ImportError:
+            pass
+    root = ROOT / ".chip_scratch" / "gym_stand_in"
+    pkg = root / "gymnasium"
+    pkg.mkdir(parents=True, exist_ok=True)
+    (pkg / "__init__.py").write_text(
+        '"""A gymnasium stand-in for machines without gymnasium: make() builds\n'
+        'chip_smoke.DeviceSpecEnv over the port\'s device env dynamics."""\n'
+        "from chip_smoke import DeviceSpecEnv as make  # noqa: F401\n"
+        '__version__ = "stand-in"\n'
+    )
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(root), str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    )
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    sys.modules.pop("gymnasium", None)
+    return "stand-in gymnasium package (chip_smoke.DeviceSpecEnv over tpu_rl_torch/envs) in every process"
+
+
+def free_block(n: int = 8) -> int:
+    """A base port whose ``n`` ports are all free to bind."""
+    import socket
+
+    for _ in range(200):
+        base = free_port()
+        if base + n >= 65535:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("0.0.0.0", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("no free block of ports")
+
+
+def cuda_pids() -> list[int] | None:
+    """PIDs holding a CUDA context on the card, as nvidia-smi reports them
+    (None when nvidia-smi lists no process at all). In a container they may
+    read as another namespace's PIDs; their count still counts contexts."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    pids = [int(x) for x in out.split() if x.strip().isdigit()]
+    return pids or None
+
+
+def card_fds(pid: int) -> list[str]:
+    """The card device nodes (``/dev/nvidia<N>``) process ``pid`` holds open:
+    a process opens its card's node when it makes a context there."""
+    import re
+
+    out = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                out.append(target)
+    except OSError:
+        pass
+    return sorted(set(out))
+
+
+def telemetry_sources(result_dir: Path) -> list[dict]:
+    path = result_dir / "telemetry.json"
+    try:
+        return json.loads(path.read_text())["sources"]
+    except (OSError, ValueError, KeyError):
+        return []
+
+
+def metric(snap: dict, name: str, kind: str = "counters"):
+    for n, _labels, value in snap.get(kind, ()):
+        if n == name:
+            return value
+    return None
+
+
+def trace_kernels(prof_dir: Path) -> dict:
+    """Device time of the learner's profiler window, by kernel family."""
+    traces = sorted(prof_dir.glob("prof-window-*/trace.json"))
+    if len(traces) != 1:
+        return {}
+    doc = json.loads(traces[0].read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    out = {"all_us": 0.0, "b3_us": 0.0, "b1_b2_us": 0.0, "kernels": 0}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        out["all_us"] += float(e.get("dur", 0.0))
+        out["kernels"] += 1
+        name = e.get("name", "")
+        if "fused_act" in name:
+            out["b3_us"] += float(e.get("dur", 0.0))
+        elif "lstm_fwd" in name or "lstm_bwd" in name:
+            out["b1_b2_us"] += float(e.get("dur", 0.0))
+    return out
+
+
+def cluster_run(tag: str, over: dict, card: str) -> dict:
+    """One ``local_cluster`` run to CLUSTER_UPDATES updates; telemetry.json
+    (storage's aggregate of every role's snapshots, every second) is read
+    while it runs and after."""
+    import shutil
+
+    from tpu_rl_torch.config import Config, MachinesConfig, WorkerMachine
+    from tpu_rl_torch.runtime.env import probe_spaces
+    from tpu_rl_torch.runtime.runner import local_cluster
+
+    rdir = ROOT / ".chip_scratch" / f"cluster-{tag}"
+    shutil.rmtree(rdir, ignore_errors=True)
+    start, steps = CLUSTER_PROFILE
+    cfg = probe_spaces(Config.from_dict(dict(
+        worker_step_sleep=0.0, result_dir=str(rdir), profile_dir=str(rdir / "prof"),
+        profile_start=start, profile_steps=steps, telemetry_interval_s=1.0, **over,
+    )))
+    base = free_block()
+    machines = MachinesConfig(learner_port=base, workers=[WorkerMachine(num_p=2, port=base + 5)])
+    samples: list[tuple[float, float, float]] = []  # (ts, update index, windows)
+    ctx_checks: list[dict] = []
+    done = threading.Event()
+    t0 = time.perf_counter()
+    sup = local_cluster(cfg, machines, max_updates=CLUSTER_UPDATES)
+    children = {c.name: c for c in sup.children}
+
+    def watch() -> None:
+        while not done.wait(0.5):
+            srcs = telemetry_sources(rdir)
+            lrn = next((s for s in srcs if s.get("role") == "learner"), None)
+            sto = next((s for s in srcs if s.get("role") == "storage"), None)
+            if lrn is None or sto is None:
+                continue
+            idx = metric(lrn, "learner-update-index", "gauges") or 0.0
+            samples.append((float(sto["ts"]), float(idx), float(metric(sto, "storage-windows") or 0)))
+            if 5 <= idx < CLUSTER_UPDATES - 5 and len(ctx_checks) < 3:
+                ctx_checks.append({"pids": cuda_pids(),
+                                   "children": {n: c.proc.pid for n, c in children.items()},
+                                   "fds": {n: card_fds(c.proc.pid) for n, c in children.items()}})
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+        learner = children["learner"]
+        while learner.proc.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.25)
+        wall = time.perf_counter() - t0
+        exitcode = learner.proc.exitcode
+        # storage writes telemetry.json every second: wait for the learner's
+        # closing snapshot (sent after its service and feed stopped)
+        until = time.monotonic() + 20.0
+        while exitcode == 0 and time.monotonic() < until and not any(
+            s.get("role") == "learner" and s.get("closing") for s in telemetry_sources(rdir)
+        ):
+            time.sleep(0.25)
+    finally:
+        done.set()
+        watcher.join(5)
+        sup.stop()
+    if exitcode != 0:
+        fail(f"cluster ({tag}): the learner exited {exitcode} (alive: {learner.proc.is_alive()})")
+    srcs = telemetry_sources(rdir)
+    lrn = next((s for s in srcs if s.get("role") == "learner" and s.get("closing")), None)
+    sto = next((s for s in srcs if s.get("role") == "storage"), None)
+    mgr = next((s for s in srcs if s.get("role") == "manager"), None)
+    workers = [s for s in srcs if s.get("role") == "worker"]
+    if lrn is None or sto is None or mgr is None or len(workers) != 2:
+        fail(f"cluster ({tag}): telemetry.json lacks a role: {[s.get('role') for s in srcs]}")
+    updates = int(metric(lrn, "learner-update-index", "gauges"))
+    fwd = int(metric(lrn, "learner-lstm-fwd-launches"))
+    bwd = int(metric(lrn, "learner-lstm-bwd-launches"))
+    k = cfg.K_epoch
+    if updates != CLUSTER_UPDATES:
+        fail(f"cluster ({tag}): {updates} updates, expected {CLUSTER_UPDATES}")
+    if (fwd, bwd) != (updates * k, updates * k):
+        fail(f"cluster ({tag}): B1/B2 launches {fwd}/{bwd}, expected updates x K_epoch = {updates * k}")
+    rejected = {
+        "storage": metric(sto, "storage-rejected-frames"),
+        "manager": metric(mgr, "manager-rejected-frames"),
+        "workers": sum(metric(w, "worker-rejected-frames") or 0 for w in workers),
+        "learner mailbox (fleet total)": metric(lrn, "transport-rejected-frames"),
+    }
+    dropped = {
+        "manager drop-oldest": metric(mgr, "manager-dropped-frames"),
+        "shm ring full": metric(mgr, "shm-dropped-full"),
+        "shm no consumer yet": metric(mgr, "shm-dropped-no-peer"),
+        "storage stale epoch": metric(sto, "storage-stale-epoch-frames"),
+    }
+    if any(v for v in rejected.values()):
+        fail(f"cluster ({tag}): frames rejected {rejected}")
+    out = dict(tag=tag, config=over, updates=updates, K_epoch=k, learner_exit=exitcode,
+               wall_s=wall, lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+               frames_rejected=rejected, frames_dropped=dropped,
+               forwarded_frames=metric(mgr, "manager-forwarded-frames"),
+               windows=metric(sto, "storage-windows"))
+    # rates over the run's samples once updates flow (storage's clock)
+    live = [s for s in samples if s[1] >= 1]
+    if len(live) >= 2 and live[-1][0] > live[0][0]:
+        dt = live[-1][0] - live[0][0]
+        out["updates_per_s"] = (live[-1][1] - live[0][1]) / dt
+        out["env_steps_ingested_per_s"] = (live[-1][2] - live[0][2]) * cfg.seq_len / dt
+    else:
+        out["updates_per_s"] = out["env_steps_ingested_per_s"] = None
+    # host enqueue: the learner's own "train-step" spans (trace.json; the
+    # dispatch's host clock, no sync), median past the first 5 (the first
+    # counts FLOPs and meets every kernel's first launch)
+    spans = [e["dur"] for e in json.loads((rdir / "trace.json").read_text())["traceEvents"]
+             if e.get("ph") == "X" and e.get("name") == "train-step"]
+    if len(spans) < 10:
+        fail(f"cluster ({tag}): the learner's trace holds {len(spans)} train-step spans")
+    out["host_enqueue_ms_per_update"] = statistics.median(spans[5:]) / 1e3
+    out["host_enqueue_ms_first_update"] = spans[0] / 1e3
+    kern = trace_kernels(rdir / "prof")
+    if not kern:
+        fail(f"cluster ({tag}): the learner wrote no single profiler window under {rdir / 'prof'}")
+    out["device_ms_per_update"] = kern["all_us"] / 1e3 / steps
+    out["b1_b2_device_ms_per_update"] = kern["b1_b2_us"] / 1e3 / steps
+    out["b3_device_ms_per_update"] = kern["b3_us"] / 1e3 / steps
+    out["device_kernels_per_update"] = kern["kernels"] / steps
+    # only the learner holds a CUDA context: nvidia-smi counts two compute
+    # processes (this one and the learner), and of the children only the
+    # learner holds the card's device node open
+    if not ctx_checks:
+        fail(f"cluster ({tag}): no mid-run sample of the CUDA contexts")
+    for check in ctx_checks:
+        n_ctx = len(check["pids"] or [])
+        if n_ctx != 2:
+            fail(f"cluster ({tag}): nvidia-smi lists {n_ctx} compute processes mid-run, "
+                 f"expected 2 (this process and the learner): {check}")
+        holders = sorted(n for n, fds in check["fds"].items() if fds)
+        if holders != ["learner"]:
+            fail(f"cluster ({tag}): children holding the card: {holders}, expected the learner only")
+    out["cuda_contexts"] = len(ctx_checks[0]["pids"])
+    out["card_nodes_by_child"] = ctx_checks[0]["fds"]
+    if over["act_mode"] == "remote":
+        b3 = int(metric(lrn, "inference-fused-act-launches"))
+        warm = int(metric(lrn, "inference-warmups"))
+        flushes = int(metric(lrn, "inference-batches"))
+        fallbacks = sum(metric(w, "worker-remote-fallbacks") or 0 for w in workers)
+        if b3 != warm + flushes or flushes == 0:
+            fail(f"cluster ({tag}): B3 launches {b3}, expected warm-ups {warm} + flushes {flushes}")
+        if fallbacks != 0:
+            fail(f"cluster ({tag}): {fallbacks} remote-acting fallbacks (local acting would hide B3)")
+        out.update(fused_act_launches=b3, inference_warmups=warm, inference_flushes=flushes,
+                   worker_remote_fallbacks=fallbacks,
+                   inference_requests=metric(lrn, "inference-requests"),
+                   inference_replies=metric(lrn, "inference-replies"))
+    print(
+        f"cluster ({tag}) {over}: learner exit {exitcode}, {updates} updates in {wall:.1f} s "
+        f"(from spawn), updates/s {out['updates_per_s']}, env steps ingested/s "
+        f"{out['env_steps_ingested_per_s']}, host enqueue {out['host_enqueue_ms_per_update']:.4f} ms "
+        f"vs device {out['device_ms_per_update']:.4f} ms an update (B1+B2 "
+        f"{out['b1_b2_device_ms_per_update']:.4f}, B3 {out['b3_device_ms_per_update']:.4f}; "
+        f"profiler over {steps} updates), B1/B2 launches {fwd}/{bwd} = updates x K_epoch, "
+        f"rejected {rejected}, dropped {dropped}"
+        + (f", B3 launches {out['fused_act_launches']} = warm-ups {out['inference_warmups']} + "
+           f"flushes {out['inference_flushes']}, fallbacks {out['worker_remote_fallbacks']}"
+           if over["act_mode"] == "remote" else "")
+        + f", {out['cuda_contexts']} CUDA contexts (this process and the learner), card nodes "
+        f"by child {out['card_nodes_by_child']} [{card}]",
+        flush=True,
+    )
+    return out
+
+
+def cluster_phase(card: str) -> dict:
+    """The distributed runtime on the card: ``local_cluster`` twice (see
+    CLUSTER_RUNS)."""
+    src = gym_stand_in()
+    print(f"cluster env source: {src}", flush=True)
+    return {tag: cluster_run(tag, over, card) for tag, over in CLUSTER_RUNS}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs one CUDA card")
@@ -3635,6 +3971,7 @@ def main() -> None:
     inline = inline_sac_phase(card, lstm_rows)
     feeds = replay_feed_phase(card)
     reports = report_compare_check(telemetry["colocated"].pop("result_dir"), card)
+    cluster = cluster_phase(card)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -3670,6 +4007,9 @@ def main() -> None:
         launches_telemetry_serving=telemetry["serving"]["launches"],
         serving_device_ms=profiled["b3_device_ms"],
         serving_device_launches=profiled["launches"],
+        # the distributed runtime: every worker's act step served by the
+        # learner's InferenceService (cluster run (b); warm-ups + flushes)
+        launches_by_path={"cluster (b) remote acting": cluster["b"]["fused_act_launches"]},
         card=card,
         shapes=shapes,
     )]
@@ -3722,6 +4062,9 @@ def main() -> None:
                 # the learner feed onto the card, each run
                 **{f"feed {tag} {kind}": r[kind][f"{name}_launches"]
                    for tag, r in feeds.items() for kind in ("sync", "prefetch")},
+                # the distributed runtime's learner child, each run
+                **{f"cluster ({tag}) {'remote' if r['config']['act_mode'] == 'remote' else 'local'}"
+                   f" acting PPO": r[f"{name}_launches"] for tag, r in cluster.items()},
             },
             # the inline trainer's shape (32,5,64), lstm_phase's row
             inline_ms=inline["kernel_ms"][name],
@@ -3783,7 +4126,7 @@ def main() -> None:
         "blockwise_attention": blockwise_rows, "transformer_algos": tf_algos,
         "transformer_serving": tf_serving,
         "telemetry": telemetry, "inline": inline, "feeds": feeds,
-        "report_compare": reports}, default=str), flush=True)
+        "report_compare": reports, "cluster": cluster}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

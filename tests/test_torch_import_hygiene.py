@@ -68,6 +68,12 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.runtime.env", "tpu_rl_torch.examples.train_inline",
         *(f"tpu_rl_torch.data.{m}" for m in ("layout", "assembler", "shm_ring", "prefetch")),
         "tpu_rl_torch.obs.report", "tpu_rl_torch.obs.compare",
+        *(f"tpu_rl_torch.runtime.{m}" for m in (
+            "zmtp", "transport", "native", "mailbox", "portplan", "manager", "storage",
+            "worker", "learner_service", "runner")),
+        "tpu_rl_torch.heal.ingress", "tpu_rl_torch.heal.watchdog",
+        *(f"tpu_rl_torch.obs.{m}" for m in ("trace", "clocksync", "merge")),
+        "tpu_rl_torch.utils.errlog", "tpu_rl_torch.utils.platform", "tpu_rl_torch.__main__",
     ):
         assert name in doc["imported"], name
 
@@ -97,10 +103,12 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 def test_config_keeps_unknown_keys_and_refuses_later_slices():
     cfg = Config.from_dict(
         {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4,
-         "worker_step_sleep": 0.05, "mesh_seq": 1}
+         "worker_step_sleep": 0.05, "mesh_seq": 1, "sebulba_queue": 2}
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
-    assert cfg.extra == {"chaos_spec": None, "worker_step_sleep": 0.05, "mesh_seq": 1}
+    # the distributed runtime's keys are fields since its slice
+    assert cfg.worker_step_sleep == 0.05
+    assert cfg.extra == {"chaos_spec": None, "mesh_seq": 1, "sebulba_queue": 2}
     # bf16/int8 serving and the checkpoint directory load now
     for mode in ("bf16", "int8"):
         assert Config.from_dict({"inference_dtype": mode}).inference_dtype == mode
@@ -178,7 +186,7 @@ def test_config_example_files_load_or_refuse():
     long-context config is refused for its mesh."""
     root = Path(__file__).resolve().parent.parent / "configs"
     raw = json.loads((root / "params.example.json").read_text())
-    assert Config.from_dict(raw).extra["worker_step_sleep"] == 0.05
+    assert Config.from_dict(raw).worker_step_sleep == raw["worker_step_sleep"] == 0.05
     raw = json.loads((root / "longcontext_singlechip.example.json").read_text())
     assert Config.from_dict(dict(raw, attention_impl="flash")).extra["mesh_seq"] == 1
     raw = json.loads((root / "longcontext.example.json").read_text())

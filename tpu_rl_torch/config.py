@@ -1,17 +1,25 @@
-"""Typed configuration — the port's own copy of ``tpu_rl.config.Config``.
+"""Typed configuration — the port's own copy of ``tpu_rl.config``
+(``Config``, ``WorkerMachine``, ``MachinesConfig``, ``default_result_dirs``).
 
-It holds the fields the serving, training and durability slices read, with
-``tpu_rl``'s names and defaults, so an existing params file loads unchanged.
-Keys the port does not know yet are kept in ``extra``: a full ``tpu_rl``
-params file still loads. Those of them that would make ``tpu_rl`` do
-something the port does not do yet (build a mesh, arm chaos, run replicas)
-are refused at a value other than their default
-(:data:`LATER_SLICES`), so that a run never silently does less than asked.
+``Config`` holds the fields the serving, training, durability and
+distributed-runtime slices read, with ``tpu_rl``'s names, defaults and
+asserts, so an existing params file loads unchanged. Keys the port does not
+know yet are kept in ``extra``: a full ``tpu_rl`` params file still loads.
+Those of them that would make ``tpu_rl`` do something the port does not do
+yet (build a mesh, arm chaos, run replicas) are refused at a value other
+than their default (:data:`LATER_SLICES`), so that a run never silently
+does less than asked.
+
+One deliberate divergence (ROADMAP C 7): ``learner_device="auto"`` means
+the card, and a learner without one raises; ``tpu_rl`` probes its
+accelerator and quietly degrades the learner to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -141,6 +149,19 @@ class Config:
     K_epoch: int = 1
     lr: float = 0.0001
     max_grad_norm: float = 40.0
+    # Two-phase entropy/lr anneal of the distributed learner: after the
+    # switch point ({"at": absolute update index} or {"frac": fraction of
+    # max_updates}) training continues with {"coef": entropy_coef, "lr":
+    # lr (optional)}.
+    entropy_anneal: dict | None = None
+    # Distributed learner early stop: the fleet's 50-game mean reward (stat
+    # mailbox, window full) reaching this ends the learner cleanly.
+    stop_at_reward: float | None = None
+    # torch.profiler capture of ~profile_steps updates once profile_start
+    # updates of this run have completed (None = no capture).
+    profile_dir: str | None = None
+    profile_start: int = 10
+    profile_steps: int = 5
     # Skip an update whose loss or global grad-norm is not finite, keeping
     # params and optimizer state; counted in the "nonfinite-updates" metric.
     update_guard: bool = True
@@ -183,12 +204,89 @@ class Config:
     # Env batch of the colocated loop; 0 = batch_size (the env batch IS the
     # train batch).
     colocated_envs: int = 0
+    # ---- distributed runtime (runtime/{runner,worker,manager,storage,
+    # learner_service}.py) ----
+    # Updates per learner dispatch: K consumed batches, K sequential
+    # updates (tpu_rl's chained scan, here a loop); 1 = one per batch.
+    learner_chain: int = 1
+    # Depth of the learner's prefetch queue (data/prefetch.py); 0 = the
+    # synchronous feed and a synchronous model publish.
+    learner_prefetch: int = 2
+    # Off-policy cap on updates per received transition (None = no gate).
+    max_update_data_ratio: float | None = None
+    # "auto": the learner trains on the card (and raises without one);
+    # "cpu": the plain path on the CPU (tests).
+    learner_device: str = "auto"
+    # Worker throttle per tick, seconds (0 = none).
+    worker_step_sleep: float = 0.05
+    # RolloutAssembler idle-trajectory drop window, seconds.
+    rollout_lag_sec: float = 0.5
+    # "raw": the manager forwards rollout frames verbatim after a header
+    # check; "decode": it decodes and re-encodes each (the A/B baseline).
+    relay_mode: str = "raw"
+    # Data-hop fabric of the fan-in: "tcp", "shm" (same-host rings) or
+    # "auto" (shm where the peer address is loopback). The model broadcast
+    # and the acting channel stay TCP.
+    transport: str = "tcp"
+    # "local": workers act on their own host cores; "remote": through the
+    # learner's InferenceService (B3 under act_kernel="pallas").
+    act_mode: str = "local"
+    # Remote-acting fault path: retries after a timeout, then local acting
+    # on the last broadcast params, re-probing every inference_reprobe_s
+    # seconds (doubling up to inference_reprobe_max_s; 0 = never).
+    inference_timeout_ms: int = 2000
+    inference_retries: int = 2
+    inference_reprobe_s: float = 5.0
+    inference_reprobe_max_s: float = 60.0
+    # First port of the inference replica range (0 = learner_port + 2) and
+    # the fleet client's hedge delay (0 = none); the port runs one replica.
+    inference_base_port: int = 0
+    inference_hedge_ms: int = 0
+    # Supervisor: silence before a child is restarted, the grace after a
+    # (re)start, the poll period, and the sliding-window restart budget
+    # with its backoff.
+    heartbeat_timeout_s: float = 60.0
+    startup_grace_s: float = 180.0
+    supervise_poll_s: float = 2.0
+    max_restarts: int = 3
+    restart_window_s: float = 300.0
+    restart_backoff_s: float = 1.0
+    restart_backoff_max_s: float = 30.0
+    # The idle learner re-publishes its weights this often, so late joiners
+    # converge (0 = only on updates).
+    rebroadcast_idle_s: float = 2.0
+    # Storage's membership lease: a worker silent this long is evicted.
+    membership_lease_s: float = 15.0
+    # Learner divergence watchdog (heal/watchdog.py) and its rollback budget.
+    watchdog_enabled: bool = False
+    watchdog_window: int = 32
+    watchdog_z: float = 6.0
+    watchdog_sustain: int = 3
+    watchdog_nonfinite: int = 3
+    watchdog_diag: bool = False
+    max_rollbacks: int = 3
+    rollback_window_s: float = 600.0
+    # Storage ingress validation (heal/ingress.py) and worker quarantine.
+    ingress_validate: bool = False
+    ingress_abs_max: float = 1e6
+    quarantine_strikes: int = 3
+    quarantine_clear_s: float = 2.0
+    # TraceRecorder ring capacity, and every Nth worker tick sampled into
+    # the fleet trace (0 = off).
+    trace_capacity: int = 4096
+    trace_sample_n: int = 0
     # runtime-derived (filled by the runner, not the JSON)
     obs_shape: tuple[int, ...] = (4,)
     action_space: int = 2
     is_continuous: bool = False
     # Keys of a tpu_rl params file this port does not read yet.
     extra: dict[str, Any] = field(default_factory=dict, compare=False, repr=False)
+
+    @classmethod
+    def from_json(cls, path: str | os.PathLike, **overrides: Any) -> "Config":
+        with open(path) as f:
+            raw = json.load(f)
+        return cls.from_dict({**raw, **overrides})
 
     @classmethod
     def from_dict(cls, raw: dict[str, Any]) -> "Config":
@@ -245,6 +343,7 @@ class Config:
         assert self.lr > 0, self.lr
         assert self.max_grad_norm > 0, self.max_grad_norm
         assert self.loss_log_interval >= 1, self.loss_log_interval
+        self._validate_runtime()
         if self.slo_spec:
             # a typo'd rule dies at load, not silently mid-run
             from tpu_rl_torch.obs.slo import parse_slo_spec
@@ -334,6 +433,109 @@ class Config:
                 "(family.act); use act_kernel='xla'"
             )
 
+    def _validate_runtime(self) -> None:
+        """tpu_rl's asserts of the distributed runtime's keys, in its order."""
+        replicas = int(self.extra.get("inference_replicas", 1))
+        assert self.profile_start >= 0, self.profile_start
+        assert self.profile_steps >= 1, self.profile_steps
+        assert self.worker_step_sleep >= 0, self.worker_step_sleep
+        assert self.rollout_lag_sec > 0, self.rollout_lag_sec
+        assert self.learner_device in ("auto", "cpu"), self.learner_device
+        assert self.act_mode in ("local", "remote"), self.act_mode
+        assert self.relay_mode in ("raw", "decode"), self.relay_mode
+        assert self.transport in ("tcp", "shm", "auto"), self.transport
+        assert self.inference_timeout_ms > 0, self.inference_timeout_ms
+        assert self.inference_retries >= 0, self.inference_retries
+        assert self.inference_reprobe_s >= 0, self.inference_reprobe_s
+        assert self.inference_reprobe_max_s >= self.inference_reprobe_s, (
+            f"inference_reprobe_max_s ({self.inference_reprobe_max_s}) must "
+            f"be >= inference_reprobe_s ({self.inference_reprobe_s})"
+        )
+        assert self.inference_hedge_ms >= 0, self.inference_hedge_ms
+        assert self.inference_hedge_ms <= self.inference_timeout_ms, (
+            f"inference_hedge_ms ({self.inference_hedge_ms}) past the "
+            f"request timeout ({self.inference_timeout_ms} ms) can never fire"
+        )
+        if self.inference_base_port:
+            assert (
+                0 < self.inference_base_port
+                and self.inference_base_port + replicas <= 65536
+            ), (
+                f"inference replica ports [{self.inference_base_port}, "
+                f"{self.inference_base_port + replicas}) fall outside the port space"
+            )
+            assert not (
+                self.inference_base_port
+                <= self.telemetry_port
+                < self.inference_base_port + replicas
+            ), (
+                f"telemetry_port {self.telemetry_port} collides with the "
+                f"inference replica port range [{self.inference_base_port}, "
+                f"{self.inference_base_port + replicas})"
+            )
+        assert self.heartbeat_timeout_s > 0, self.heartbeat_timeout_s
+        assert self.startup_grace_s >= 0, self.startup_grace_s
+        assert self.supervise_poll_s > 0, self.supervise_poll_s
+        assert self.max_restarts >= 0, self.max_restarts
+        assert self.restart_window_s > 0, self.restart_window_s
+        assert self.restart_backoff_s >= 0, self.restart_backoff_s
+        assert self.restart_backoff_max_s >= 0, self.restart_backoff_max_s
+        assert self.rebroadcast_idle_s >= 0, self.rebroadcast_idle_s
+        assert self.membership_lease_s > 0, self.membership_lease_s
+        assert self.watchdog_window >= 2, self.watchdog_window
+        assert self.watchdog_z > 0, self.watchdog_z
+        assert self.watchdog_sustain >= 1, self.watchdog_sustain
+        assert self.watchdog_nonfinite >= 1, self.watchdog_nonfinite
+        assert self.max_rollbacks >= 1, self.max_rollbacks
+        assert self.rollback_window_s > 0, self.rollback_window_s
+        assert self.ingress_abs_max > 0, self.ingress_abs_max
+        assert self.quarantine_strikes >= 1, self.quarantine_strikes
+        assert self.quarantine_clear_s >= 0, self.quarantine_clear_s
+        if self.watchdog_enabled:
+            assert self.update_guard, (
+                "watchdog_enabled requires update_guard: the nonfinite "
+                "trigger channel reads the in-jit guard counter"
+            )
+            assert self.ckpt_keep >= 2, (
+                f"watchdog_enabled requires ckpt_keep >= 2 (got "
+                f"{self.ckpt_keep}): rollback restores the previous "
+                "committed checkpoint"
+            )
+        if self.watchdog_diag:
+            assert self.watchdog_enabled, (
+                "watchdog_diag extends the watchdog's signal set; enable "
+                "watchdog_enabled (and its prerequisites) first"
+            )
+            assert self.learn_diag, (
+                "watchdog_diag requires learn_diag: the approx-KL/ESS "
+                "signals come from the learning-dynamics diagnostics"
+            )
+        assert self.trace_capacity >= 1, self.trace_capacity
+        assert self.trace_sample_n >= 0, self.trace_sample_n
+        assert self.learner_chain >= 1, self.learner_chain
+        assert self.learner_prefetch >= 0, (
+            f"learner_prefetch must be >= 0 (0 = synchronous feed), "
+            f"got {self.learner_prefetch}"
+        )
+        if self.max_update_data_ratio is not None:
+            assert self.max_update_data_ratio > 0, (
+                f"max_update_data_ratio must be > 0 (updates per received "
+                f"transition), got {self.max_update_data_ratio}"
+            )
+        if self.learner_chain > 1:
+            assert self.extra.get("sebulba_split", 0) == 0, (
+                "learner_chain > 1 is not supported with a sebulba split"
+            )
+        if self.entropy_anneal is not None:
+            a = self.entropy_anneal
+            assert "coef" in a, "entropy_anneal needs 'coef' (final entropy_coef)"
+            assert ("at" in a) or ("frac" in a), (
+                "entropy_anneal needs a switch point: 'at' (absolute update "
+                "index) or 'frac' (fraction of the run's update budget)"
+            )
+            if "frac" in a:
+                assert 0.0 < float(a["frac"]) < 1.0, a["frac"]
+
     @property
     def telemetry_enabled(self) -> bool:
         """The gate of the telemetry plane: on iff the metrics have
@@ -349,3 +551,72 @@ class Config:
         new = dataclasses.replace(self, **kw)
         new.validate()
         return new
+
+
+@dataclass
+class WorkerMachine:
+    """One actor machine entry (reference ``utils/machines.json``)."""
+
+    num_p: int = 2
+    manager_ip: str = "127.0.0.1"
+    ip: str = "127.0.0.1"
+    port: int = 27165
+
+
+@dataclass
+class MachinesConfig:
+    """Cluster topology (reference ``utils/machines.json``)."""
+
+    learner_ip: str = "127.0.0.1"
+    learner_port: int = 47165
+    workers: list[WorkerMachine] = field(default_factory=lambda: [WorkerMachine()])
+
+    @classmethod
+    def from_json(cls, path: str | os.PathLike) -> "MachinesConfig":
+        with open(path) as f:
+            raw = json.load(f)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: dict[str, Any]) -> "MachinesConfig":
+        learner = raw.get("learner", {})
+        workers = [WorkerMachine(**w) for w in raw.get("workers", [])]
+        return cls(
+            learner_ip=learner.get("ip", "127.0.0.1"),
+            learner_port=int(learner.get("port", 47165)),
+            workers=workers or [WorkerMachine()],
+        )
+
+    @property
+    def model_port(self) -> int:
+        """Model-broadcast port = learner_port + 1."""
+        return self.learner_port + 1
+
+    @property
+    def inference_port(self) -> int:
+        """Centralized-inference ROUTER port = learner_port + 2."""
+        return self.learner_port + 2
+
+    def inference_ports(self, cfg: Config) -> list[int]:
+        """Collision-checked ports of the inference replicas:
+        ``inference_replicas`` consecutive ports from ``cfg.inference_base_port``
+        (or ``learner_port + 2`` when unset)."""
+        from tpu_rl_torch.runtime.portplan import plan_range, reserved_ports
+
+        base = cfg.inference_base_port or self.inference_port
+        return plan_range(
+            base,
+            int(cfg.extra.get("inference_replicas", 1)),
+            reserved_ports(self, cfg),
+            "inference replica",
+        )
+
+
+def default_result_dirs(base: str = "results") -> tuple[str, str]:
+    """Timestamped result/model dirs (reference ``utils/utils.py:79-81``)."""
+    import datetime
+
+    ts = datetime.datetime.now().strftime("%d%m%Y-%H_%M_%S")
+    result_dir = os.path.join(base, ts)
+    model_dir = os.path.join(result_dir, "models")
+    return result_dir, model_dir

@@ -3,8 +3,9 @@ metrics registries, the telemetry aggregator, exporters (Prometheus / JSON
 / tensorboard), the live performance plane (FLOPs/MFU/recompiles/device
 memory + profiler capture), the SLO engine, the goodput ledger, the
 learning-dynamics plane (``tpu_rl_torch.obs.learn``) and the run-history
-plane (time-series store + ``/query`` + anomaly detection). The fleet's
-span tracing, clock sync and offline merge/report tools are not ported.
+plane (time-series store + ``/query`` + anomaly detection), and the fleet's
+span tracing, clock sync and trace merge that the distributed runtime's
+roles use.
 """
 
 from tpu_rl_torch.obs.aggregator import (
@@ -20,6 +21,7 @@ from tpu_rl_torch.obs.anomaly import (
     AnomalyDetector,
 )
 from tpu_rl_torch.obs.audit import append_jsonl, append_resume
+from tpu_rl_torch.obs.clocksync import ClockEstimate, ClockSync
 from tpu_rl_torch.obs.exporters import (
     JsonExporter,
     TelemetryHTTPServer,
@@ -59,6 +61,7 @@ from tpu_rl_torch.obs.learn import (
     publish,
     stale_bucket_index,
 )
+from tpu_rl_torch.obs.merge import merge_result_dir, merge_traces
 from tpu_rl_torch.obs.perf import (
     PEAK_FLOPS,
     PerfTracker,
@@ -76,6 +79,7 @@ from tpu_rl_torch.obs.registry import (
     merge_snapshots,
 )
 from tpu_rl_torch.obs.slo import SloEngine, SloRule, maybe_slo_engine, parse_slo_spec
+from tpu_rl_torch.obs.trace import TraceRecorder
 
 __all__ = [
     "ANOMALY_LEVEL_SHIFTS_METRIC",
@@ -83,6 +87,8 @@ __all__ = [
     "AnomalyDetector",
     "BUCKETS",
     "BUCKET_GAUGE_PREFIX",
+    "ClockEstimate",
+    "ClockSync",
     "DEFAULT_STALE_AFTER_S",
     "DiagAccumulator",
     "FlightRecorder",
@@ -107,6 +113,7 @@ __all__ = [
     "TelemetryHTTPServer",
     "TensorboardExporter",
     "TimeSeriesStore",
+    "TraceRecorder",
     "append_jsonl",
     "append_resume",
     "channel_name",
@@ -126,7 +133,9 @@ __all__ = [
     "maybe_history",
     "maybe_ledger",
     "maybe_slo_engine",
+    "merge_result_dir",
     "merge_snapshots",
+    "merge_traces",
     "parse_slo_spec",
     "process_self_stats",
     "publish",

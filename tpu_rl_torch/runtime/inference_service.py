@@ -42,9 +42,11 @@ sums them, and stays 0 while every flush runs at a warmed bucket's shape.
 a metrics registry. The chaos hooks come with the operations planes.
 
 The router is passed in: anything with ``recv(timeout_ms)``, ``drain()`` and
-``send(identity, proto, payload)`` — :class:`~tpu_rl_torch.runtime.local_router.LocalRouter`
-in this slice. The service runs on ``device="cuda"`` unless the caller passes
-``device="cpu"``.
+``send(identity, proto, payload)`` — the in-process
+:class:`~tpu_rl_torch.runtime.local_router.LocalRouter`, or the learner's
+:class:`~tpu_rl_torch.runtime.transport.Router` on ``inference_port``, which
+workers reach through :class:`InferenceClient` (a DEALER). The service runs
+on ``device="cuda"`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -583,3 +585,86 @@ class InferenceService:
         tracker = self.perf_buckets.get(st.rows)
         if tracker is not None:
             tracker.note(flush_secs)
+
+
+class InferenceClient:
+    """Worker-side remote-acting client — the port of ``tpu_rl``'s: one
+    in-flight request per tick (send, then a timed receive) over a
+    :class:`~tpu_rl_torch.runtime.transport.Dealer`, correlated by a
+    monotonically increasing ``seq`` echo; stale replies (a retry's ghost)
+    are skipped by seq.
+
+    ``act`` returns the reply payload dict, or None once
+    ``Config.inference_retries`` retries have all timed out
+    (``Config.inference_timeout_ms`` each): the caller's cue to fall back
+    to local acting. Retries resend the same seq: if the server did serve
+    the lost reply, its carry advanced once more than the episode."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        ip: str,
+        port: int,
+        wid: int = 0,
+        identity: bytes | None = None,
+        timer: ExecutionTimer | None = None,
+    ):
+        import uuid
+
+        from tpu_rl_torch.runtime.transport import Dealer
+
+        self.cfg = cfg
+        self.wid = wid
+        self.timer = timer
+        self.seq = 0
+        self.n_timeouts = 0
+        # Unique per socket across worker restarts: a restarted worker
+        # reusing a dead identity would inherit the old carry rows.
+        self.dealer = Dealer(
+            ip, port,
+            identity=identity or f"w{wid}-{uuid.uuid4().hex[:8]}".encode(),
+        )
+
+    @property
+    def n_rejected(self) -> int:
+        """Corrupt/foreign replies dropped by the DEALER."""
+        return self.dealer.n_rejected
+
+    def act(
+        self,
+        obs: np.ndarray,
+        first: np.ndarray,
+        retries: int | None = None,
+    ) -> dict | None:
+        """``retries`` overrides ``Config.inference_retries`` for this call
+        (the worker's re-probe uses 0)."""
+        cfg = self.cfg
+        attempts = (cfg.inference_retries if retries is None else int(retries)) + 1
+        req = {"wid": self.wid, "seq": self.seq, "obs": obs, "first": first}
+        t0 = time.perf_counter()
+        try:
+            for _attempt in range(attempts):
+                self.dealer.send(Protocol.ObsRequest, req)
+                deadline = time.perf_counter() + cfg.inference_timeout_ms / 1e3
+                while True:
+                    left_ms = int((deadline - time.perf_counter()) * 1e3)
+                    if left_ms <= 0:
+                        break
+                    got = self.dealer.recv(timeout_ms=left_ms)
+                    if got is None:
+                        continue  # a rejected frame burned some budget; keep waiting
+                    proto, payload = got
+                    if proto != Protocol.Act or not isinstance(payload, dict):
+                        continue
+                    if payload.get("seq") != self.seq:
+                        continue  # stale ghost of an earlier retry
+                    if self.timer is not None:
+                        self.timer.record("inference-rtt", time.perf_counter() - t0)
+                    return payload
+                self.n_timeouts += 1
+            return None
+        finally:
+            self.seq += 1
+
+    def close(self) -> None:
+        self.dealer.close()

@@ -1,5 +1,5 @@
-"""Tensorboard scalars — the port's copy of ``make_writer`` and
-``NullWriter`` from ``tpu_rl.utils.metrics``.
+"""Tensorboard scalars — the port's copy of ``tpu_rl.utils.metrics``
+(``make_writer``, ``NullWriter`` and the learner's ``LearnerLogger``).
 
 :func:`make_writer` returns a tensorboardX ``SummaryWriter`` on
 ``result_dir``, or a :class:`NullWriter` when there is no ``result_dir`` or
@@ -10,6 +10,7 @@ a run that asked for event files and writes none says why.
 from __future__ import annotations
 
 import sys
+from typing import Mapping
 
 
 class NullWriter:
@@ -44,3 +45,28 @@ def make_writer(result_dir: str | None):
                 flush=True,
             )
         return NullWriter()
+
+
+class LearnerLogger:
+    """Scalar fan-out for the learner loop (names follow the reference so
+    dashboards transfer)."""
+
+    def __init__(self, writer, algo: str):
+        self.w = writer
+        self.algo = algo
+
+    def log_losses(self, step: int, metrics: Mapping[str, float]) -> None:
+        for name, val in metrics.items():
+            self.w.add_scalar(f"{self.algo}/{name}", float(val), step)
+
+    def log_timers(self, step: int, timer) -> None:
+        for name, val in timer.scalars().items():
+            self.w.add_scalar(f"perf/{name}", float(val), step)
+
+    def log_stat(self, game_count: int, mean_rew: float) -> None:
+        self.w.add_scalar(
+            "50-game-mean-stat-of-epi-rew", float(mean_rew), game_count
+        )
+
+    def flush(self) -> None:
+        self.w.flush()
