@@ -137,7 +137,7 @@ against its plain PyTorch version:
    4 layers, act_ctx 512, bf16 compute; obs 4, 2 actions) behind
    ``InferenceService`` with its KV caches in the service's carry table on
    the card, at inference_dtype f32, bf16 and int8, under mix 1 (2 x 4 x
-   1000, the ring wraps) and mix 2 (64 x 4 x 100) with CartPole-like
+   600, the ring wraps) and mix 2 (64 x 4 x 50) with CartPole-like
    resets: no failure; mix 1's clients 0 and 1 equal to a replay of
    ``family.act`` on the card, bit for bit; client 0's env 0 against
    ``_act_transformer_window`` for act_ctx steps; host-to-device bytes =
@@ -190,9 +190,9 @@ against its plain PyTorch version:
 12d. the distributed runtime (``cluster_phase``): ``runtime.runner.local_cluster``
    with tpu_rl's default config (PPO, CartPole-v1, H 64, seq_len 5, batch
    128; one worker machine of 2 processes, worker_num_envs 1, no worker
-   throttle) to 50 updates, twice: (a) local acting, TCP, the raw relay;
+   throttle), twice: (a) local acting, TCP, the raw relay, 50 updates;
    (b) every act step served by the learner's InferenceService through B3,
-   the manager -> storage hop over shm. Where gymnasium is missing, a
+   the manager -> storage hop over shm, 30 updates. Where gymnasium is missing, a
    stand-in ``gymnasium`` package over ``DeviceSpecEnv`` goes first on
    every child's path. Per run: the learner's exit code (0), updates/s and
    env steps/s ingested by storage (telemetry.json, storage's clock),
@@ -202,6 +202,21 @@ against its plain PyTorch version:
    flushes with no remote-acting fallback, all read from the learner's
    closing telemetry snapshot; only the learner child holds a CUDA context
    (nvidia-smi's compute PIDs mid-run);
+12e. data and sequence parallelism on torch.distributed (``dp_phase``,
+   ``sp_phase``; one card, so none of it is a scaling number): (P1) the
+   data-parallel step at IMPALA@wide-lstm, (P2) the colocated loop (20
+   updates, then a run checkpointed at 10 and resumed to 15) and the
+   transformer at longctx-flash width with flash, each at world size 1 over
+   a one-rank NCCL group in this process against the plain path (bit for
+   bit), with the wrapper's cost, the grad bytes all-reduced and the
+   all-reduce's device time; then two ranks sharing the card over gloo
+   (``python3 chip_smoke.py --rank R ...`` children, collectives staged
+   through host memory) against world size 1 at tests/test_parallel.py's
+   bars, with each rank's B1/B2 launches; (P4) ring and Ulysses attention
+   over the two ranks at (16,2048,8,64) bf16 against full attention in
+   f32, beside B4's and blockwise's times; what gloo does with CUDA
+   tensors and NCCL with two ranks on one card; (P3) the cluster with a
+   two-rank learner (run (c)), B1/B2 = updates x K_epoch on every rank;
 13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
@@ -423,6 +438,10 @@ WIDE_COLOCATED_WARMUP, WIDE_COLOCATED_UPDATES = 2, 5
 # 64 x 4 x 100 fills the 256-row bucket (mix 2). bf16/int8 serving runs
 # mix 1.
 SERVE_MIXES = ((2, 1000, "mix1"), (64, 100, "mix2"))
+# The transformer's mixes, cut to keep the smoke inside its time limit: mix
+# 1 to 600 acts a client (the window oracle still reads act_ctx, 512,
+# steps), mix 2 to 50.
+TF_SERVE_MIXES = ((2, 600, "mix1"), (64, 50, "mix2"))
 SERVE_DTYPES = ("bf16", "int8")
 # tests/test_quant.py:140-157's bars for bf16/int8 serving against f32 on
 # its margin-scaled head (_margin_params: the logits head x 4, 512 rows):
@@ -954,11 +973,16 @@ def lstm_phase() -> list[dict]:
             )
 
         iters = 100 if B * S * H <= 100_000 else 10
+        # the plain versions, ~1-3 ms of host launches a call, on fewer calls
+        # a sample (the smoke's time limit)
+        plain_iters = max(5, iters // 5)
         fwd_ms = device_ms(lambda: L.lstm_fwd(xp, wh, h0, c0, keep), iters=iters)
-        fwd_plain_ms = device_ms(lambda: L.lstm_forward_plain(xp, wh, h0, c0, keep), iters=iters)
+        fwd_plain_ms = device_ms(lambda: L.lstm_forward_plain(xp, wh, h0, c0, keep),
+                                 iters=plain_iters)
         bwd_ms = device_ms(lambda: L.lstm_bwd(wh, h0, c0, keep, hs, cs, acts, dhs, dcs), iters=iters)
         bwd_plain_ms = device_ms(
-            lambda: L.lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs), iters=iters
+            lambda: L.lstm_backward_plain(wh, h0, c0, keep, hs, cs, acts, dhs, dcs),
+            iters=plain_iters,
         )
         # The autograd Function's forward + backward (B1, B2 and the dwh
         # product) beside the plain pair's.
@@ -971,7 +995,7 @@ def lstm_phase() -> list[dict]:
             hs_q, cs_q, acts_q = L.lstm_forward_plain(xp, wh, h0, c0, keep)
             return L.lstm_backward_plain(wh, h0, c0, keep, hs_q, cs_q, acts_q, dhs, dcs)
 
-        pair_ms = device_ms(plain_pair, iters=iters)
+        pair_ms = device_ms(plain_pair, iters=plain_iters)
         cudnn = cudnn_lstm_ms(B, S, H, iters)
         plan = L.lstm_launch_plan(B, S, H)
         resident = L.max_active_clusters(plan)
@@ -2578,7 +2602,7 @@ def tf_streams(k: int, envs: int, acts: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def tf_serve_phase(card: str, dtype: str = "f32", compute_dtype: str | None = None,
-                   mixes: tuple = SERVE_MIXES) -> dict:
+                   mixes: tuple = TF_SERVE_MIXES) -> dict:
     """The transformer served through InferenceService over a LocalRouter
     (tf_serve_cfg), KV caches in the service's carry table on the card:
     the mixes with episode resets; every reply of the TF_SERVE_KEEP clients
@@ -3590,6 +3614,9 @@ CLUSTER_RUNS = (
     ("b", dict(act_mode="remote", act_kernel="pallas", transport="auto",
                inference_timeout_ms=60000)),
 )
+# Run (b) is the slowest (~0.7 updates/s): 30 updates keep the smoke inside
+# its time limit (the profiler window ends at 25).
+CLUSTER_UPDATES_BY_RUN = {"b": 30}
 CLUSTER_TIMEOUT_S = 300.0
 
 
@@ -3717,10 +3744,13 @@ def trace_kernels(prof_dir: Path) -> dict:
     return out
 
 
-def cluster_run(tag: str, over: dict, card: str) -> dict:
-    """One ``local_cluster`` run to CLUSTER_UPDATES updates; telemetry.json
+def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
+    """One ``local_cluster`` run to CLUSTER_UPDATES updates (run (b):
+    CLUSTER_UPDATES_BY_RUN); telemetry.json
     (storage's aggregate of every role's snapshots, every second) is read
-    while it runs and after."""
+    while it runs and after. With ``ranks`` > 1 the learner is that many
+    data-parallel ranks (``mesh_data``) sharing the card; each rank's
+    launches come in the learner's closing snapshot."""
     import shutil
 
     from tpu_rl_torch.config import Config, MachinesConfig, WorkerMachine
@@ -3740,7 +3770,8 @@ def cluster_run(tag: str, over: dict, card: str) -> dict:
     ctx_checks: list[dict] = []
     done = threading.Event()
     t0 = time.perf_counter()
-    sup = local_cluster(cfg, machines, max_updates=CLUSTER_UPDATES)
+    n_updates = CLUSTER_UPDATES_BY_RUN.get(tag, CLUSTER_UPDATES)
+    sup = local_cluster(cfg, machines, max_updates=n_updates)
     children = {c.name: c for c in sup.children}
 
     def watch() -> None:
@@ -3752,7 +3783,7 @@ def cluster_run(tag: str, over: dict, card: str) -> dict:
                 continue
             idx = metric(lrn, "learner-update-index", "gauges") or 0.0
             samples.append((float(sto["ts"]), float(idx), float(metric(sto, "storage-windows") or 0)))
-            if 5 <= idx < CLUSTER_UPDATES - 5 and len(ctx_checks) < 3:
+            if 5 <= idx < n_updates - 5 and len(ctx_checks) < 3:
                 ctx_checks.append({"pids": cuda_pids(),
                                    "children": {n: c.proc.pid for n, c in children.items()},
                                    "fds": {n: card_fds(c.proc.pid) for n, c in children.items()}})
@@ -3790,10 +3821,20 @@ def cluster_run(tag: str, over: dict, card: str) -> dict:
     fwd = int(metric(lrn, "learner-lstm-fwd-launches"))
     bwd = int(metric(lrn, "learner-lstm-bwd-launches"))
     k = cfg.K_epoch
-    if updates != CLUSTER_UPDATES:
-        fail(f"cluster ({tag}): {updates} updates, expected {CLUSTER_UPDATES}")
+    if updates != n_updates:
+        fail(f"cluster ({tag}): {updates} updates, expected {n_updates}")
     if (fwd, bwd) != (updates * k, updates * k):
         fail(f"cluster ({tag}): B1/B2 launches {fwd}/{bwd}, expected updates x K_epoch = {updates * k}")
+    per_rank = None
+    if ranks > 1:
+        per_rank = [(metric(lrn, f"learner-lstm-fwd-launches-rank{r}"),
+                     metric(lrn, f"learner-lstm-bwd-launches-rank{r}"),
+                     metric(lrn, f"learner-updates-run-rank{r}")) for r in range(ranks)]
+        if any(tuple(x) != (updates * k, updates * k, updates) for x in per_rank):
+            fail(f"cluster ({tag}): per-rank (B1, B2, updates) {per_rank}, expected "
+                 f"({updates * k}, {updates * k}, {updates}) on every rank")
+        if metric(lrn, "mesh-world", "gauges") != ranks:
+            fail(f"cluster ({tag}): mesh-world {metric(lrn, 'mesh-world', 'gauges')}")
     rejected = {
         "storage": metric(sto, "storage-rejected-frames"),
         "manager": metric(mgr, "manager-rejected-frames"),
@@ -3810,6 +3851,8 @@ def cluster_run(tag: str, over: dict, card: str) -> dict:
         fail(f"cluster ({tag}): frames rejected {rejected}")
     out = dict(tag=tag, config=over, updates=updates, K_epoch=k, learner_exit=exitcode,
                wall_s=wall, lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+               launches_by_rank=per_rank, mesh_staged_bytes=metric(lrn, "mesh-staged-bytes"),
+               scattered_bytes=metric(lrn, "learner-scattered-bytes"),
                frames_rejected=rejected, frames_dropped=dropped,
                forwarded_frames=metric(mgr, "manager-forwarded-frames"),
                windows=metric(sto, "storage-windows"))
@@ -3844,9 +3887,9 @@ def cluster_run(tag: str, over: dict, card: str) -> dict:
         fail(f"cluster ({tag}): no mid-run sample of the CUDA contexts")
     for check in ctx_checks:
         n_ctx = len(check["pids"] or [])
-        if n_ctx != 2:
+        if n_ctx != 1 + ranks:
             fail(f"cluster ({tag}): nvidia-smi lists {n_ctx} compute processes mid-run, "
-                 f"expected 2 (this process and the learner): {check}")
+                 f"expected {1 + ranks} (this process and the learner's ranks): {check}")
         holders = sorted(n for n, fds in check["fds"].items() if fds)
         if holders != ["learner"]:
             fail(f"cluster ({tag}): children holding the card: {holders}, expected the learner only")
@@ -3889,6 +3932,579 @@ def cluster_phase(card: str) -> dict:
     src = gym_stand_in()
     print(f"cluster env source: {src}", flush=True)
     return {tag: cluster_run(tag, over, card) for tag, over in CLUSTER_RUNS}
+
+
+# ------------------------------------------ data and sequence parallelism
+# The multi-GPU slice on one card. NCCL refuses two ranks on one device, so
+# at world size 1 every data-parallel path runs over a real one-rank NCCL
+# communicator in this process, and two ranks share the card over gloo (the
+# mesh stages each collective through host memory) in spawned children.
+# Nothing here is a scaling number: one card cannot show one.
+DP_WARMUP, DP_UPDATES = 2, 5  # (P1) IMPALA@wide-lstm, untimed + timed
+# (P2) the default config's colocated loop: updates, then a run saving every
+# DP_SAVE_EVERY updates to DP_SAVED and one resuming from it to DP_RESUMED
+DP_COLOCATED_UPDATES, DP_SAVE_EVERY, DP_SAVED, DP_RESUMED = 20, 5, 10, 15
+# tests/test_parallel.py:83-96's bars: loss (rtol, atol), params (rtol, atol)
+DP_LOSS_TOL, DP_PARAM_TOL = (2e-4, 2e-5), (2e-3, 2e-5)
+DP_RANKS = 2
+DP_RANK_TIMEOUT_S = 420.0
+# (P4) ring and Ulysses at PPO-transformer@longctx-flash's attention shape
+SP_SHAPE = (16, 2048, 8, 64)
+SP_BF16_BAR = 2.0**-6  # PERF.md §2's blockwise bar, per tensor: share of max|ref|
+SP_TIMED = 3
+DP_FLASH_UPDATES = 3
+DP_CLUSTER_RUN = ("c", dict(CLUSTER_RUNS[0][1], mesh_data=DP_RANKS))
+
+
+def dp_init_world1():
+    """This process as a one-rank NCCL world (file:// rendezvous under the
+    git-ignored .chip_scratch/); returns its mesh."""
+    from tpu_rl_torch.parallel.mesh import init_process_group, make_mesh
+
+    rdv = ROOT / ".chip_scratch" / f"rdv-world1-{os.getpid()}"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    backend = init_process_group(f"file://{rdv}", 1, 0, torch.device("cuda", 0), False)
+    if backend != "nccl":
+        fail(f"world size 1 on the card joined {backend}, expected nccl")
+    return make_mesh(1, device=torch.device("cuda", 0))
+
+
+def flat_params(state) -> torch.Tensor:
+    leaves = state_leaves(state)
+    return torch.cat([x.reshape(-1).float() for v in leaves.values() for x in v])
+
+
+def close_to(got: torch.Tensor, want: torch.Tensor, tol: tuple[float, float]) -> float:
+    """Largest |got - want| / (atol + rtol |want|): <= 1 passes."""
+    rtol, atol = tol
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def dp_step_run(cfg, mesh, updates: int, warmup: int):
+    """(final state, last metrics, timing) of ``warmup`` + ``updates``
+    updates of ``cfg``'s step on ``lstm_batch(cfg, 0)`` (this rank's rows
+    under a mesh) from the seed-0 state; B1/B2's counters zeroed before
+    the timed updates."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.parallel.dp import make_parallel_train_step, replicate, shard_batch
+
+    _f, state, step = get_algo(cfg.algo).build(
+        cfg, torch.Generator().manual_seed(0), device=mesh.device if mesh else "cuda", mesh=mesh)
+    batch = lstm_batch(cfg, 0, device=str(mesh.device) if mesh else "cuda")
+    if mesh is not None:
+        replicate(state, mesh)
+        step = make_parallel_train_step(step, mesh, cfg)
+        batch = shard_batch(batch, mesh)
+    for _ in range(warmup):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    staged0 = mesh.staged_bytes if mesh else 0
+    enqueue = []
+    t0 = time.perf_counter()
+    for _ in range(updates):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        enqueue.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timing = dict(ms_per_update=wall / updates * 1e3, enqueue_ms=statistics.median(enqueue) * 1e3,
+                  lstm_fwd_launches=L.LSTM_FWD_LAUNCHES, lstm_bwd_launches=L.LSTM_BWD_LAUNCHES,
+                  staged_bytes_per_update=((mesh.staged_bytes - staged0) / updates) if mesh else 0,
+                  rows=batch.obs.shape[0])
+
+    def one():
+        nonlocal state
+        state, _m = step(state, batch)
+
+    timing["device_ms_per_update"] = device_ms(one, iters=2, reps=3, warmup=1)
+    return state, metrics, timing
+
+
+def dp_colocated(cfg_kw: dict, updates: int, model_dir: str | None = None,
+                 resume_to: int | None = None):
+    """The default config's colocated loop (world from the process group):
+    ``updates`` updates, or with ``model_dir`` a run saving every
+    DP_SAVE_EVERY updates to ``updates`` and a fresh loop resuming from the
+    newest committed one to ``resume_to``. Returns (state, record)."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+
+    kw = dict(TRAIN_CFG, **cfg_kw, loss_log_interval=updates)
+    if model_dir is not None:
+        kw.update(model_dir=model_dir, model_save_interval=DP_SAVE_EVERY)
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    loop = ColocatedLoop(Config(**kw), seed=0, max_updates=updates, device="cuda")
+    out = loop.run(log=False)
+    rec = dict(updates=out["updates"], episodes=out["episodes"],
+               lstm_fwd_launches=L.LSTM_FWD_LAUNCHES, lstm_bwd_launches=L.LSTM_BWD_LAUNCHES)
+    if model_dir is None:
+        return loop.state, rec
+    again = ColocatedLoop(Config(**dict(kw, loss_log_interval=resume_to)), seed=0,
+                          max_updates=resume_to, device="cuda")
+    out2 = again.run(log=False)
+    rec.update(resumed_from=again._start_it, run_epoch=again.run_epoch,
+               resumed_updates=out2["updates"], episodes_after_resume=out2["episodes"])
+    return again.state, rec
+
+
+def sp_attention(mesh, impl: str) -> dict:
+    """Ring or Ulysses attention over ``mesh``'s seq group at SP_SHAPE in
+    bf16: this rank's block of o and of the grads of sum(o * do) against
+    full attention in f32 on the same bf16 inputs, per tensor as a share of
+    max|ref|; and the fwd+bwd wall time of one layer's attention (staged
+    collectives block the host)."""
+    from tpu_rl_torch.ops import attention as A
+    from tpu_rl_torch.parallel.sequence import ATTENTION_IMPLS, full_attention
+
+    B, T, H, D = SP_SHAPE
+    q, k, v, seg, do = attn_inputs(B, T, H, D, torch.bfloat16, 8, 41)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T).contiguous()
+    tl = slice(mesh.seq_index * (T // mesh.n_seq), (mesh.seq_index + 1) * (T // mesh.n_seq))
+    ins = [x[:, tl].contiguous().requires_grad_() for x in (q, k, v)]
+    fn = ATTENTION_IMPLS[impl]
+
+    def call():
+        for x in ins:
+            x.grad = None
+        o = fn(*ins, pos[:, tl], seg[:, tl], causal=True, mesh=mesh)
+        (o.float() * do[:, tl].float()).sum().backward()
+        return o
+
+    # B4's launches in this path's calls (the f32 reference runs none)
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    o = call()
+    launches = [A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES]
+    got = {"o": o.detach(), "dq": ins[0].grad, "dk": ins[1].grad, "dv": ins[2].grad}
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = full_attention(*ref_in, pos, seg, causal=True)
+    (ref * do.float()).sum().backward()
+    want = {"o": ref.detach(), "dq": ref_in[0].grad, "dk": ref_in[1].grad, "dv": ref_in[2].grad}
+    errs = {n: float((got[n].float() - want[n][:, tl]).abs().max() / want[n].abs().max())
+            for n in got}
+    del ref, ref_in, want
+    torch.cuda.synchronize()
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(SP_TIMED):
+        call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / SP_TIMED * 1e3
+    return dict(impl=impl, errs=errs, bar=SP_BF16_BAR, ms_fwd_bwd_per_layer=ms,
+                flash_fwd_launches=launches[0] + A.FLASH_FWD_LAUNCHES,
+                flash_bwd_launches=launches[1] + A.FLASH_BWD_LAUNCHES)
+
+
+# send/recv last: on a card it aborts the process, so the other ops are
+# read in the same pair of ranks
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "scatter", "all_to_all_single",
+                  "batch_isend_irecv")
+
+
+def gloo_cuda_probe(ops: list[str], out: Path) -> None:
+    """Run each of ``ops`` with gloo on CUDA tensors, with no host staging,
+    writing ``out`` after each: "ok" or gloo's own error; an op that kills
+    the process stays "started". A probe, not a path: the port never calls
+    these on CUDA tensors under gloo (its mesh stages them)."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
+        "scatter": lambda: dist.scatter(torch.empty_like(x),
+                                        [x.clone() for _ in range(world)] if rank == 0 else None,
+                                        src=0),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(4 * world, device="cuda"), torch.ones(4 * world, device="cuda")),
+        "batch_isend_irecv": lambda: [r.wait() for r in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.clone(), (rank + 1) % world),
+            dist.P2POp(dist.irecv, torch.empty_like(x), (rank - 1) % world)])],
+    }
+    res: dict = {}
+    for name in ops:
+        res[name] = "started"
+        out.write_text(json.dumps(res))
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            res[name] = "ok"
+        except Exception as e:  # noqa: BLE001 — the error is the measurement
+            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        out.write_text(json.dumps(res))
+
+
+def gloo_probe_phase(rdir: Path) -> dict:
+    """What gloo does with CUDA tensors, op by op, in pairs of ranks on the
+    card; an op that aborts its process is recorded with the exit code and
+    the rest go on in a new pair."""
+    todo, found = list(GLOO_PROBE_OPS), {}
+    while todo:
+        d = rdir / f"gloo-{len(found)}"
+        d.mkdir()
+        codes = spawn_ranks(DP_RANKS, d, ["--probe", "gloo", "--ops", ",".join(todo)],
+                            timeout=120.0)
+        f = d / "gloo-rank0.json"
+        got = json.loads(f.read_text()) if f.exists() else {}
+        for name in todo:
+            if name in got and got[name] != "started":
+                found[name] = got[name]
+            elif name in got:
+                found[name] = f"the process died (exit codes {codes})"
+        done = [n for n in todo if n in found]
+        todo = [n for n in todo if n not in found]
+        if not done:  # nothing reached: do not loop
+            found.update({n: f"not reached (exit codes {codes})" for n in todo})
+            break
+    return found
+
+
+def rank_main(argv: list[str]) -> None:
+    """One of ``W`` ranks (``--rank R --world W --rdv FILE --out DIR``), on
+    the card and backend the port's rule gives it (one card: every rank on
+    it, gloo; a card a rank: NCCL): (P1) the DP step at IMPALA@wide-lstm on
+    this rank's rows, (P2) the colocated loop with its checkpoint resume,
+    (P4) ring and Ulysses attention. With ``--probe gloo --ops a,b`` or
+    ``--probe nccl`` it runs that probe instead, every rank on card 0.
+    Results go to ``DIR/rank<R>.json`` and ``DIR/rank<R>-*.pt``."""
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--rank"]), int(args["--world"])
+    out = Path(args["--out"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.parallel.mesh import (
+        init_process_group,
+        make_mesh,
+        make_sp_mesh,
+        rank_device,
+    )
+
+    if args.get("--probe") == "gloo":
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method=f"file://{args['--rdv']}",
+                                world_size=world, rank=rank)
+        gloo_cuda_probe(args["--ops"].split(","), out / f"gloo-rank{rank}.json")
+        dist.barrier()
+        return
+    if args.get("--probe") == "nccl":
+        # NCCL with two ranks on one card: its own answer
+        import torch.distributed as dist
+
+        res = {}
+        try:
+            dist.init_process_group("nccl", init_method=f"file://{args['--rdv']}",
+                                    world_size=world, rank=rank,
+                                    device_id=torch.device("cuda", 0))
+            x = torch.ones(4, device="cuda")
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            res["nccl_all_reduce"] = f"ok ({x.tolist()})"
+        except Exception as e:  # noqa: BLE001 — the error is the measurement
+            res["nccl_all_reduce"] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+        (out / f"nccl-rank{rank}.json").write_text(json.dumps(res))
+        return
+    dev, share = rank_device(rank, world)
+    backend = init_process_group(f"file://{args['--rdv']}", world, rank, dev, share)
+    res: dict = {"rank": rank, "backend": backend, "device": str(dev)}
+    mesh = make_mesh(world, device=dev)
+    res["host_staging"] = mesh.host_staging
+    cfg = Config.from_dict(dict(WIDE_LSTM_CFG, algo="IMPALA"))
+    state, metrics, timing = dp_step_run(cfg, mesh, DP_UPDATES, DP_WARMUP)
+    res["p1"] = dict(timing, loss=float(metrics["loss"]))
+    torch.save(flat_params(state).cpu(), out / f"rank{rank}-p1.pt")
+    del state
+    import tempfile
+
+    st, rec = dp_colocated({"mesh_data": world}, DP_COLOCATED_UPDATES)
+    torch.save(flat_params(st).cpu(), out / f"rank{rank}-p2.pt")
+    res["p2"] = rec
+    ck = Path(tempfile.gettempdir()) / "chip_smoke_dp_ckpt"
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(ck, ignore_errors=True)
+    torch.distributed.barrier()
+    st, rec = dp_colocated({"mesh_data": world}, DP_SAVED, str(ck), DP_RESUMED)
+    torch.save(flat_params(st).cpu(), out / f"rank{rank}-p2r.pt")
+    res["p2_resume"] = rec
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    sp = make_sp_mesh(1, world, device=dev)
+    res["p4"] = {impl: sp_attention(sp, impl) for impl in ("ring", "ulysses")}
+    res["staged_bytes"] = mesh.staged_bytes + sp.staged_bytes
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world: int, out: Path, extra: list[str] | None = None,
+                timeout: float = DP_RANK_TIMEOUT_S) -> list[int | None]:
+    """``world`` children running :func:`rank_main`; returns their exit
+    codes (None for a child killed at the timeout). Every child is stopped
+    before this returns."""
+    rdv = out / f"rdv-{time.time_ns()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r), "--world", str(world),
+         "--rdv", str(rdv), "--out", str(out), *(extra or [])],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    codes: list[int | None] = []
+    deadline = time.monotonic() + timeout
+    for r, p in enumerate(procs):
+        try:
+            log, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            codes.append(p.returncode)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            log, _ = p.communicate()
+            codes.append(None)
+        tail = "\n".join(f"  rank {r}| {ln}" for ln in log.splitlines()[-12:])
+        print(f"rank {r} exit {codes[-1]}:\n{tail}", flush=True)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return codes
+
+
+def dp_phase(card: str, ranks: int = DP_RANKS, probes: bool = True) -> dict:
+    """(P1) the DP train step at IMPALA@wide-lstm, (P2) the colocated loop,
+    (P4, DP half) the transformer at longctx-flash width with flash: each at
+    world size 1 over NCCL against the plain step or loop (bit for bit),
+    then at DP_RANKS ranks sharing the card over gloo against world size 1
+    at tests/test_parallel.py's bars; (P3) the cluster with the learner at
+    mesh_data DP_RANKS. Launch counts per rank; the DP wrapper's cost. On a
+    machine with a card a rank, ``ranks`` ranks run over NCCL instead
+    (``probes=False`` leaves out the one-card probes and the cluster)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import attention as A
+    from tpu_rl_torch.parallel.dp import make_parallel_train_step, replicate
+
+    out: dict = {}
+    cfg = Config.from_dict(dict(WIDE_LSTM_CFG, algo="IMPALA"))
+    # --- plain first: the loops build no mesh outside a process group
+    p_state, p_metrics, p_time = dp_step_run(cfg, None, DP_UPDATES, DP_WARMUP)
+    plain_p1 = flat_params(p_state)
+    del p_state
+    c_state, c_rec = dp_colocated({}, DP_COLOCATED_UPDATES)
+    plain_p2 = flat_params(c_state)
+
+    mesh = dp_init_world1()
+    d_state, d_metrics, d_time = dp_step_run(cfg, mesh, DP_UPDATES, DP_WARMUP)
+    world1_p1 = flat_params(d_state)
+    n_grads = world1_p1.numel()
+    bitwise_p1 = bool(torch.equal(world1_p1, plain_p1)) and float(d_metrics["loss"]) == float(
+        p_metrics["loss"])
+    diff_p1 = float((world1_p1 - plain_p1).abs().max())
+    want = cfg.K_epoch * DP_UPDATES
+    if (d_time["lstm_fwd_launches"], d_time["lstm_bwd_launches"]) != (want, want):
+        fail(f"DP step world 1: B1/B2 launches {d_time['lstm_fwd_launches']}/"
+             f"{d_time['lstm_bwd_launches']}, want updates x K_epoch = {want}")
+    if not bitwise_p1:
+        print(f"DP step world 1 vs plain: NOT bit for bit, max |diff| {diff_p1}", flush=True)
+        if close_to(world1_p1, plain_p1, DP_PARAM_TOL) > 1.0:
+            fail(f"DP step world 1 vs plain: params beyond the bar (max |diff| {diff_p1})")
+    buf = torch.zeros(n_grads + 1, device="cuda")
+    ar_ms = device_ms(lambda: mesh.all_reduce_(buf), iters=20, reps=5, warmup=3)
+    del d_state
+    out["p1_world1"] = dict(plain=p_time, dp=d_time, bitwise=bitwise_p1, max_abs_diff=diff_p1,
+                            grad_bytes_per_update=4 * (n_grads + 1) * cfg.K_epoch,
+                            all_reduce_device_ms=ar_ms, loss=float(d_metrics["loss"]))
+    print(
+        f"DP step IMPALA@wide-lstm world 1 (nccl) vs plain: bit for bit {bitwise_p1} (max |diff| "
+        f"{diff_p1}); ms/update {d_time['ms_per_update']:.4f} vs {p_time['ms_per_update']:.4f}, "
+        f"host enqueue {d_time['enqueue_ms']:.4f} vs {p_time['enqueue_ms']:.4f} ms, device "
+        f"{d_time['device_ms_per_update']:.4f} vs {p_time['device_ms_per_update']:.4f} ms an "
+        f"update; grads all-reduced {4 * (n_grads + 1) * cfg.K_epoch} bytes an update, the "
+        f"all-reduce {ar_ms:.6f} ms of device time; B1/B2 launches "
+        f"{d_time['lstm_fwd_launches']}/{d_time['lstm_bwd_launches']} (want {want}) [{card}]",
+        flush=True,
+    )
+    w_state, w_rec = dp_colocated({}, DP_COLOCATED_UPDATES)
+    world1_p2 = flat_params(w_state)
+    bitwise_p2 = bool(torch.equal(world1_p2, plain_p2)) and w_rec["episodes"] == c_rec["episodes"]
+    diff_p2 = float((world1_p2 - plain_p2).abs().max())
+    if not bitwise_p2 and close_to(world1_p2, plain_p2, DP_PARAM_TOL) > 1.0:
+        fail(f"colocated world 1 vs plain: params beyond the bar (max |diff| {diff_p2})")
+    want2 = DP_COLOCATED_UPDATES * Config().K_epoch
+    if (w_rec["lstm_fwd_launches"], w_rec["lstm_bwd_launches"]) != (want2, want2):
+        fail(f"colocated world 1: B1/B2 launches {w_rec}, want {want2}")
+    ck = tempfile.mkdtemp(prefix="chip_smoke_dp1_")
+    r_state, r_rec = dp_colocated({}, DP_SAVED, ck, DP_RESUMED)
+    if (r_rec["resumed_from"], r_rec["run_epoch"], r_rec["resumed_updates"]) != (
+            DP_SAVED, 1, DP_RESUMED):
+        fail(f"colocated world 1: resume {r_rec}")
+    world1_p2r = flat_params(r_state)
+    out["p2_world1"] = dict(bitwise=bitwise_p2, max_abs_diff=diff_p2, plain=c_rec, dp=w_rec,
+                            resume=r_rec)
+    print(f"colocated PPO 128 envs world 1 (nccl) vs plain, {DP_COLOCATED_UPDATES} updates: bit "
+          f"for bit {bitwise_p2} (max |diff| {diff_p2}), episodes {w_rec['episodes']} vs "
+          f"{c_rec['episodes']}; resume {r_rec} [{card}]", flush=True)
+
+    # --- (P4, DP half) the transformer at longctx-flash width, flash per rank,
+    # against the plain step on the same seed, batch and updates
+    tcfg = Config.from_dict(TF_TRAIN_CFG)
+    t_batch = tf_batch(tcfg, 0)
+    _f, t_state, t_step = get_algo(tcfg.algo).build(
+        tcfg, torch.Generator().manual_seed(0), device="cuda", mesh=None)
+    for _ in range(1 + DP_FLASH_UPDATES):
+        t_state, t_metrics = t_step(t_state, t_batch)
+    plain_tf, plain_tf_loss = flat_params(t_state), float(t_metrics["loss"])
+    del t_state, t_step
+    _f, t_state, t_step = get_algo(tcfg.algo).build(
+        tcfg, torch.Generator().manual_seed(0), device="cuda", mesh=mesh)
+    replicate(t_state, mesh)
+    t_step = make_parallel_train_step(t_step, mesh, tcfg)
+    t_state, _m = t_step(t_state, t_batch)
+    torch.cuda.synchronize()
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(DP_FLASH_UPDATES):
+        t_state, t_metrics = t_step(t_state, t_batch)
+    torch.cuda.synchronize()
+    tf_ms = (time.perf_counter() - t0) / DP_FLASH_UPDATES * 1e3
+    f_fwd, f_bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
+    want4 = tcfg.n_layers * tcfg.K_epoch * DP_FLASH_UPDATES
+    if (f_fwd, f_bwd) != (want4, want4) or not np.isfinite(float(t_metrics["loss"])):
+        fail(f"DP flash transformer world 1: B4 launches {f_fwd}/{f_bwd} (want {want4}), "
+             f"loss {float(t_metrics['loss'])}")
+    world1_tf = flat_params(t_state)
+    bitwise_tf = bool(torch.equal(world1_tf, plain_tf)) and float(t_metrics["loss"]) == plain_tf_loss
+    diff_tf = float((world1_tf - plain_tf).abs().max())
+    if not bitwise_tf:
+        print(f"DP transformer world 1 vs plain: NOT bit for bit, max |diff| {diff_tf}, loss "
+              f"{float(t_metrics['loss'])} vs {plain_tf_loss}", flush=True)
+        if close_to(world1_tf, plain_tf, DP_PARAM_TOL) > 1.0:
+            fail(f"DP transformer world 1 vs plain: params beyond the bar (max |diff| {diff_tf})")
+    out["p4_dp_flash_world1"] = dict(ms_per_update=tf_ms, flash_fwd_launches=f_fwd,
+                                     flash_bwd_launches=f_bwd, loss=float(t_metrics["loss"]),
+                                     bitwise=bitwise_tf, max_abs_diff=diff_tf)
+    print(f"DP transformer longctx-flash world 1 (nccl) vs plain, {1 + DP_FLASH_UPDATES} updates: "
+          f"bit for bit {bitwise_tf} (max |diff| {diff_tf}); {tf_ms:.4f} ms/update, B4 launches "
+          f"{f_fwd}/{f_bwd} = n_layers x K_epoch x updates [{card}]", flush=True)
+    del plain_tf
+    del t_state, t_step, t_batch
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # --- two ranks sharing the card over gloo (host-staged collectives)
+    rdir = ROOT / ".chip_scratch" / "dp-ranks"
+    import shutil
+
+    shutil.rmtree(rdir, ignore_errors=True)
+    rdir.mkdir(parents=True)
+    codes = spawn_ranks(ranks, rdir)
+    docs = []
+    for r in range(ranks):
+        f = rdir / f"rank{r}.json"
+        docs.append(json.loads(f.read_text()) if f.exists() else {})
+    if any(c != 0 for c in codes):
+        fail(f"the {ranks} ranks exited {codes}: {docs}")
+    p1 = [torch.load(rdir / f"rank{r}-p1.pt") for r in range(ranks)]
+    p2 = [torch.load(rdir / f"rank{r}-p2.pt") for r in range(ranks)]
+    p2r = [torch.load(rdir / f"rank{r}-p2r.pt") for r in range(ranks)]
+    if not all(torch.equal(p1[0], x) and torch.equal(p2[0], y) and torch.equal(p2r[0], z)
+               for x, y, z in zip(p1, p2, p2r)):
+        fail("the ranks hold different params")
+    two = dict(
+        p1_vs_world1=close_to(p1[0], world1_p1.cpu(), DP_PARAM_TOL),
+        p1_loss_vs_world1=abs(docs[0]["p1"]["loss"] - out["p1_world1"]["loss"])
+        / (DP_LOSS_TOL[1] + DP_LOSS_TOL[0] * abs(out["p1_world1"]["loss"])),
+        p2_vs_world1=close_to(p2[0], world1_p2.cpu(), DP_PARAM_TOL),
+        p2_resumed_vs_world1=close_to(p2r[0], world1_p2r.cpu(), DP_PARAM_TOL),
+    )
+    bad = {k: v for k, v in two.items() if not v <= 1.0}
+    for d in docs:
+        t = d["p1"]
+        if (t["lstm_fwd_launches"], t["lstm_bwd_launches"]) != (want, want):
+            fail(f"rank {d['rank']}: B1/B2 launches {t}, want {want}")
+        if d["p2_resume"]["resumed_from"] != DP_SAVED or d["p2_resume"]["run_epoch"] != 1:
+            fail(f"rank {d['rank']}: resume {d['p2_resume']}")
+        for impl, a in d["p4"].items():
+            if not all(e <= SP_BF16_BAR for e in a["errs"].values()):
+                bad[f"rank {d['rank']} {impl}"] = a["errs"]
+            if (a["flash_fwd_launches"], a["flash_bwd_launches"]) != (0, 0):
+                fail(f"rank {d['rank']} {impl}: B4 launches {a['flash_fwd_launches']}/"
+                     f"{a['flash_bwd_launches']}, want 0 (ring and Ulysses are plain, as tpu_rl's)")
+    if bad:
+        fail(f"{ranks} ranks vs world 1 / full attention beyond the bar "
+             f"(share of the bar, <= 1 passes): {bad}")
+    out["two_ranks"] = dict(share_of_bar=two, ranks=docs)
+    for d in docs:
+        print(f"rank {d['rank']}/{ranks} on {d['device']} ({d['backend']}, host staging "
+              f"{d['host_staging']}): "
+              f"DP IMPALA@wide-lstm {d['p1']['rows']} rows {d['p1']['ms_per_update']:.4f} "
+              f"ms/update (not a scaling number), host-staged {d['p1']['staged_bytes_per_update']} "
+              f"bytes an update, B1/B2 launches {d['p1']['lstm_fwd_launches']}/"
+              f"{d['p1']['lstm_bwd_launches']}; colocated {d['p2']}; resume {d['p2_resume']}; "
+              + "; ".join(f"{i} errs {a['errs']} (bar {a['bar']}) {a['ms_fwd_bwd_per_layer']:.4f} "
+                          f"ms fwd+bwd a layer, B4 launches {a['flash_fwd_launches']}/"
+                          f"{a['flash_bwd_launches']}" for i, a in d["p4"].items())
+              + f" [{card}]", flush=True)
+    print(f"{ranks} ranks vs world 1, share of tests/test_parallel.py's bars: {two} [{card}]",
+          flush=True)
+    if not probes:
+        return out
+    out["gloo_cuda"] = gloo_probe_phase(rdir)
+    print(f"gloo on CUDA tensors (no staging): {out['gloo_cuda']} [{card}]", flush=True)
+    nccl_dir = rdir / "nccl"
+    nccl_dir.mkdir()
+    spawn_ranks(DP_RANKS, nccl_dir, ["--probe", "nccl"], timeout=90.0)
+    out["nccl_two_ranks_one_card"] = [
+        json.loads(f.read_text()) for f in sorted(nccl_dir.glob("nccl-rank*.json"))]
+    print(f"NCCL, {DP_RANKS} ranks on one card: {out['nccl_two_ranks_one_card']} [{card}]",
+          flush=True)
+    # --- (P3) the cluster with the learner's ranks
+    tag, over = DP_CLUSTER_RUN
+    out["cluster"] = cluster_run(tag, over, card, ranks=DP_RANKS)
+    return out
+
+
+def sp_phase(card: str, dp: dict, attn_rows: list[dict], blockwise_rows: list[dict]) -> dict:
+    """(P4) the transformer at PPO-transformer@longctx-flash width: ring and
+    Ulysses attention over a seq group of DP_RANKS ranks sharing the card
+    (run by dp_phase's ranks; o and grads against full attention in f32 on
+    the same bf16 inputs at SP_BF16_BAR per tensor), beside B4's and
+    blockwise attention's fwd+bwd at the same shape from this run; and the
+    data-parallel step with flash at world size 1 (B4 per rank)."""
+    b4 = next(r for r in attn_rows if (r["shape"]["B"], r["shape"]["T"], r["shape"]["H"],
+                                       r["shape"]["D"]) == SP_SHAPE)
+    blk = next((r for r in blockwise_rows if r["dtype"] == "bfloat16"), blockwise_rows[0])
+    ranks = {d["rank"]: d["p4"] for d in dp["two_ranks"]["ranks"]}
+    out = dict(
+        shape=SP_SHAPE, bar=SP_BF16_BAR, by_rank=ranks,
+        b4_fwd_bwd_ms=b4["flash_attn_fwd"]["ms"] + b4["flash_attn_bwd"]["ms"],
+        blockwise_fwd_bwd_ms=blk["fwd_ms"] + blk["bwd_ms"],
+        dp_flash_world1=dp["p4_dp_flash_world1"],
+    )
+    for impl in ("ring", "ulysses"):
+        out[f"{impl}_fwd_bwd_ms"] = max(r[impl]["ms_fwd_bwd_per_layer"] for r in ranks.values())
+        out[f"{impl}_max_share_of_max_ref"] = max(max(r[impl]["errs"].values())
+                                                 for r in ranks.values())
+    print(
+        f"SP attention {SP_SHAPE} bf16, fwd+bwd ms a layer: ring {out['ring_fwd_bwd_ms']:.4f} and "
+        f"Ulysses {out['ulysses_fwd_bwd_ms']:.4f} ({DP_RANKS} ranks sharing the card over gloo, "
+        f"collectives staged through host memory: wall time, not a scaling number), B4 "
+        f"{out['b4_fwd_bwd_ms']:.4f}, blockwise {out['blockwise_fwd_bwd_ms']:.4f} (device time, "
+        f"one card); error as a share of max|ref|: ring {out['ring_max_share_of_max_ref']:.3e}, "
+        f"Ulysses {out['ulysses_max_share_of_max_ref']:.3e} (bar {SP_BF16_BAR}); DP flash world 1: "
+        f"B4 launches {out['dp_flash_world1']['flash_fwd_launches']}/"
+        f"{out['dp_flash_world1']['flash_bwd_launches']} [{card}]",
+        flush=True,
+    )
+    return out
 
 
 def main() -> None:
@@ -3972,6 +4588,8 @@ def main() -> None:
     feeds = replay_feed_phase(card)
     reports = report_compare_check(telemetry["colocated"].pop("result_dir"), card)
     cluster = cluster_phase(card)
+    dp = dp_phase(card)
+    sp = sp_phase(card, dp, attn_rows, blockwise_rows)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -4065,6 +4683,16 @@ def main() -> None:
                 # the distributed runtime's learner child, each run
                 **{f"cluster ({tag}) {'remote' if r['config']['act_mode'] == 'remote' else 'local'}"
                    f" acting PPO": r[f"{name}_launches"] for tag, r in cluster.items()},
+                # the data-parallel paths: world size 1 over NCCL, and each
+                # of DP_RANKS ranks sharing the card (counted in that rank)
+                "DP IMPALA@wide-lstm world 1": dp["p1_world1"]["dp"][f"{name}_launches"],
+                "DP colocated PPO world 1": dp["p2_world1"]["dp"][f"{name}_launches"],
+                **{f"DP IMPALA@wide-lstm rank {d['rank']}/{DP_RANKS}": d["p1"][f"{name}_launches"]
+                   for d in dp["two_ranks"]["ranks"]},
+                **{f"DP colocated PPO rank {d['rank']}/{DP_RANKS}": d["p2"][f"{name}_launches"]
+                   for d in dp["two_ranks"]["ranks"]},
+                **{f"cluster (c) DP learner rank {r}/{DP_RANKS}": int(x[0 if name == "lstm_fwd" else 1])
+                   for r, x in enumerate(dp["cluster"]["launches_by_rank"])},
             },
             # the inline trainer's shape (32,5,64), lstm_phase's row
             inline_ms=inline["kernel_ms"][name],
@@ -4103,6 +4731,13 @@ def main() -> None:
                    for a, r in tf_algos.items()},
                 "colocated longcontext config (blockwise)": tf_colocated[f"{name}_launches"],
                 "colocated longcontext config (flash)": tf_colocated_flash[f"{name}_launches"],
+                "DP longctx-flash world 1": dp["p4_dp_flash_world1"][name.replace(
+                    "flash_attn", "flash") + "_launches"],
+                # ring and Ulysses attention are plain PyTorch, as tpu_rl's:
+                # each rank's count over its calls
+                **{f"SP {impl} rank {d['rank']}/{DP_RANKS}": d["p4"][impl][
+                    name.replace("flash_attn", "flash") + "_launches"]
+                   for d in dp["two_ranks"]["ranks"] for impl in ("ring", "ulysses")},
             },
             card=card,
             shapes=[dict(shape=x["shape"], checks=x["checks"], tiles_visited=x["tiles_visited"],
@@ -4126,7 +4761,8 @@ def main() -> None:
         "blockwise_attention": blockwise_rows, "transformer_algos": tf_algos,
         "transformer_serving": tf_serving,
         "telemetry": telemetry, "inline": inline, "feeds": feeds,
-        "report_compare": reports, "cluster": cluster}, default=str), flush=True)
+        "report_compare": reports, "cluster": cluster, "data_parallel": dp,
+        "sequence_parallel": sp}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -4141,4 +4777,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--rank" in sys.argv:
+        rank_main(sys.argv[1:])
+    else:
+        main()

@@ -230,7 +230,11 @@ def test_flash_attention_is_causal_only():
     q = torch.zeros((1, 4, 1, 8))
     with pytest.raises(NotImplementedError, match="causal only"):
         S.flash_attention(q, q, q, None, torch.zeros((1, 4), dtype=torch.int32), causal=False)
-    assert set(S.ATTENTION_IMPLS) == {"full", "flash", "blockwise"}
+    # tpu_rl's five since the multi-GPU slice (ring and Ulysses)
+    from tpu_rl.parallel.sequence import ATTENTION_IMPLS as JAX_IMPLS
+
+    assert set(S.ATTENTION_IMPLS) == set(JAX_IMPLS) == {
+        "full", "flash", "blockwise", "ring", "ulysses"}
 
 
 # ------------------------------------------------- the bf16 kernels' tile rule

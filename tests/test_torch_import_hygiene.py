@@ -60,6 +60,7 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.envs", "tpu_rl_torch.envs.core", "tpu_rl_torch.envs.cartpole",
         "tpu_rl_torch.runtime.colocated", "tpu_rl_torch.ops.attention",
         "tpu_rl_torch.parallel", "tpu_rl_torch.parallel.sequence",
+        *(f"tpu_rl_torch.parallel.{m}" for m in ("mesh", "dp", "multihost")),
         "tpu_rl_torch.models.transformer", "tpu_rl_torch.checkpoint",
         *(f"tpu_rl_torch.obs.{m}" for m in (
             "registry", "aggregator", "goodput", "audit", "flightrec", "perf", "learn",
@@ -106,9 +107,10 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
          "worker_step_sleep": 0.05, "mesh_seq": 1, "sebulba_queue": 2}
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
-    # the distributed runtime's keys are fields since its slice
-    assert cfg.worker_step_sleep == 0.05
-    assert cfg.extra == {"chaos_spec": None, "mesh_seq": 1, "sebulba_queue": 2}
+    # the distributed runtime's keys are fields since its slice, the mesh
+    # keys since the multi-GPU slice
+    assert cfg.worker_step_sleep == 0.05 and cfg.mesh_seq == 1
+    assert cfg.extra == {"chaos_spec": None, "sebulba_queue": 2}
     # bf16/int8 serving and the checkpoint directory load now
     for mode in ("bf16", "int8"):
         assert Config.from_dict({"inference_dtype": mode}).inference_dtype == mode
@@ -120,12 +122,12 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
     # SAC builds now; in colocated mode (no replay) it is refused as in tpu_rl
     with pytest.raises(AssertionError, match="on-policy only"):
         Config.from_dict({"algo": "SAC", "env_mode": "colocated"})
-    for kw, slice_name in (
-        ({"model": "transformer", "attention_impl": "ring"}, "sequence-parallel slice"),
-        ({"model": "transformer", "attention_impl": "ulysses"}, "sequence-parallel slice"),
-    ):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            build_family(Config.from_dict(kw), device="cpu")
+    # ring and Ulysses build since the multi-GPU slice (full attention
+    # outside a sequence-parallel mesh, as in tpu_rl)
+    for impl in ("ring", "ulysses"):
+        fam = build_family(Config.from_dict({"model": "transformer", "attention_impl": impl}),
+                           device="cpu")
+        assert fam.actor.block0.attn.attention_impl == impl
     # blockwise attention builds now
     fam = build_family(Config.from_dict({"model": "transformer", "attention_impl": "blockwise"}),
                        device="cpu")
@@ -139,22 +141,69 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("mesh_data", 2, "multi-GPU slice"),
-    ("mesh_seq", 2, "multi-GPU slice"),
-    ("multihost", {"coordinator": "127.0.0.1:1234", "num_processes": 2, "process_id": 0},
-     "multi-GPU slice"),
+    ("sebulba_split", 1, "sebulba slice"),
     ("chaos_spec", "nan:rollout@p=0.4", "fleet and operations slice"),
     ("inference_replicas", 2, "fleet slice"),
     ("inference_mesh_data", 2, "fleet slice"),
 ])
 def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
-    """A key that makes tpu_rl shard, arm chaos or run replicas is refused
-    away from its default, naming the slice that brings it; at its default
-    (or absent) it loads."""
+    """A key that makes tpu_rl split one process's devices, shard its
+    inference, arm chaos or run replicas is refused away from its default,
+    naming the slice that brings it; at its default (or absent) it loads."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Config.from_dict({key: value})
-    default = None if key in ("multihost", "chaos_spec") else 1
+    default = {"chaos_spec": None, "sebulba_split": 0}.get(key, 1)
     assert Config.from_dict({key: default}).extra == {key: default}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("mesh_data", 2), ("mesh_seq", 1),
+    ("multihost", {"coordinator": "127.0.0.1:1234", "num_processes": 2, "process_id": 0}),
+])
+def test_config_loads_the_mesh_keys_as_fields(key, value):
+    """The multi-GPU slice's keys are fields with tpu_rl's defaults."""
+    from tpu_rl.config import Config as JaxConfig
+
+    assert getattr(Config(), key) == getattr(JaxConfig(), key)
+    cfg = Config.from_dict({key: value})
+    assert getattr(cfg, key) == value and cfg.extra == {}
+
+
+# tpu_rl's mesh asserts (config.py:685, 716-727, 882-895, 940-950) on inputs
+# that break each; the port refuses each with the same exception type
+_TF = {"model": "transformer", "seq_len": 8, "n_heads": 4}
+_HOST = {"coordinator": "127.0.0.1:1", "num_processes": 3, "process_id": 0}
+
+
+@pytest.mark.parametrize("raw", [
+    {"mesh_data": 0},
+    {"mesh_seq": 2},
+    {**_TF, "mesh_seq": 2, "attention_impl": "full"},
+    {**_TF, "mesh_seq": 3, "attention_impl": "ring"},
+    {**_TF, "n_heads": 3, "hidden_size": 63, "mesh_seq": 2, "attention_impl": "ulysses"},
+    {**_TF, "mesh_seq": 2, "attention_impl": "ring", "learner_chain": 2},
+    {"multihost": _HOST, "learner_chain": 2},
+    {"env_mode": "colocated", "colocated_envs": 8, "multihost": _HOST},
+], ids=["mesh_data0", "mesh_seq-lstm", "mesh_seq-full", "mesh_seq-divides-seq_len",
+        "ulysses-heads", "chain-mesh_seq", "chain-multihost", "colocated-envs-per-host"])
+def test_mesh_asserts_match_tpu_rl(raw):
+    from tpu_rl.config import Config as JaxConfig
+
+    with pytest.raises(AssertionError):
+        JaxConfig.from_dict(raw)
+    with pytest.raises(AssertionError):
+        Config.from_dict(raw)
+
+
+def test_mesh_configs_tpu_rl_accepts_load():
+    from tpu_rl.config import Config as JaxConfig
+
+    for raw in ({**_TF, "mesh_data": 2, "mesh_seq": 2, "attention_impl": "ring"},
+                {**_TF, "mesh_seq": 4, "attention_impl": "ulysses"},
+                {"env_mode": "colocated", "colocated_envs": 9, "multihost": _HOST}):
+        JaxConfig.from_dict(raw)
+        cfg = Config.from_dict(raw)
+        assert all(getattr(cfg, k) == v for k, v in raw.items())
 
 
 @pytest.mark.parametrize("key", ["telemetry_port", "result_dir"])
@@ -181,17 +230,17 @@ def test_config_loads_telemetry_keys_and_builds_the_plane(key, tmp_path):
 
 
 def test_config_example_files_load_or_refuse():
-    """params.example.json and the single-chip long-context config load
-    (the latter with an attention the port has); the mesh-sharded
-    long-context config is refused for its mesh."""
+    """params.example.json and both long-context configs load: the
+    single-chip one, and the (data 2, seq 4) ring-attention one since the
+    multi-GPU slice."""
     root = Path(__file__).resolve().parent.parent / "configs"
     raw = json.loads((root / "params.example.json").read_text())
     assert Config.from_dict(raw).worker_step_sleep == raw["worker_step_sleep"] == 0.05
     raw = json.loads((root / "longcontext_singlechip.example.json").read_text())
-    assert Config.from_dict(dict(raw, attention_impl="flash")).extra["mesh_seq"] == 1
+    assert Config.from_dict(dict(raw, attention_impl="flash")).mesh_seq == 1
     raw = json.loads((root / "longcontext.example.json").read_text())
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        Config.from_dict(dict(raw, attention_impl="flash"))
+    cfg = Config.from_dict(raw)
+    assert (cfg.mesh_data, cfg.mesh_seq, cfg.attention_impl) == (2, 4, "ring")
 
 
 def test_config_loads_a_full_tpu_rl_params_file():

@@ -25,6 +25,7 @@ from tpu_rl_torch.config import Config
 from tpu_rl_torch.heal.guards import guarded, update_ok
 from tpu_rl_torch.obs.learn import module_grad_norms, tree_delta_norm, tree_norm
 from tpu_rl_torch.ops.losses import clip_subtree_by_global_norm
+from tpu_rl_torch.parallel.mesh import NO_SYNC
 from tpu_rl_torch.utils.tree import tree_leaves, tree_map, value_and_grad
 
 Params = dict[str, dict[str, torch.Tensor]]
@@ -163,6 +164,7 @@ def make_on_policy_step(
     loss_fn: Callable,
     clip_subtree: str | None = None,
     project: Callable[[Params], Params] | None = None,
+    sync=NO_SYNC,
 ):
     """The update loop PPO, IMPALA and V-MPO share, ``tpu_rl``'s
     ``train_step`` body: ``K_epoch`` epochs of value-and-grad of
@@ -170,6 +172,12 @@ def make_on_policy_step(
     global-norm clip (of ``clip_subtree`` only, when given), RMSprop and
     ``project`` (V-MPO's floor on ``log_eta``) behind the update guard; then
     ``grad-norm``, ``nonfinite-updates`` and the diag scalars.
+
+    ``sync`` is the collective hook (:class:`~tpu_rl_torch.parallel.mesh.Mesh`
+    under data parallelism, the identity by default): ``sync.grads`` takes
+    the grads' mean over the ranks, with the loss riding along, before the
+    clip, so the clip, the guard and the optimizer see global numbers and
+    every rank decides the same.
 
     Returns ``step(state, batch, epoch_args=None) -> (state, metrics)``."""
     opt = rmsprop(cfg)
@@ -188,6 +196,7 @@ def make_on_policy_step(
             extra = () if epoch_args is None else epoch_args[e]
             loss, metrics, grads = value_and_grad(loss_fn, state.params, batch, *extra)
             metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
+            grads, loss = sync.grads(grads, loss)
             grads, gnorm = clip_subtree_by_global_norm(grads, cfg.max_grad_norm, clip_subtree)
             if guard:
                 ok = update_ok(loss, gnorm)

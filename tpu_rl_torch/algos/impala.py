@@ -17,11 +17,12 @@ from tpu_rl_torch.algos.ppo import policy_outputs
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.obs.learn import rows_mean
 from tpu_rl_torch.ops.losses import smooth_l1
+from tpu_rl_torch.parallel.mesh import NO_SYNC
 from tpu_rl_torch.ops.returns import vtrace
 from tpu_rl_torch.types import Batch
 
 
-def make_train_step(cfg: Config, family):
+def make_train_step(cfg: Config, family, sync=NO_SYNC):
     """``train_step(state, batch, generator=None) -> (state, metrics)``;
     IMPALA draws nothing, so ``generator`` is unused."""
     v_lo, v_hi = cfg.value_target_clip or (None, None)
@@ -92,9 +93,10 @@ def make_train_step(cfg: Config, family):
             }
         return loss, metrics
 
-    step = make_on_policy_step(cfg, loss_fn)
+    step = make_on_policy_step(cfg, loss_fn, sync=sync)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
         return step(state, batch)
 
+    train_step.sync = sync
     return train_step

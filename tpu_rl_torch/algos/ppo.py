@@ -18,6 +18,7 @@ from tpu_rl_torch.config import Config
 from tpu_rl_torch.obs.learn import rows_mean
 from tpu_rl_torch.ops import distributions as D
 from tpu_rl_torch.ops.losses import smooth_l1
+from tpu_rl_torch.parallel.mesh import NO_SYNC
 from tpu_rl_torch.ops.returns import gae
 from tpu_rl_torch.types import Batch
 
@@ -46,7 +47,7 @@ def td_target_and_gae(cfg: Config, batch: Batch, value: torch.Tensor):
     return td_target, gae(delta, cfg.gamma, cfg.lmbda)
 
 
-def make_train_step(cfg: Config, family):
+def make_train_step(cfg: Config, family, sync=NO_SYNC):
     """``train_step(state, batch, generator=None) -> (state, metrics)``; PPO
     draws nothing, so ``generator`` is unused."""
 
@@ -101,9 +102,10 @@ def make_train_step(cfg: Config, family):
             }
         return loss, metrics
 
-    step = make_on_policy_step(cfg, loss_fn)
+    step = make_on_policy_step(cfg, loss_fn, sync=sync)
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None):
         return step(state, batch)
 
+    train_step.sync = sync
     return train_step

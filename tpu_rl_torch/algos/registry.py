@@ -11,6 +11,7 @@ from tpu_rl_torch.algos import impala, ppo, sac, vmpo
 from tpu_rl_torch.algos.base import make_train_state
 from tpu_rl_torch.config import Config, is_off_policy
 from tpu_rl_torch.models.families import ALGOS, build_family
+from tpu_rl_torch.parallel.mesh import NO_SYNC
 
 
 @dataclass(frozen=True)
@@ -24,16 +25,22 @@ class AlgoSpec:
         cfg: Config,
         generator: torch.Generator | None = None,
         device: str | torch.device | None = "cuda",
+        mesh=None,
     ):
         """Returns (family, initial state, train_step) on ``device`` (CUDA
         unless the caller passes ``device="cpu"``); the initial weights are
         drawn from ``generator`` (a CPU generator). ``train_step(state,
         batch, generator=None, ...)`` draws what it samples from
         ``generator`` (a generator on ``device``), or takes that noise as
-        an argument (V-MPO's ``coef_alpha_u``, SAC-Continuous's ``noise``)."""
-        family = build_family(cfg, device=device)
+        an argument (V-MPO's ``coef_alpha_u``, SAC-Continuous's ``noise``).
+
+        With ``mesh`` (a :class:`~tpu_rl_torch.parallel.mesh.Mesh`) the
+        train step takes it as its collective hook, and a sequence-parallel
+        transformer attends over its seq group; wrap the step with
+        :func:`~tpu_rl_torch.parallel.dp.make_parallel_train_step`."""
+        family = build_family(cfg, device=device, mesh=mesh)
         state = make_train_state(cfg, family, generator)
-        return family, state, self.make_train_step(cfg, family)
+        return family, state, self.make_train_step(cfg, family, sync=mesh or NO_SYNC)
 
 
 _REGISTRY: dict[str, AlgoSpec] = {

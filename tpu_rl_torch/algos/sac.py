@@ -26,6 +26,7 @@ from tpu_rl_torch.obs.learn import module_grad_norms, rows_mean, tree_delta_norm
 from tpu_rl_torch.ops.distributions import normal_log_prob, tanh_normal_sample
 from tpu_rl_torch.ops.losses import clip_subtree_by_global_norm, smooth_l1
 from tpu_rl_torch.ops.target import polyak_update
+from tpu_rl_torch.parallel.mesh import NO_SYNC
 from tpu_rl_torch.types import Batch
 from tpu_rl_torch.utils.tree import value_and_grad
 
@@ -44,11 +45,17 @@ def target_entropy_for(cfg: Config, continuous: bool) -> float:
     return 0.98 * float(torch.log(torch.tensor(float(cfg.action_space))))
 
 
-def make_train_step(cfg: Config, family):
+def make_train_step(cfg: Config, family, sync=NO_SYNC):
     """``train_step(state, batch, generator=None, noise=None) -> (state,
     metrics)``. For SAC-Continuous ``noise`` holds one pair of unit-normal
     (B,S,A) draws per epoch, the actor loss's and the TD target's; without
-    it they come from ``generator``. Discrete SAC draws nothing."""
+    it they come from ``generator``. Discrete SAC draws nothing.
+
+    ``sync`` is the collective hook (the identity by default): each of the
+    three updates takes the mean of its grads over the ranks, its loss
+    riding along for the guard, before its clip; drawn noise has the global
+    batch's shape and this rank takes its rows, so a data-parallel run
+    draws what the single-device run draws."""
     opt_actor, opt_critic = Adam(cfg.lr), Adam(cfg.lr)
     opt_alpha = Adam(cfg.lr if cfg.alpha_lr is None else cfg.alpha_lr)
     continuous = family.continuous
@@ -92,6 +99,7 @@ def make_train_step(cfg: Config, family):
             return loss_policy, ent_neg.detach()
 
         loss_policy, ent_neg, g_actor = value_and_grad(actor_loss, state.actor_params)
+        g_actor, loss_policy = sync.grads(g_actor, loss_policy)
         g_actor, gn_actor = clip_subtree_by_global_norm(g_actor, cfg.max_grad_norm)
 
         def apply_actor():
@@ -111,6 +119,7 @@ def make_train_step(cfg: Config, family):
             return loss, None
 
         loss_alpha, _, g_alpha = value_and_grad(alpha_loss, state.log_alpha)
+        g_alpha, loss_alpha = sync.grads(g_alpha, loss_alpha)
 
         def apply_alpha():
             la, alpha_opt = opt_alpha.apply(g_alpha, state.alpha_opt, state.log_alpha)
@@ -156,6 +165,7 @@ def make_train_step(cfg: Config, family):
             return smooth_l1(q1[:, :-1], td_target) + smooth_l1(q2[:, :-1], td_target), None
 
         loss_value, _, g_critic = value_and_grad(critic_loss, state.critic_params)
+        g_critic, loss_value = sync.grads(g_critic, loss_value)
         g_critic, gn_critic = clip_subtree_by_global_norm(g_critic, cfg.max_grad_norm)
 
         def apply_critic():
@@ -242,9 +252,11 @@ def make_train_step(cfg: Config, family):
         noise=None,
     ):
         if continuous and noise is None:
-            shape = (*batch.obs.shape[:2], family.n_actions)
+            n_local = batch.obs.shape[0]
+            shape = (n_local * sync.n_data, batch.obs.shape[1], family.n_actions)
+            rows = sync.rows(n_local)
             noise = [
-                tuple(torch.randn(shape, generator=generator, device=batch.obs.device)
+                tuple(torch.randn(shape, generator=generator, device=batch.obs.device)[rows]
                       for _ in range(2))
                 for _ in range(cfg.K_epoch)
             ]
@@ -265,4 +277,5 @@ def make_train_step(cfg: Config, family):
             metrics["diag"]["scalars"]["param-norm"] = tree_norm(params1)
         return state.replace(step=state.step + 1), metrics
 
+    train_step.sync = sync
     return train_step

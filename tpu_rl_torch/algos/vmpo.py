@@ -25,6 +25,7 @@ from tpu_rl_torch.config import Config
 from tpu_rl_torch.obs.learn import rows_mean
 from tpu_rl_torch.ops.distributions import categorical_kl
 from tpu_rl_torch.ops.losses import smooth_l1
+from tpu_rl_torch.parallel.mesh import NO_SYNC
 from tpu_rl_torch.types import Batch
 
 def top_half_mask(adv: torch.Tensor, k: int) -> torch.Tensor:
@@ -46,11 +47,18 @@ def log_uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.exp(torch.maximum(a, u * (b - a) + a))
 
 
-def make_train_step(cfg: Config, family):
+def make_train_step(cfg: Config, family, sync=NO_SYNC):
     """``train_step(state, batch, generator=None, coef_alpha_u=None) ->
     (state, metrics)``. ``coef_alpha_u`` holds one unit uniform per epoch,
     the draw behind that epoch's KL bound; without it the draws come from
-    ``generator``."""
+    ``generator``.
+
+    Under data parallelism (``sync`` a mesh) the top-half selection, the
+    softmax normaliser and the selected count are the global batch's: the
+    advantages are all-gathered over the data group before the sort, and
+    this rank's policy term, a sum over its entries of the global softmax,
+    is scaled by the data-axis size so that the ranks' mean is the global
+    sum."""
 
     def loss_fn(params, batch: Batch, coef_alpha_u: torch.Tensor):
         log_probs, entropy, value, logits = policy_outputs(family, params, batch)
@@ -59,19 +67,22 @@ def make_train_step(cfg: Config, family):
         eta = torch.exp(params["duals"]["log_eta"])
         alpha = torch.exp(params["duals"]["log_alpha"])
 
-        k = math.ceil(batch.obs.shape[0] / 2)
-        mask = top_half_mask(advantage, k)
-        ratio = advantage / (eta.detach() + 1e-7)
+        adv_all = sync.gather_rows(advantage)  # the global batch's
+        k = math.ceil(adv_all.shape[0] / 2)
+        mask_all = top_half_mask(adv_all, k)
+        ratio_all = adv_all / (eta.detach() + 1e-7)
 
         # psi: softmax over the selected (b, t) entries, by a masked
         # logsumexp; unselected entries weigh 0.
-        lse = torch.logsumexp(torch.where(mask > 0, ratio, -math.inf).reshape(-1), dim=0)
+        lse = torch.logsumexp(torch.where(mask_all > 0, ratio_all, -math.inf).reshape(-1), dim=0)
+        rows = sync.rows(advantage.shape[0])
+        mask, ratio = mask_all[rows], ratio_all[rows]
         psi = mask * torch.exp(ratio - lse)
-        loss_policy = -torch.sum(psi * torch.where(mask > 0, log_probs[:, :-1], 0.0))
+        loss_policy = -torch.sum(psi * torch.where(mask > 0, log_probs[:, :-1], 0.0)) * sync.n_data
 
         loss_value = smooth_l1(value[:, :-1], td_target)
 
-        n_selected = torch.sum(mask).detach()
+        n_selected = torch.sum(mask_all).detach()
         loss_temperature = eta * cfg.coef_eta + eta * (lse - torch.log(n_selected))
 
         coef_alpha = log_uniform(coef_alpha_u, cfg.coef_alpha_below, cfg.coef_alpha_upper)
@@ -126,7 +137,7 @@ def make_train_step(cfg: Config, family):
         floor = torch.log(torch.full_like(duals["log_eta"], 1e-6))
         return {**params, "duals": {**duals, "log_eta": torch.maximum(duals["log_eta"], floor)}}
 
-    step = make_on_policy_step(cfg, loss_fn, clip_subtree="actor", project=project)
+    step = make_on_policy_step(cfg, loss_fn, clip_subtree="actor", project=project, sync=sync)
 
     def train_step(
         state: TrainState,
@@ -140,4 +151,5 @@ def make_train_step(cfg: Config, family):
             )
         return step(state, batch, [(coef_alpha_u[e],) for e in range(cfg.K_epoch)])
 
+    train_step.sync = sync
     return train_step

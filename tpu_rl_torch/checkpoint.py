@@ -258,15 +258,25 @@ def _to_host(state: Any, ready: dict | None = None) -> Any:
 class Checkpointer:
     """Single-writer checkpoint manager. ``async_save=False`` makes
     ``save()`` blocking but atomic; ``Config.ckpt_async`` moves the copy to
-    the host and the write onto the writer thread."""
+    the host and the write onto the writer thread.
 
-    def __init__(self, model_dir: str, algo: str, keep: int = 5, async_save: bool = False):
+    Under data parallelism rank 0 is the writer and the other ranks open
+    the directory with ``writer=False``: they only restore (committed
+    checkpoints, by the same fingerprint rule), never clean, save or
+    collect."""
+
+    def __init__(
+        self, model_dir: str, algo: str, keep: int = 5, async_save: bool = False,
+        writer: bool = True,
+    ):
         self.model_dir = os.path.abspath(model_dir)
         self.algo = algo
         self.keep = max(1, int(keep))
-        self.async_save = bool(async_save)
+        self.async_save = bool(async_save) and writer
+        self.writer = bool(writer)
         os.makedirs(self.model_dir, exist_ok=True)
-        self._clean_torn()
+        if self.writer:
+            self._clean_torn()
         # the writer thread's state (idle unless async_save)
         self._cond = threading.Condition()
         self._queued: tuple[Any, dict, int, dict] | None = None
@@ -304,6 +314,8 @@ class Checkpointer:
         ``meta`` committed beside it. Blocking without ``async_save``;
         otherwise a device-side snapshot is queued and the call returns (an
         error of an earlier background save is raised here)."""
+        if not self.writer:
+            raise RuntimeError("this Checkpointer reads only (writer=False): rank 0 saves")
         self._raise_pending_error()
         path = os.path.join(self.model_dir, f"{self.algo}_{idx}")
         meta = dict(meta or {})

@@ -6,9 +6,10 @@ distributed-runtime slices read, with ``tpu_rl``'s names, defaults and
 asserts, so an existing params file loads unchanged. Keys the port does not
 know yet are kept in ``extra``: a full ``tpu_rl`` params file still loads.
 Those of them that would make ``tpu_rl`` do something the port does not do
-yet (build a mesh, arm chaos, run replicas) are refused at a value other
-than their default (:data:`LATER_SLICES`), so that a run never silently
-does less than asked.
+yet (split one process's devices, arm chaos, run replicas) are refused at
+a value other than their default (:data:`LATER_SLICES`), so that a run
+never silently does less than asked. The multi-GPU keys (``mesh_data``,
+``mesh_seq``, ``multihost``) are fields, with ``tpu_rl``'s asserts.
 
 One deliberate divergence (ROADMAP C 7): ``learner_device="auto"`` means
 the card, and a learner without one raises; ``tpu_rl`` probes its
@@ -46,12 +47,10 @@ def is_off_policy(algo: str) -> bool:
 # away from their default: (key, is it set?, the slice of the port that
 # brings it). Defaults as in tpu_rl.config.Config.
 LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
-    ("mesh_data", lambda v: v > 1, "multi-GPU slice"),
-    ("mesh_seq", lambda v: v > 1, "multi-GPU slice"),
-    ("multihost", lambda v: v is not None, "multi-GPU slice"),
+    ("sebulba_split", lambda v: v != 0, "sebulba slice (A 8b)"),
     ("chaos_spec", lambda v: v is not None, "fleet and operations slice"),
     ("inference_replicas", lambda v: v > 1, "fleet slice"),
-    ("inference_mesh_data", lambda v: v > 1, "fleet slice"),
+    ("inference_mesh_data", lambda v: v > 1, "fleet slice (A 8b, the sharded inference service)"),
 )
 
 
@@ -77,8 +76,8 @@ class Config:
     n_heads: int = 4
     n_layers: int = 2
     # Attention of the transformer: "full" (materialized scores), "blockwise"
-    # (tiles with the online softmax) or "flash" (kernel B4). tpu_rl's
-    # "ring" and "ulysses" come later.
+    # (tiles with the online softmax), "flash" (kernel B4), or the
+    # sequence-parallel "ring" / "ulysses" over the mesh's seq group.
     attention_impl: str = "full"
     # Acting context (KV-cache length) of the transformer; 0 = seq_len.
     act_ctx: int = 0
@@ -116,6 +115,17 @@ class Config:
     reward_scale: float = 0.1
     batch_size: int = 128
     buffer_size: int = 10240
+    # Data-parallel mesh size of the learner (1 = one device): one rank per
+    # device on torch.distributed, each training on batch_size / mesh_data
+    # rows of the global batch.
+    mesh_data: int = 1
+    # Sequence-parallel mesh size (long-context training; needs
+    # model="transformer" and attention_impl "ring"/"ulysses").
+    mesh_seq: int = 1
+    # Multi-host learner: {"coordinator": "ip:port", "num_processes": N,
+    # "process_id": i}; the ranks of every host join one process group at
+    # tcp://coordinator (parallel.multihost).
+    multihost: dict | None = None
     # returns / losses
     gamma: float = 0.99
     lmbda: float = 0.95
@@ -342,6 +352,12 @@ class Config:
         assert self.K_epoch >= 1, self.K_epoch
         assert self.lr > 0, self.lr
         assert self.max_grad_norm > 0, self.max_grad_norm
+        assert self.mesh_data >= 1, self.mesh_data
+        if self.multihost and set(self.multihost) - {"coordinator", "num_processes", "process_id"}:
+            raise ValueError(
+                f"multihost takes tpu_rl's keys coordinator, num_processes and process_id, got "
+                f"{sorted(self.multihost)}: a host runs one rank per card, counted from its cards"
+            )
         assert self.loss_log_interval >= 1, self.loss_log_interval
         self._validate_runtime()
         if self.slo_spec:
@@ -374,6 +390,17 @@ class Config:
             assert not self.need_conv, (
                 "colocated mode has no image-env dynamics (tpu_rl_torch.envs)"
             )
+            if self.multihost:
+                # the env batch shards over the global data axis, so it
+                # must at least divide by the process count
+                nproc = int(self.multihost.get("num_processes", 1))
+                envs = self.colocated_envs or self.batch_size
+                assert nproc >= 1, self.multihost
+                assert envs % nproc == 0, (
+                    f"colocated env batch ({envs}) not divisible by "
+                    f"multihost num_processes ({nproc}) — it shards over "
+                    "the global data axis"
+                )
         assert self.action_repeat >= 1, self.action_repeat
         assert self.compute_dtype in (
             "float32",
@@ -381,12 +408,19 @@ class Config:
         ), f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype!r}"
         assert self.model in ("lstm", "transformer"), self.model
         assert self.attention_impl in ("full", "blockwise", "flash", "ring", "ulysses")
-        if self.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r}: ring and Ulysses attention "
-                "on torch.distributed come with the multi-GPU sequence-parallel slice "
-                "of the port"
+        if self.mesh_seq > 1:
+            assert self.model == "transformer", (
+                "sequence parallelism (mesh_seq>1) requires model='transformer'"
             )
+            assert self.attention_impl in ("ring", "ulysses")
+            assert self.seq_len % self.mesh_seq == 0, (
+                f"seq_len {self.seq_len} not divisible by mesh_seq {self.mesh_seq}"
+            )
+            if self.attention_impl == "ulysses":
+                assert self.n_heads % self.mesh_seq == 0, (
+                    f"ulysses needs n_heads ({self.n_heads}) divisible by "
+                    f"mesh_seq ({self.mesh_seq})"
+                )
         if self.model == "transformer":
             assert not is_off_policy(self.algo), (
                 "transformer backbone supports the on-policy algorithms"
@@ -523,6 +557,13 @@ class Config:
                 f"transition), got {self.max_update_data_ratio}"
             )
         if self.learner_chain > 1:
+            assert self.mesh_seq == 1, (
+                "learner_chain > 1 is not supported with sequence "
+                "parallelism (mesh_seq > 1)"
+            )
+            assert self.multihost is None, (
+                "learner_chain > 1 is not supported with a multihost learner"
+            )
             assert self.extra.get("sebulba_split", 0) == 0, (
                 "learner_chain > 1 is not supported with a sebulba split"
             )

@@ -233,9 +233,13 @@ def _act_transformer_window(
             torch.zeros_like(c) + n_valid)
 
 
-def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> ModelFamily:
+def build_family(
+    cfg: Config, device: str | torch.device | None = "cuda", mesh=None
+) -> ModelFamily:
     """Build the model family for ``cfg.algo`` and ``cfg.model`` on
-    ``device`` (CUDA unless the caller passes ``device="cpu"``)."""
+    ``device`` (CUDA unless the caller passes ``device="cpu"``). ``mesh``
+    (a rank mesh) is read only by the sequence-parallel transformer
+    (``attention_impl`` ring/ulysses), whose training unroll it splits."""
     dev = resolve_device(device)
     obs_dim = int(cfg.obs_shape[0])
     n = int(cfg.action_space)
@@ -248,7 +252,7 @@ def build_family(cfg: Config, device: str | torch.device | None = "cuda") -> Mod
             attention_impl=cfg.attention_impl,
             dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None,
         )
-        actor = make().to(dev)
+        actor = make(mesh=mesh).to(dev)
         ctx = cfg.effective_act_ctx
         kv = cfg.n_layers * ctx * cfg.hidden_size
         return ModelFamily(

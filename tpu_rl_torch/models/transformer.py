@@ -32,7 +32,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_rl_torch.models.cells import dense, init_dense_, reduce_bf16_in_f32
-from tpu_rl_torch.parallel.sequence import ATTENTION_IMPLS, segment_ids_from_firsts
+from tpu_rl_torch.parallel.sequence import (
+    ATTENTION_IMPLS,
+    full_attention,
+    gather_seq,
+    segment_ids_from_firsts,
+)
 
 
 def sinusoidal_embedding(pos: torch.Tensor, dim: int) -> torch.Tensor:
@@ -73,23 +78,35 @@ class LayerNorm(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Causal segment-masked MHA through ``ATTENTION_IMPLS[attention_impl]``,
-    plus the single-token cached :meth:`decode`."""
+    plus the single-token cached :meth:`decode`. ``ring``/``ulysses`` attend
+    over the seq group of ``mesh`` when the unroll is split over it
+    (``seq_split``); elsewhere (acting, no mesh) they are full attention, as
+    ``tpu_rl``'s are outside their ``shard_map`` island."""
 
-    def __init__(self, hidden: int, n_heads: int, attention_impl: str = "full", dtype=None):
+    def __init__(self, hidden: int, n_heads: int, attention_impl: str = "full", dtype=None,
+                 mesh=None):
         super().__init__()
         assert hidden % n_heads == 0, f"d_model {hidden} not divisible by heads {n_heads}"
         self.n_heads = n_heads
         self.attention_impl = attention_impl
         self.dtype = dtype
+        self.mesh = mesh
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.out = nn.Linear(hidden, hidden)
 
-    def forward(self, x, pos, seg):
+    def forward(self, x, pos, seg, seq_split: bool = False):
         B, T, C = x.shape
         H = self.n_heads
         qkv = dense(self.qkv, x, self.dtype).reshape(B, T, 3, H, C // H)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        o = ATTENTION_IMPLS[self.attention_impl](q, k, v, pos, seg, causal=True)
+        impl = self.attention_impl
+        if impl in ("ring", "ulysses"):
+            if seq_split:
+                o = ATTENTION_IMPLS[impl](q, k, v, pos, seg, causal=True, mesh=self.mesh)
+            else:
+                o = full_attention(q, k, v, pos, seg, causal=True)
+        else:
+            o = ATTENTION_IMPLS[impl](q, k, v, pos, seg, causal=True)
         return dense(self.out, o.reshape(B, T, C), self.dtype)
 
     def decode(self, x_t, k_cache, v_cache, count):
@@ -120,10 +137,10 @@ class MultiHeadAttention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, hidden: int, n_heads: int, ff_mult: int = 4, attention_impl: str = "full",
-                 dtype=None):
+                 dtype=None, mesh=None):
         super().__init__()
         self.dtype = dtype
-        self.attn = MultiHeadAttention(hidden, n_heads, attention_impl, dtype)
+        self.attn = MultiHeadAttention(hidden, n_heads, attention_impl, dtype, mesh)
         self.ln1 = LayerNorm(hidden)
         self.ln2 = LayerNorm(hidden)
         self.ff1 = nn.Linear(hidden, ff_mult * hidden)
@@ -141,8 +158,8 @@ class Block(nn.Module):
         h = F.gelu(dense(self.ff1, self.ln2(x), self.dtype), approximate="tanh")
         return dense(self.ff2, h, self.dtype)
 
-    def forward(self, x, pos, seg):
-        x = x + self.attn(self.ln1(x), pos, seg)
+    def forward(self, x, pos, seg, seq_split: bool = False):
+        x = x + self.attn(self.ln1(x), pos, seg, seq_split)
         return x + self._ff(x)
 
     def decode(self, x_t, k_cache, v_cache, count):
@@ -153,12 +170,23 @@ class Block(nn.Module):
 
 class TransformerActorCritic(nn.Module):
     """Decoder-only causal transformer with categorical and value heads.
-    Params stay f32; ``dtype`` is the compute dtype (None = f32)."""
+    Params stay f32; ``dtype`` is the compute dtype (None = f32).
+
+    With a sequence-parallel ``mesh`` (``attention_impl`` ring or ulysses,
+    ``mesh.n_seq > 1``) the unroll splits the window over the seq group:
+    positions and segment ids come from the whole window's ``firsts``, each
+    rank runs its ``T / n_seq`` tokens (its ``q_pos`` offset by its seq
+    index), and the per-token log-probs and values are all-gathered back to
+    (B, T) with autograd, since the losses' scans run over the whole
+    window."""
 
     def __init__(self, obs_dim: int, n_actions: int, hidden: int = 64, n_heads: int = 4,
-                 n_layers: int = 2, ff_mult: int = 4, attention_impl: str = "full", dtype=None):
+                 n_layers: int = 2, ff_mult: int = 4, attention_impl: str = "full", dtype=None,
+                 mesh=None):
         super().__init__()
         reduce_bf16_in_f32(dtype)
+        self.mesh = mesh
+        self.attention_impl = attention_impl
         self.n_actions = n_actions
         self.hidden = hidden
         self.n_heads = n_heads
@@ -166,7 +194,8 @@ class TransformerActorCritic(nn.Module):
         self.dtype = dtype
         self.embed = nn.Linear(obs_dim, hidden)
         for i in range(n_layers):
-            self.add_module(f"block{i}", Block(hidden, n_heads, ff_mult, attention_impl, dtype))
+            self.add_module(
+                f"block{i}", Block(hidden, n_heads, ff_mult, attention_impl, dtype, mesh))
         self.ln_f = LayerNorm(hidden)
         self.logits = nn.Linear(hidden, n_actions)
         self.value = nn.Linear(hidden, 1)
@@ -199,12 +228,26 @@ class TransformerActorCritic(nn.Module):
             idx = torch.arange(T, dtype=torch.int32, device=obs.device).expand(B, T)
             seam = torch.cummax(torch.where(firsts[..., 0] > 0, idx, 0), dim=1).values
             pos = idx - seam
+        split = self._seq_split(T)
+        if split:
+            n, r = self.mesh.n_seq, self.mesh.seq_index
+            tl = slice(r * (T // n), (r + 1) * (T // n))
+            obs, pos, seg = obs[:, tl], pos[:, tl], seg[:, tl]
         x = dense(self.embed, obs, self.dtype)
         x = x + sinusoidal_embedding(pos, self.hidden).to(x.dtype)
         for block in self.blocks:
-            x = block(x, pos, seg)
+            x = block(x, pos, seg, split)
         logits, value = self._heads(x)
+        if split:
+            logits, value = gather_seq(logits, self.mesh), gather_seq(value, self.mesh)
         return logits, value, carry0
+
+    def _seq_split(self, T: int) -> bool:
+        """Whether this unroll splits over the mesh's seq group."""
+        return (
+            self.mesh is not None and self.attention_impl in ("ring", "ulysses")
+            and self.mesh.n_seq > 1 and T % self.mesh.n_seq == 0
+        )
 
     def decode(self, obs_t, k_caches, v_caches, count):
         """One acting step: obs_t (B, obs_dim), caches (B, n_layers, ctx, H,

@@ -177,11 +177,17 @@ class PerfTracker:
       against a blocking read;
     - read ``flops_per_call`` / ``achieved_flops_per_s()`` / ``mfu()`` /
       ``recompiles`` at emit cadence.
+
+    Under data parallelism (``world`` ranks, one card each, all running the
+    same step on equal shards) the counts are the world's: this rank's
+    FLOPs times ``world``, against ``world`` cards' peak.
     """
 
-    def __init__(self, device: str | torch.device):
+    def __init__(self, device: str | torch.device, world: int = 1):
         self.device = torch.device(device)
-        self.peak = device_peak_flops(self.device)
+        self.world = int(world)
+        peak = device_peak_flops(self.device)
+        self.peak = peak * self.world if peak else peak
         self.flops_per_call = 0.0
         self._dts: deque[float] = deque(maxlen=WINDOW)
         self._watch: _SignatureWatch | None = None
@@ -202,7 +208,7 @@ class PerfTracker:
         self._watch.see(sig)
         with FlopCounterMode(display=False) as counter:
             out = fn(*args)
-        self.flops_per_call = float(counter.get_total_flops())
+        self.flops_per_call = float(counter.get_total_flops()) * self.world
         return out
 
     def note(self, dt_s: float) -> None:

@@ -24,9 +24,19 @@ positions q_pos and segment ids seg (B,T), and o (B,T,H,D) in q's dtype.
   ``lax.scan`` of einsums): its tile products are cuBLAS's on the card
   (``ops.matmul.mm_f32``: bf16 operands with an f32 result, as ``mixed_dot``).
 
-Not here yet: the ring and Ulysses schemes, which need
-``torch.distributed`` (see ``ROADMAP.md``). ``tpu_rl``'s mesh, ``shard_map``
-islands and Pallas block-size rule are TPU matters and do not come over.
+- :func:`ring_attention` and :func:`ulysses_attention`: the
+  sequence-parallel schemes over the ``"seq"`` group of a rank mesh
+  (:func:`make_sp_mesh`), each rank holding ``T / n_seq`` tokens. The ring
+  rotates K/V blocks with ``batch_isend_irecv`` under the online softmax,
+  and its backward is a second ring pass that rotates K/V with their dK/dV
+  accumulators home, so residuals scale with the shard, not the ring.
+  Ulysses re-shards from sequence to heads with ``all_to_all_single``, runs
+  full attention on its ``H / n_seq`` heads, and re-shards back. Both are
+  plain PyTorch, as ``tpu_rl``'s are plain JAX (no Pallas kernel there).
+  Positions and segment ids are global, computed before the split.
+
+``tpu_rl``'s ``shard_map`` islands and Pallas block-size rule are TPU
+matters and do not come over.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch.nn.functional as F
 
 from tpu_rl_torch.ops.attention import flash_attn
 from tpu_rl_torch.ops.matmul import mm_f32
+from tpu_rl_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, make_sp_mesh  # noqa: F401
 
 _NEG_INF = -1e30  # finite -inf stand-in: keeps exp()/max() NaN-free
 
@@ -225,5 +236,205 @@ def blockwise_attention(q, k, v, q_pos, seg, axis_name=None, causal=True,
     return _Blockwise.apply(q_p, k_p, v_p, pos_p, seg_p, blk, bool(causal))[:, :T]
 
 
+# ----------------------------------------------- sequence parallel (ranks)
+def _online_update(o, m, l, scores, v_blk):
+    """Online-softmax accumulation of one K/V block. o (B,H,Tq,D) f32;
+    m, l (B,H,Tq); scores (B,H,Tq,Tk); v_blk (B,H,Tk,D) in its contraction
+    dtype."""
+    m_new = torch.maximum(m, scores.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    o = o * alpha[..., None] + mm_f32(p.to(v_blk.dtype), v_blk)
+    return o, m_new, l
+
+
+def _rotate(mesh, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """One hop of the ring over ``mesh``'s seq group: every tensor goes to
+    the next seq rank and comes from the previous one (as ``ppermute`` with
+    ``(i, i + 1 mod n)``)."""
+    import torch.distributed as dist
+
+    n = mesh.n_seq
+    r = mesh.seq_index
+    group = mesh.groups[SEQ_AXIS]
+    nxt = dist.get_global_rank(group, (r + 1) % n)
+    prv = dist.get_global_rank(group, (r - 1) % n)
+    sends = [mesh.stage(t.contiguous()) for t in tensors]
+    recvs = [torch.empty_like(s) for s in sends]
+    ops = []
+    for s, rv in zip(sends, recvs):
+        ops.append(dist.P2POp(dist.isend, s, nxt, group))
+        ops.append(dist.P2POp(dist.irecv, rv, prv, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [mesh.unstage(rv, t) for rv, t in zip(recvs, tensors)]
+
+
+def _ring_forward(mesh, causal, q, k, v, q_pos, seg):
+    """One rotation of the ring: this rank's queries against every K/V
+    block. Returns the output (B,Tl,H,D) in q's dtype and the per-row
+    log-sum-exp (B,H,Tl)."""
+    B, T, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    cd, cdv = _contract_dtype(q), _contract_dtype(v)
+    qh = _heads_major(q, cd)
+    kb, vb = _heads_major(k, cd), _heads_major(v, cdv)
+    kpos, kseg = q_pos, seg
+    o = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, T), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
+    for step in range(mesh.n_seq):
+        scores = _tile_scores(qh, kb, q_pos, kpos, seg, kseg, scale, causal)
+        o, m, l = _online_update(o, m, l, scores, vb)
+        if step + 1 < mesh.n_seq:
+            kb, vb, kpos, kseg = _rotate(mesh, [kb, vb, kpos, kseg])
+    l = torch.clamp_min(l, 1e-30)
+    lse = m + torch.log(l)
+    out = (o / l[..., None]).transpose(1, 2).contiguous().to(q.dtype)
+    return out, lse
+
+
+class _Ring(torch.autograd.Function):
+    """``tpu_rl``'s ``_ring_attention_vjp``: the forward keeps q, k, v, the
+    output and the row log-sum-exp (all O(T / n_seq)); the backward is a
+    second ring pass in which each K/V block travels with its dK/dV
+    accumulators, and after ``n_seq`` hops every block is home with the
+    contributions of every query shard."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, seg, mesh, causal):
+        out, lse = _ring_forward(mesh, causal, q, k, v, q_pos, seg)
+        ctx.save_for_backward(q, k, v, q_pos, seg, out, lse)
+        ctx.mesh, ctx.causal = mesh, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, seg, out, lse = ctx.saved_tensors
+        mesh, causal = ctx.mesh, ctx.causal
+        D = q.shape[3]
+        scale = 1.0 / math.sqrt(D)
+        cd = _contract_dtype(q)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)  # (B, H, Tl)
+        qh, doh = _heads_major(q, cd), _heads_major(do, cd)
+        kb, vb = _heads_major(k, cd), _heads_major(v, cd)
+        kpos, kseg = q_pos, seg
+        dq = torch.zeros(qh.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(vb.shape, dtype=torch.float32, device=q.device)
+        n = mesh.n_seq
+        for step in range(n):
+            scores = _tile_scores(qh, kb, q_pos, kpos, seg, kseg, scale, causal)
+            p = torch.where(scores <= _NEG_INF * 0.5, 0.0, torch.exp(scores - lse[..., None]))
+            dv = dv + mm_f32(p.to(cd).transpose(-1, -2), doh)
+            dp = mm_f32(doh, vb.transpose(-1, -2))
+            ds = (p * (dp - delta[..., None]) * scale).to(cd)
+            dq = dq + mm_f32(ds, kb)
+            dk = dk + mm_f32(ds.transpose(-1, -2), qh)
+            # the last hop brings each block and its accumulators home
+            if step + 1 < n:
+                kb, vb, kpos, kseg, dk, dv = _rotate(mesh, [kb, vb, kpos, kseg, dk, dv])
+            else:
+                dk, dv = _rotate(mesh, [dk, dv]) if n > 1 else (dk, dv)
+        return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype), None, None, None, None)
+
+
+def ring_attention(q, k, v, q_pos, seg, axis_name=SEQ_AXIS, causal=True, mesh=None):
+    """Exact attention over a sequence split on ``mesh``'s seq group.
+
+    Args (this rank's shard): q, k, v (B, Tl, H, D); q_pos (B, Tl) global
+    positions of its rows; seg (B, Tl) global segment ids. Returns
+    (B, Tl, H, D) in q's dtype."""
+    if mesh is None:
+        raise ValueError("ring_attention needs the rank mesh (make_sp_mesh)")
+    return _Ring.apply(q, k, v, q_pos, seg, mesh, bool(causal))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over the seq group along a leading chunk axis
+    of ``n_seq``; its own inverse, so the backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_to_all(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(ctx.mesh, g), None
+
+
+def _all_to_all(mesh, x: torch.Tensor) -> torch.Tensor:
+    import torch.distributed as dist
+
+    s = mesh.stage(x.contiguous())
+    out = torch.empty_like(s)
+    dist.all_to_all_single(out, s, group=mesh.groups[SEQ_AXIS])
+    return mesh.unstage(out, x)
+
+
+def ulysses_attention(q, k, v, q_pos, seg, axis_name=SEQ_AXIS, causal=True, mesh=None):
+    """Exact attention by all-to-all head re-sharding (DeepSpeed-Ulysses);
+    same contract as :func:`ring_attention`; needs ``H % n_seq == 0``."""
+    if mesh is None:
+        raise ValueError("ulysses_attention needs the rank mesh (make_sp_mesh)")
+    n = mesh.n_seq
+    B, Tl, H, D = q.shape
+    if H % n:
+        raise ValueError(f"ulysses needs n_heads ({H}) divisible by the seq axis ({n})")
+
+    def to_heads(x):
+        # (B, Tl, H, D) -> chunk j of the heads to seq rank j -> received
+        # blocks in rank order = global sequence order: (B, n*Tl, H/n, D)
+        xc = x.reshape(B, Tl, n, H // n, D).permute(2, 0, 1, 3, 4)
+        y = _AllToAll.apply(xc, mesh)  # (n, B, Tl, H/n, D): y[j] from rank j
+        return y.permute(1, 0, 2, 3, 4).reshape(B, n * Tl, H // n, D)
+
+    qh, kh, vh = to_heads(q), to_heads(k), to_heads(v)
+    pos_full = _all_gather_seq(q_pos, mesh)
+    seg_full = _all_gather_seq(seg, mesh)
+    oh = full_attention(qh, kh, vh, pos_full, seg_full, causal=causal)
+    # back: (B, n*Tl, H/n, D) -> (B, Tl, H, D), the inverse exchange
+    oc = oh.reshape(B, n, Tl, H // n, D).permute(1, 0, 2, 3, 4)
+    y = _AllToAll.apply(oc, mesh)  # (n, B, Tl, H/n, D): head chunk j from rank j
+    return y.permute(1, 2, 0, 3, 4).reshape(B, Tl, H, D)
+
+
+def _all_gather_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """(B, Tl) -> (B, T) concatenated in ring order (no gradient)."""
+    return mesh.all_gather(x, SEQ_AXIS, dim=1)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along dim 1 over the seq group, with the all-gather's
+    adjoint: the cotangent summed over the group, this rank's slice kept
+    (every seq rank computes the same loss on the gathered tensor, so each
+    rank's tokens collect ``n_seq`` copies of their gradient, which the
+    world mean of :meth:`~tpu_rl_torch.parallel.mesh.Mesh.grads` divides
+    back out)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.tl = mesh, x.shape[1]
+        return mesh.all_gather(x, SEQ_AXIS, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = g.contiguous().clone()
+        mesh.all_reduce_(g, axis=SEQ_AXIS)
+        r = mesh.seq_index
+        return g[:, r * ctx.tl:(r + 1) * ctx.tl], None
+
+
+def gather_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Per-token outputs (B, Tl, ...) of every seq rank -> (B, T, ...), with
+    autograd: what the losses' scans over the whole window read."""
+    return _GatherSeq.apply(x, mesh)
+
+
 ATTENTION_IMPLS = {"full": full_attention, "flash": flash_attention,
-                   "blockwise": blockwise_attention}
+                   "blockwise": blockwise_attention, "ring": ring_attention,
+                   "ulysses": ulysses_attention}

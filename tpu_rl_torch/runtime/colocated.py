@@ -54,7 +54,23 @@ params with the plane on are bitwise those with it off. With
 ``cfg.slo_fail_run`` a failing final SLO verdict makes :meth:`run` raise
 :class:`SloFailedError` (``tpu_rl``'s role exits non-zero).
 
-Not in this slice: meshes and multihost.
+**Data parallelism** (``mesh_data`` ranks, or ``multihost``): each rank is
+one process on one device, joined to a process group before the loop is
+built (``python -m tpu_rl_torch local`` in colocated mode spawns the ranks
+of one host;
+under ``multihost`` every host's ranks join at ``tcp://coordinator``, and
+``mesh_data=1`` widens to the world, as ``tpu_rl``'s pod does). Each rank
+steps its ``colocated_envs / world`` envs; every random draw of a tick
+(env resets, the action noise) is drawn at the global batch's shape from
+the same generator on every rank and sliced by rank, and the train step
+takes the mean of the grads over the ranks, so a data-parallel run is the
+single-device run up to the order of the reductions (bit for bit at world
+size 1). The state is replicated from rank 0 at start (a check that every
+rank built or restored the same one); rank 0 alone checkpoints (behind a
+barrier), logs and exports telemetry, every rank resumes from the newest
+committed checkpoint, and the episode counts are summed over the ranks at
+each log point. ``PerfTracker`` counts the world's FLOPs against the
+world's peak.
 """
 
 from __future__ import annotations
@@ -64,6 +80,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from tpu_rl_torch import resolve_device
 from tpu_rl_torch.algos.registry import get_algo
@@ -89,6 +106,10 @@ from tpu_rl_torch.obs import (
 )
 from tpu_rl_torch.obs import publish as publish_diag
 from tpu_rl_torch.obs.goodput import CKPT, COMPUTE
+from tpu_rl_torch.ops import distributions as D
+from tpu_rl_torch.parallel.dp import make_parallel_train_step, replicate
+from tpu_rl_torch.parallel.mesh import check_divisible, make_mesh, publish_mesh
+from tpu_rl_torch.parallel.multihost import init_multihost
 from tpu_rl_torch.types import BATCH_FIELDS, Batch
 from tpu_rl_torch.utils.metrics import make_writer
 from tpu_rl_torch.utils.timer import ExecutionTimer
@@ -100,6 +121,20 @@ def act_params(state) -> dict:
     if hasattr(state, "actor_params"):
         return {"actor": state.actor_params}
     return {"actor": state.params["actor"]}
+
+
+def rank_rows_spec(spec, mesh):
+    """``spec`` whose ``reset(n, ...)`` draws the fresh states of all
+    ``n * mesh.n_data`` envs of the world and keeps this rank's rows, so
+    every rank draws what the single-device run draws."""
+    import dataclasses
+
+    def reset(n, generator, device):
+        phys, obs = spec.reset(n * mesh.n_data, generator, device)  # (N, ...) tensors
+        rows = mesh.rows(n)
+        return phys[rows], obs[rows]
+
+    return dataclasses.replace(spec, reset=reset)
 
 
 def resolve_colocated_config(cfg: Config) -> Config:
@@ -151,11 +186,19 @@ class ColocatedLoop:
         self.cfg = cfg
         self.seed = int(seed)
         self.max_updates = max_updates
+        if cfg.multihost:
+            # this host's ranks (one per card) join the pod's process group
+            init_multihost(**cfg.multihost, device=self.device)
+        self._build_meshes()
+        self.chief = self.mesh is None or self.mesh.rank == 0
         self.spec = get_spec(cfg.env)
-        self._v_reset, self._v_step = make_vec_env(self.spec, cfg.batch_size, cfg.time_horizon)
-        self.family, self.state, self.train_step = get_algo(cfg.algo).build(
-            cfg, torch.Generator().manual_seed(self.seed), self.device
+        spec = self.spec if self.mesh is None else rank_rows_spec(self.spec, self.mesh)
+        self._v_reset, self._v_step = make_vec_env(spec, self.n_local, cfg.time_horizon)
+        self.family, self.state, step = get_algo(cfg.algo).build(
+            cfg, torch.Generator().manual_seed(self.seed), self.device, mesh=self.mesh
         )
+        self.train_step = (step if self.mesh is None
+                           else make_parallel_train_step(step, self.mesh, cfg))
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         # Durability: the checkpointer, the run epoch (one above the resumed
         # checkpoint's), the update index run() starts from, the last index
@@ -167,10 +210,11 @@ class ColocatedLoop:
         self._fingerprint = None
         if cfg.model_dir:
             self.ckpt = Checkpointer(
-                cfg.model_dir, cfg.algo, keep=cfg.ckpt_keep, async_save=cfg.ckpt_async
+                cfg.model_dir, cfg.algo, keep=cfg.ckpt_keep, async_save=cfg.ckpt_async,
+                writer=self.chief,
             )
             self._fingerprint = resume_fingerprint(cfg)
-        # Telemetry plane (None unless cfg.telemetry_enabled).
+        # Telemetry plane (None unless cfg.telemetry_enabled; rank 0's).
         self.aggregator = None
         self.ledger = None
         self._perf = None
@@ -181,13 +225,43 @@ class ColocatedLoop:
         self._json_exp = None
         self._setup_telemetry()
 
+    # ------------------------------------------------------------- topology
+    def _build_meshes(self) -> None:
+        """The rank mesh of the loop: None on one device outside a process
+        group (the plain path); else a data mesh over the world, where
+        under ``multihost`` the default ``mesh_data=1`` widens to the whole
+        world."""
+        cfg = self.cfg
+        if cfg.mesh_seq > 1:
+            raise ValueError(
+                "the colocated loop trains on a data mesh only, as tpu_rl's does: mesh_seq > 1 "
+                "is the learner service's (make_sp_train_step)"
+            )
+        if not dist.is_initialized():
+            if cfg.mesh_data > 1:
+                raise ValueError(
+                    f"mesh_data={cfg.mesh_data} needs {cfg.mesh_data} ranks, one per device: "
+                    "run the colocated role (runner.colocated_role, python -m tpu_rl_torch "
+                    "local), which spawns them, or join a process group before building the loop"
+                )
+            self.mesh = None
+            self.n_local = cfg.batch_size
+            return
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        world = dist.get_world_size()
+        n = world if cfg.multihost and world > 1 and cfg.mesh_data == 1 else cfg.mesh_data
+        self.mesh = make_mesh(n, device=self.device)
+        check_divisible(cfg.batch_size, self.mesh)
+        self.n_local = cfg.batch_size // self.mesh.n_data
+
     # ------------------------------------------------------------ device init
     def init_carry(self, generator: torch.Generator | None = None) -> dict:
         """Fresh acting carry: reset envs, zero recurrent state, ``is_fir=1``
         (every env starts an episode), zero running returns."""
         gen = self.generator if generator is None else generator
         env, obs = self._v_reset(gen, self.device)
-        n = self.cfg.batch_size
+        n = self.n_local
         hw, cw = self.family.carry_widths
         f32 = dict(dtype=torch.float32, device=self.device)
         return {
@@ -208,13 +282,14 @@ class ColocatedLoop:
     # ------------------------------------------------------------------ steps
     def _tick(self, params, cr: dict, generator: torch.Generator):
         """One acting tick: the worker loop's body on the device."""
-        a, logits, log_prob, h2, c2 = self.family.act(params, cr["obs"], cr["h"], cr["c"], generator)
+        a, logits, log_prob, h2, c2 = self.family.act(
+            params, cr["obs"], cr["h"], cr["c"], generator, **self._act_noise(generator))
         env, obs2, rew, done = self._v_step(cr["env"], a, generator)
         ret2 = cr["ret"] + rew
         if self.family.store_carry:
             hx, cx = cr["h"], cr["c"]
         else:  # transformer: zero placeholders, not the caches
-            n = self.cfg.batch_size
+            n = self.n_local
             hx, cx = (torch.zeros((n, w), dtype=torch.float32, device=self.device)
                       for w in self.family.stored_carry_widths)
         ys = dict(
@@ -241,6 +316,20 @@ class ColocatedLoop:
         }
         return cr2, ys
 
+    def _act_noise(self, generator: torch.Generator) -> dict:
+        """Under a mesh, this rank's rows of the tick's action noise drawn
+        at the global batch's shape (the draw the single-device act makes);
+        on one device, nothing (the act draws it)."""
+        if self.mesh is None:
+            return {}
+        shape = (self.cfg.batch_size, self.family.n_actions)
+        rows = self.mesh.rows(self.n_local)
+        if self.family.continuous:
+            e = torch.empty(shape, dtype=torch.float32, device=self.device)
+            return {"noise": e.normal_(generator=generator)[rows]}
+        like = torch.empty((), dtype=torch.float32, device=self.device)
+        return {"gumbel": D.gumbel_noise(shape, like, generator)[rows]}
+
     @torch.no_grad()
     def rollout(self, params, carry: dict, generator: torch.Generator | None = None):
         gen = self.generator if generator is None else generator
@@ -266,6 +355,24 @@ class ColocatedLoop:
         return state, carry, stats, metrics
 
     # ----------------------------------------------------------- durability
+    def _save(self, state, it: int) -> None:
+        """Rank 0 writes the checkpoint (or queues it, with ``ckpt_async``);
+        every rank waits at a barrier for it, so the ranks leave every save
+        together."""
+        if self.chief:
+            self.ckpt.save(state, it, meta=self.save_meta())
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _world_stats(self, stats: dict) -> tuple[int, float]:
+        """(episodes, return sum) of the whole world: the ranks' device
+        counters summed at a log point (every rank reaches it together)."""
+        if self.mesh is None:
+            return int(stats["episodes"]), float(stats["ret_sum"])
+        both = torch.stack([stats["episodes"].double(), stats["ret_sum"].double()])
+        self.mesh.all_reduce_(both)
+        return int(both[0]), float(both[1])
+
     def save_meta(self) -> dict:
         """The run meta committed with a checkpoint: the run epoch, the
         config fingerprint and the generator's state (as a list of bytes)."""
@@ -300,13 +407,13 @@ class ColocatedLoop:
     # ------------------------------------------------------------- telemetry
     def _setup_telemetry(self) -> None:
         cfg = self.cfg
-        if not cfg.telemetry_enabled:
+        if not cfg.telemetry_enabled or not self.chief:
             return
         self.aggregator = TelemetryAggregator(
             registry=MetricsRegistry(role="colocated"), stale_after_s=cfg.telemetry_stale_s
         )
         self.ledger = GoodputLedger("colocated")
-        self._perf = PerfTracker(self.device)
+        self._perf = PerfTracker(self.device, world=self.mesh.world if self.mesh else 1)
         self._slo = maybe_slo_engine(cfg)
         self._history = maybe_history(cfg)
         if cfg.result_dir is not None:
@@ -337,6 +444,8 @@ class ColocatedLoop:
         reg.counter("colocated-updates").set_total(updates)
         reg.counter("colocated-env-steps").set_total(env_steps)
         reg.counter("colocated-episodes").set_total(episodes)
+        if self.mesh is not None:
+            publish_mesh(reg, self.mesh)
         reg.gauge("colocated-updates-per-s").set(ups)
         reg.gauge("colocated-env-steps-per-s").set(tps)
         reg.gauge("colocated-mean-episode-return").set(mean_ret)
@@ -423,13 +532,14 @@ class ColocatedLoop:
         best such window), ``elapsed_s``, ``transitions_per_s`` (of this
         run's updates), and the timer's ``scalars``."""
         cfg = self.cfg
+        log = log and self.chief
         n, s = cfg.batch_size, cfg.seq_len
         timer = ExecutionTimer(num_transition=n * s)
-        writer = make_writer(cfg.result_dir)
+        writer = make_writer(cfg.result_dir if self.chief else None)
         state = self.state
         if self.ckpt is not None:
-            state = self.restore(state)
-            if self.run_epoch:
+            state = self.restore(state)  # every rank, from the newest committed
+            if self.run_epoch and self.chief:
                 self._record_resume(self._start_it)
                 if log:
                     print(
@@ -437,6 +547,8 @@ class ColocatedLoop:
                         f"(run epoch {self.run_epoch})",
                         flush=True,
                     )
+        if self.mesh is not None:
+            replicate(state, self.mesh)  # raises if a rank built or restored another
         carry = self.init_carry()
         stats = self.init_stats()
         ledger, perf = self.ledger, self._perf
@@ -470,7 +582,7 @@ class ColocatedLoop:
             it += 1
             if self.ckpt is not None and it % cfg.model_save_interval == 0:
                 t_ck = time.perf_counter()
-                self.ckpt.save(state, it, meta=self.save_meta())
+                self._save(state, it)
                 if ledger is not None:
                     ledger.add(CKPT, time.perf_counter() - t_ck)
                 self._last_saved = it
@@ -479,8 +591,7 @@ class ColocatedLoop:
             # The host reads block on iteration `it`, so the clock below
             # covers the device's work (and the ledger's compute bucket).
             t_get = time.perf_counter()
-            episodes = int(stats["episodes"])
-            ret_sum = float(stats["ret_sum"])
+            episodes, ret_sum = self._world_stats(stats)
             host_metrics = {k: float(v) for k, v in metrics.items()}
             now = time.perf_counter()
             if ledger is not None:
@@ -513,19 +624,22 @@ class ColocatedLoop:
                 )
             last_it, last_ep, last_ret = it, episodes, ret_sum
             t_mark = time.perf_counter()
-        episodes = int(stats["episodes"])
-        ret_sum = float(stats["ret_sum"])
+        episodes, ret_sum = self._world_stats(stats)
         elapsed = time.perf_counter() - t0
         if self.ckpt is not None and it > self._start_it and it != self._last_saved:
             # the newest state is left durable when the run ends between saves
             t_ck = time.perf_counter()
-            self.ckpt.save(state, it, meta=self.save_meta())
+            self._save(state, it)
             if ledger is not None:
                 ledger.add(CKPT, time.perf_counter() - t_ck)
             self._last_saved = it
         writer.flush()
         writer.close()
         self.close()
+        if self.mesh is not None:
+            # rank 0's checkpoint writer has drained: a loop built next, on
+            # any rank, restores what this one saved
+            dist.barrier()
         self.state = state
         totals = {
             "updates": it,

@@ -33,9 +33,30 @@ when there is none (ROADMAP C 7: ``tpu_rl`` degrades to the CPU instead);
 ``"cpu"`` runs the plain path. Its telemetry snapshot also carries the
 kernels' launch counts of this process (``learner-lstm-fwd-launches``,
 ``learner-lstm-bwd-launches``, ``inference-fused-act-launches`` and the
-service's ``inference-warmups``), which only count on the card. The
-multi-GPU branches (``mesh_data``, ``mesh_seq``, ``multihost``) and the
-fleet's replicas stay refused by the Config until their slices.
+service's ``inference-warmups``), which only count on the card.
+
+**Data parallelism** (``mesh_data`` ranks on one host, spawned by the
+learner role as one supervised group; or ``multihost``). On one host the
+port runs ``mesh_data`` ranks where ``tpu_rl`` runs one process, and rank
+0 is the learner of record: it alone attaches to storage, samples the
+global batch ``tpu_rl``'s single learner would sample, publishes weights,
+serves remote acting, checkpoints and exports telemetry. It scatters each
+batch's rows to the ranks (one packed buffer per update, ``dist.scatter``;
+chosen over attaching every rank to the shared-memory store because the
+store's consume and sample move a cursor, so only one reader may draw, and
+over a broadcast of the whole batch because a scatter moves each row once)
+behind a command word that also carries the entropy anneal, a rollback's
+state and the stop. The other ranks (:meth:`LearnerService._follow`) build
+the same state, take rank 0's at start (after its resume) and run the same
+data-parallel step on their rows. Under ``multihost`` each host's learner
+feeds its own rows from its own storage (``host_local_batch_to_global``),
+as ``tpu_rl``'s multihost feed does (one rank a host: a host of more
+cards waits for slice A 8b); world rank 0 checkpoints and decides each
+watchdog check, and its rollback reaches every rank. The
+chained step over the mesh is ``make_parallel_train_step(chain=K)``. The
+closing telemetry snapshot carries every rank's kernel launch counts
+(``learner-lstm-fwd-launches-rank<r>``, ...), ``mesh-world`` and
+``mesh-backend``.
 """
 
 from __future__ import annotations
@@ -46,6 +67,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_rl_torch.bridge import state_dict_to_flax
 from tpu_rl_torch.config import Config, is_off_policy
@@ -73,7 +95,7 @@ from tpu_rl_torch.runtime.mailbox import (
 from tpu_rl_torch.runtime.manager import STAT_WINDOW
 from tpu_rl_torch.runtime.protocol import Protocol
 from tpu_rl_torch.runtime.transport import MODEL_HWM, Pub, make_data_pub
-from tpu_rl_torch.types import maybe_zero_carry
+from tpu_rl_torch.types import BATCH_FIELDS, Batch, maybe_zero_carry
 from tpu_rl_torch.utils.metrics import LearnerLogger, make_writer
 from tpu_rl_torch.utils.timer import ExecutionTimer
 
@@ -173,6 +195,63 @@ class AsyncPublisher:
         self._thread.join(timeout=timeout)
 
 
+class RankChannel:
+    """Rank 0's commands and batches to the follower ranks of a one-host
+    data-parallel learner. A command is one broadcast word
+    ``[cmd, a, b, c]``; a batch is scattered as one ``(B, F)`` buffer of
+    the packed fields, each rank taking its block of rows."""
+
+    STEP, ANNEAL, STATE, STOP = 1, 2, 3, 4
+
+    def __init__(self, mesh, layout: BatchLayout):
+        self.mesh = mesh
+        self.layout = layout
+        self.widths = [layout.seq_len * layout.width(f) for f in BATCH_FIELDS]
+        self.bytes_scattered = 0
+
+    def command(self, cmd: int, *vals: float) -> None:
+        word = torch.tensor([float(cmd), *vals, *[0.0] * (3 - len(vals))],
+                            dtype=torch.float64, device=self.mesh.device)
+        self.mesh.broadcast_([word])
+
+    def receive(self) -> tuple[int, list[float]]:
+        word = torch.zeros(4, dtype=torch.float64, device=self.mesh.device)
+        self.mesh.broadcast_([word])
+        vals = word.tolist()
+        return int(vals[0]), vals[1:]
+
+    def _scatter(self, full: torch.Tensor | None, rows: int) -> torch.Tensor:
+        mesh = self.mesh
+        mine = torch.empty((rows, sum(self.widths)), dtype=torch.float32, device=mesh.device)
+        dst = mesh.stage(mine)
+        parts = None
+        if full is not None:
+            # rank r takes the rows of its data index (seq minor: the seq
+            # ranks of one data shard take the same rows)
+            blocks = full.chunk(mesh.n_data, dim=0)
+            parts = [mesh.stage(blocks[r // mesh.n_seq].contiguous()) for r in range(mesh.world)]
+            self.bytes_scattered += full.numel() * full.element_size() * mesh.n_seq
+        dist.scatter(dst, parts, src=0)
+        return mesh.unstage(dst, mine) if dst is not mine else mine
+
+    def scatter(self, batch: Batch) -> Batch:
+        """Rank 0: send each rank its rows of ``batch``; returns rank 0's."""
+        B = batch.obs.shape[0]
+        full = torch.cat([getattr(batch, f).reshape(B, -1) for f in BATCH_FIELDS], dim=1)
+        return self._unpack(self._scatter(full, B // self.mesh.n_data))
+
+    def receive_batch(self, rows: int) -> Batch:
+        return self._unpack(self._scatter(None, rows))
+
+    def _unpack(self, flat: torch.Tensor) -> Batch:
+        out, off = {}, 0
+        S = self.layout.seq_len
+        for f, w in zip(BATCH_FIELDS, self.widths):
+            out[f] = flat[:, off:off + w].reshape(flat.shape[0], S, w // S)
+            off += w
+        return Batch(**out)
+
+
 class LearnerService:
     def __init__(
         self,
@@ -217,37 +296,177 @@ class LearnerService:
         self.device: torch.device | None = None
         self.ledger = None
         self.timer: ExecutionTimer | None = None
+        self.mesh = None  # the rank mesh under data parallelism
+        self._channel: RankChannel | None = None  # rank 0 -> followers (one host)
+        self.n_updates = 0  # updates this process ran
+        self._rank_launches = None  # every rank's launch counts at the end
+        self._watch_ranks = False  # multihost: rank 0 decides each watchdog check
 
     # ------------------------------------------------------------------ run
     def run(self) -> None:
+        from tpu_rl_torch.parallel.mesh import make_mesh
+        from tpu_rl_torch.parallel.multihost import host_rank, init_multihost
         from tpu_rl_torch.utils.platform import learner_device
 
-        dev = torch.device(learner_device(self.cfg))
+        cfg = self.cfg
+        dev = torch.device(learner_device(cfg))
+        if cfg.multihost and host_rank()[1] != 1:
+            raise NotImplementedError(
+                "a multihost learner with more than one rank a host comes with slice A 8b of "
+                "the port: it runs one rank per host"
+            )
+        if cfg.multihost:
+            # tpu_rl's learner joins the pod here too (learner_service.run)
+            init_multihost(**cfg.multihost, device=dev)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        if dist.is_initialized():
+            world = dist.get_world_size()
+            if cfg.mesh_seq > 1:
+                # the long-context learner: a (data, seq) mesh
+                from tpu_rl_torch.parallel.mesh import make_sp_mesh
+
+                self.mesh = make_sp_mesh(cfg.mesh_data, cfg.mesh_seq, device=dev)
+            else:
+                n = world if cfg.multihost and world > 1 and cfg.mesh_data == 1 else cfg.mesh_data
+                self.mesh = make_mesh(n, device=dev)
+            if not cfg.multihost and self.mesh.world > 1:
+                self._channel = RankChannel(self.mesh, BatchLayout.from_config(cfg))
+                if self.mesh.rank > 0:
+                    return self._follow(dev)
+        elif cfg.mesh_data * cfg.mesh_seq > 1:
+            raise ValueError(
+                f"mesh_data={cfg.mesh_data} x mesh_seq={cfg.mesh_seq} needs that many ranks, one "
+                "per device: the learner role spawns them (runtime.runner.learner_role)"
+            )
         self._run(dev)
 
-    def _run(self, dev: torch.device) -> None:
+    @property
+    def chief(self) -> bool:
+        """World rank 0: the rank that checkpoints and logs."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _build(self, dev: torch.device):
+        """(spec, family, state, step, generator) of this rank: the step is
+        the data-parallel one under a mesh (over a (data, seq) mesh the
+        transformer splits its window over the seq group, as
+        ``make_sp_train_step`` does)."""
         from tpu_rl_torch.algos.registry import get_algo
+
+        cfg = self.cfg
+        spec = get_algo(cfg.algo)
+        family, state, step = spec.build(
+            cfg, torch.Generator().manual_seed(self.seed), device=dev, mesh=self.mesh
+        )
+        # the update's own draws (SAC's sampling) come from the device
+        gen = torch.Generator(dev).manual_seed(self.seed + 1)
+        return spec, family, state, self._wrap(step), gen
+
+    def _wrap(self, step):
+        """``step`` as this rank calls it: wrapped for the mesh, if any."""
+        from tpu_rl_torch.parallel.dp import make_parallel_train_step
+
+        if self.mesh is None:
+            return step
+        return make_parallel_train_step(step, self.mesh, self.cfg, chain=self._chain())
+
+    def _chain(self) -> int:
+        chain = max(1, self.cfg.learner_chain)
+        if self.max_updates is not None and chain > self.max_updates:
+            chain = max(1, self.max_updates)
+        return chain
+
+    def _rebuild_step(self, spec, family):
+        """The train step of the current cfg (after the entropy anneal)."""
+        from tpu_rl_torch.parallel.mesh import NO_SYNC
+
+        return self._wrap(spec.make_train_step(self.cfg, family, sync=self.mesh or NO_SYNC))
+
+    def _sync_start(self, state, gen, start_idx: int) -> int:
+        """Every rank takes world rank 0's state, generator and start index
+        (rank 0 alone restored); returns the start index."""
+        from tpu_rl_torch.parallel.dp import replicate
+
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            return start_idx
+        replicate(state, mesh, check=False)
+        g = gen.get_state().to(mesh.device)
+        word = torch.tensor([float(start_idx), float(self.run_epoch)], dtype=torch.float64,
+                            device=mesh.device)
+        mesh.broadcast_([g, word])
+        gen.set_state(g.cpu())
+        self.run_epoch = int(word[1])
+        return int(word[0])
+
+    def _follow(self, dev: torch.device) -> None:
+        """A follower rank of a one-host data-parallel learner: rank 0's
+        state, then one update per batch it scatters, until it says stop."""
+        from tpu_rl_torch.parallel.dp import replicate
+
+        cfg = self.cfg
+        spec, family, state, train_step, gen = self._build(dev)
+        replicate(state, self.mesh)  # as rank 0: the seed-built init agrees
+        self._sync_start(state, gen, 0)
+        rows = cfg.batch_size // self.mesh.n_data
+        chain = self._chain()
+        ch = self._channel
+        while True:
+            cmd, vals = ch.receive()
+            if cmd == RankChannel.STEP:
+                batches = [ch.receive_batch(rows) for _ in range(int(vals[0]))]
+                if chain > 1:
+                    state, _m = train_step(state, batches, gen)
+                else:
+                    for b in batches:
+                        state, _m = train_step(state, b, gen)
+                self.n_updates += len(batches)
+                if self.heartbeat is not None:
+                    self.heartbeat.value = time.time()
+            elif cmd == RankChannel.ANNEAL:
+                self.cfg = cfg = cfg.replace(entropy_coef=vals[0], lr=vals[1])
+                train_step = self._rebuild_step(spec, family)
+            elif cmd == RankChannel.STATE:
+                replicate(state, self.mesh, check=False)
+                self._sync_start(state, gen, 0)
+            elif cmd == RankChannel.STOP:
+                self._gather_launches()
+                return
+            else:
+                raise RuntimeError(f"learner rank {self.mesh.rank}: unknown command {cmd}")
+
+    def _gather_launches(self) -> list[list[float]] | None:
+        """Every rank's (B1 launches, B2 launches, updates), gathered to
+        every rank in rank order; None without a mesh."""
+        from tpu_rl_torch.ops import lstm as L
+
+        if self.mesh is None or self.mesh.world == 1:
+            return None
+        table = torch.zeros((self.mesh.world, 3), dtype=torch.float64, device=self.mesh.device)
+        table[self.mesh.rank] = torch.tensor(
+            [float(L.LSTM_FWD_LAUNCHES), float(L.LSTM_BWD_LAUNCHES), float(self.n_updates)],
+            dtype=torch.float64)
+        return self.mesh.all_reduce_(table).tolist()  # every rank's row
+
+    def _run(self, dev: torch.device) -> None:
         from tpu_rl_torch.checkpoint import Checkpointer, resume_fingerprint
 
         cfg = self.cfg
         layout = BatchLayout.from_config(cfg)
         store = make_store(cfg, layout, handles=self.handles)
         rng = np.random.default_rng(self.seed)
-        spec = get_algo(cfg.algo)
-        family, state, train_step = spec.build(
-            cfg, torch.Generator().manual_seed(self.seed), device=dev
-        )
-        # the update's own draws (SAC's sampling) come from the device
-        gen = torch.Generator(dev).manual_seed(self.seed + 1)
+        spec, family, state, train_step, gen = self._build(dev)
+        if self.mesh is not None:
+            from tpu_rl_torch.parallel.dp import replicate
 
-        # ---- checkpoint resume (newest COMMITTED index wins) ----
+            replicate(state, self.mesh)  # the seed-built init agrees on every rank
+
+        # ---- checkpoint resume (newest COMMITTED index wins; world rank 0) ----
         ckpt = None
         start_idx = 0
         fingerprint = resume_fingerprint(cfg)
-        if cfg.model_dir:
+        if cfg.model_dir and self.chief:
             ckpt = self._ckpt = Checkpointer(
                 cfg.model_dir, cfg.algo, keep=cfg.ckpt_keep, async_save=cfg.ckpt_async
             )
@@ -261,20 +480,19 @@ class LearnerService:
                     f"(run epoch {self.run_epoch})"
                 )
                 self._record_resume(start_idx)
+        start_idx = self._sync_start(state, gen, start_idx)
         # The epoch reaches the cross-respawn mailbox BEFORE the first
         # broadcast, so storage fences stale frames deterministically.
         sa = self.stat_array
         if sa is not None and len(sa) > SLOT_RUN_EPOCH:
             sa[SLOT_RUN_EPOCH] = float(self.run_epoch + 1)  # 0 = unknown
 
-        chain = max(1, cfg.learner_chain)
-        if self.max_updates is not None and chain > self.max_updates:
+        chain = self._chain()
+        if chain < cfg.learner_chain:
             print(
-                f"[learner] learner_chain {chain} exceeds max_updates "
-                f"{self.max_updates}; clamping chain to "
-                f"{max(1, self.max_updates)}", flush=True,
+                f"[learner] learner_chain {cfg.learner_chain} exceeds max_updates "
+                f"{self.max_updates}; clamping chain to {chain}", flush=True,
             )
-            chain = max(1, self.max_updates)
 
         anneal = cfg.entropy_anneal
         anneal_at = None
@@ -316,7 +534,7 @@ class LearnerService:
             telem_reg = MetricsRegistry(role="learner")
             ledger = self.ledger = GoodputLedger("learner")
             wait_bucket = QUEUE_WAIT if cfg.learner_prefetch > 0 else H2D
-            self._perf = PerfTracker(dev)
+            self._perf = PerfTracker(dev, world=self.mesh.world if self.mesh else 1)
             # loopback by construction (storage shares the host), so
             # transport="shm"/"auto" routes it through the shm channel
             telem_pub = make_data_pub(cfg, "127.0.0.1", self.stat_port, bind=False)
@@ -374,6 +592,11 @@ class LearnerService:
         nf_acc = 0.0
         nf_base = 0.0
         watchdog = budget = None
+        # Under multihost world rank 0, which holds the checkpoints, decides
+        # every watchdog check and broadcasts its word; the other ranks act
+        # on it (_watch_word).
+        self._watch_ranks = bool(cfg.watchdog_enabled and cfg.model_dir and cfg.multihost
+                                 and self.mesh is not None and self.mesh.world > 1)
         if cfg.watchdog_enabled and ckpt is not None:
             from tpu_rl_torch.heal.watchdog import DivergenceWatchdog, RollbackBudget
 
@@ -439,8 +662,14 @@ class LearnerService:
                 rc0 = self._perf.recompiles if self._perf is not None else 0
                 t_step = time.perf_counter()
                 with torch.profiler.record_function("learner-dispatch"):
-                    for batch in batches:
-                        wait_ready(batch)
+                    batches = [wait_ready(b) for b in batches]
+                    if self._channel is not None:
+                        # one host: every rank takes its rows of the global batch
+                        self._channel.command(RankChannel.STEP, len(batches))
+                        batches = [self._channel.scatter(b) for b in batches]
+                    # the mesh's chained step takes the K batches at once
+                    calls = [batches] if self.mesh is not None and chain > 1 else batches
+                    for batch in calls:
                         if self._perf is not None:
                             state, metrics = self._perf.call(train_step, state, batch, gen)
                         else:
@@ -452,6 +681,7 @@ class LearnerService:
                             n_rows = next(iter(diag["rows"].values())).shape[0] if diag["rows"] else 0
                             stale = host_stale_rows(idx, vers, n_rows) if chain == 1 else np.zeros(n_rows, np.float32)
                             diag_acc.add(diag, torch.from_numpy(stale).to(dev))
+                    self.n_updates += len(batches)
                 step_secs = time.perf_counter() - t_step
                 if self._perf is not None:
                     self._perf.note(wait_secs + step_secs)
@@ -479,7 +709,9 @@ class LearnerService:
                         lr=float(anneal.get("lr", cfg.lr)),
                     )
                     self.cfg = cfg
-                    train_step = spec.make_train_step(cfg, family)
+                    train_step = self._rebuild_step(spec, family)
+                    if self._channel is not None:
+                        self._channel.command(RankChannel.ANNEAL, cfg.entropy_coef, cfg.lr)
                     anneal_at = None  # fire once
                     print(
                         f"[learner] update {idx}: entropy_coef -> "
@@ -556,6 +788,7 @@ class LearnerService:
                                     f"{watchdog.last_reason}; stopping "
                                     f"cleanly", flush=True,
                                 )
+                                self._watch_word(self.WATCH_STOP)
                                 break
                             t_rb = time.perf_counter()
                             rolled = self._rollback(ckpt, state, pub, fingerprint, gen, watchdog.last_reason)
@@ -568,6 +801,16 @@ class LearnerService:
                                 nf_base = self.n_nonfinite_updates
                                 budget.record()
                                 continue
+                        else:
+                            self._watch_word(self.WATCH_GO)
+                    elif self._watch_ranks:
+                        word = self._watch_word()
+                        if word == self.WATCH_STOP:
+                            break
+                        if word == self.WATCH_ROLLBACK:
+                            state, idx = self._follow_rollback(state, gen, pub)
+                            last_pub_m = time.monotonic()
+                            continue
                 if ckpt is not None and _crossed(prev_idx, idx, cfg.model_save_interval):
                     t_ck = time.perf_counter()
                     ckpt.save(state, idx, meta=_ckpt_meta())
@@ -592,6 +835,10 @@ class LearnerService:
                     )
                     break
         finally:
+            if self._channel is not None:
+                self._channel.command(RankChannel.STOP)
+            # every rank's launch counts, for the closing snapshot
+            self._rank_launches = self._gather_launches()
             # Service and feeder first (they touch the card and the store),
             # then the publisher (flushing the final snapshot), then sockets.
             if self._inference is not None:
@@ -761,12 +1008,22 @@ class LearnerService:
                 f"[learner] watchdog tripped ({reason}) but no committed "
                 "checkpoint exists to roll back to; continuing", flush=True,
             )
+            self._watch_word(self.WATCH_GO)
             return None
         state, r_idx, meta = restored
         ckpt.discard_above(r_idx)
         if meta.get("generator") is not None:
             self._restore_generator(gen, meta)
         self.run_epoch += 1
+        if self._channel is not None or self._watch_ranks:
+            # the other ranks take the restored state and generator
+            from tpu_rl_torch.parallel.dp import replicate
+
+            if self._channel is not None:
+                self._channel.command(RankChannel.STATE)
+            self._watch_word(self.WATCH_ROLLBACK)
+            replicate(state, self.mesh, check=False)
+            self._sync_start(state, gen, r_idx)
         sa = self.stat_array
         if sa is not None and len(sa) > SLOT_RUN_EPOCH:
             sa[SLOT_RUN_EPOCH] = float(self.run_epoch + 1)
@@ -785,6 +1042,35 @@ class LearnerService:
             f"committed idx {r_idx}, run epoch -> {self.run_epoch}",
             flush=True,
         )
+        return state, r_idx
+
+    WATCH_GO, WATCH_ROLLBACK, WATCH_STOP = 0, 1, 2
+
+    def _watch_word(self, word: int | None = None) -> int | None:
+        """World rank 0's verdict on one watchdog check under multihost
+        (``word`` on rank 0, received elsewhere); a no-op returning
+        ``word`` otherwise."""
+        if not self._watch_ranks:
+            return word
+        t = torch.tensor([float(word or 0)], dtype=torch.float64, device=self.mesh.device)
+        self.mesh.broadcast_([t])
+        return int(t.item())
+
+    def _follow_rollback(self, state, gen, pub):
+        """A multihost rank's side of world rank 0's rollback: its restored
+        state, generator, update index and run epoch, then this host's
+        broadcast to its workers. Returns (state, idx)."""
+        from tpu_rl_torch.parallel.dp import replicate
+
+        replicate(state, self.mesh, check=False)
+        r_idx = self._sync_start(state, gen, 0)
+        sa = self.stat_array
+        if sa is not None and len(sa) > SLOT_RUN_EPOCH:
+            sa[SLOT_RUN_EPOCH] = float(self.run_epoch + 1)
+        self._publish(pub, state, ver=r_idx)
+        self.n_rollbacks += 1
+        print(f"[learner] rank {self.mesh.rank}: rank 0's rollback #{self.n_rollbacks} to idx "
+              f"{r_idx}, run epoch -> {self.run_epoch}", flush=True)
         return state, r_idx
 
     def _record_resume(self, idx: int) -> None:
@@ -817,6 +1103,18 @@ class LearnerService:
         # this process's kernel launches (counted only on the card)
         reg.counter("learner-lstm-fwd-launches").set_total(L.LSTM_FWD_LAUNCHES)
         reg.counter("learner-lstm-bwd-launches").set_total(L.LSTM_BWD_LAUNCHES)
+        reg.counter("learner-updates-run").set_total(self.n_updates)
+        if self.mesh is not None:
+            from tpu_rl_torch.parallel.mesh import publish_mesh
+
+            publish_mesh(reg, self.mesh)
+            if self._channel is not None:
+                reg.counter("learner-scattered-bytes").set_total(self._channel.bytes_scattered)
+            # every rank's counts, folded in at the end of the run
+            for r, (fwd, bwd, ups) in enumerate(getattr(self, "_rank_launches", None) or []):
+                reg.counter(f"learner-lstm-fwd-launches-rank{r}").set_total(fwd)
+                reg.counter(f"learner-lstm-bwd-launches-rank{r}").set_total(bwd)
+                reg.counter(f"learner-updates-run-rank{r}").set_total(ups)
         perf = self._perf
         if perf is not None:
             from tpu_rl_torch.obs.perf import device_memory_bytes, process_self_stats

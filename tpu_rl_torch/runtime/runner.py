@@ -68,6 +68,107 @@ def _child_env(**env: str):
                 os.environ[k] = v
 
 
+def rank_entry(target: Callable, rank: int, world: int, rdv: str | None, *args) -> None:
+    """One rank of a group child: join the group's process group (through
+    the ``file://`` rendezvous ``rdv``; None when the target joins by
+    ``multihost`` itself), then run ``target(*args)``. ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` name the rank on its host, as torchrun does."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    if rdv is not None:
+        import torch
+
+        from tpu_rl_torch.parallel.mesh import init_process_group, rank_device
+
+        cfg = args[0]
+        dev, share = rank_device(rank, world, "cpu" if cfg.learner_device == "cpu" else "cuda")
+        init_process_group(f"file://{rdv}", world, rank, dev, share)
+        del torch
+    target(*args)
+
+
+class RankGroup:
+    """The ranks of one data-parallel role as ONE supervised child, with
+    ``mp.Process``'s surface: alive while every rank is alive; when one rank
+    exits non-zero, the others are stopped and the group's exit code is
+    that rank's; it exits 0 when every rank did. Each start joins a fresh
+    ``file://`` rendezvous, so a respawn brings the whole group back."""
+
+    def __init__(self, ctx, target: Callable, args: tuple, world: int, name: str, daemon: bool,
+                 init: bool = True):
+        self.ctx, self.target, self.args = ctx, target, args
+        self.world, self.name, self.daemon, self.init = world, name, daemon, init
+        self.procs: list = []
+        self._exitcode: int | None = None
+
+    def start(self) -> None:
+        import tempfile
+
+        rdv = None
+        if self.init:
+            fd, rdv = tempfile.mkstemp(prefix=f"{self.name}-rdv-")
+            os.close(fd)
+            os.unlink(rdv)  # the file store creates it
+        self.procs = [
+            self.ctx.Process(
+                target=rank_entry, args=(self.target, r, self.world, rdv, *self.args),
+                name=f"{self.name}-rank{r}", daemon=self.daemon,
+            )
+            for r in range(self.world)
+        ]
+        for p in self.procs:
+            p.start()
+
+    def _reap(self) -> None:
+        if self._exitcode is not None:
+            return
+        codes = [p.exitcode for p in self.procs]
+        bad = [c for c in codes if c not in (None, 0)]
+        if bad:
+            self._exitcode = bad[0]
+            for p in self.procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in self.procs:
+                p.join(5)
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        elif all(c == 0 for c in codes):
+            self._exitcode = 0
+
+    def is_alive(self) -> bool:
+        self._reap()
+        return self._exitcode is None
+
+    @property
+    def exitcode(self) -> int | None:
+        self._reap()
+        return self._exitcode
+
+    @property
+    def pid(self) -> int | None:
+        return self.procs[0].pid if self.procs else None
+
+    def join(self, timeout: float | None = None) -> None:
+        deadline = None if timeout is None else time.time() + timeout
+        for p in self.procs:
+            p.join(None if deadline is None else max(0.0, deadline - time.time()))
+            self._reap()
+            if self._exitcode not in (None, 0):
+                return
+
+    def terminate(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+
+
 @dataclass
 class Child:
     name: str
@@ -88,6 +189,10 @@ class Child:
     streak: int = 0  # consecutive crashes without an intervening healthy window
     respawn_at: float = 0.0  # dead, respawn scheduled at this time (0 = none)
     exhausted: bool = False  # budget blown; fleet shuts down
+    # Ranks of a data-parallel role, supervised as one child (RankGroup);
+    # rank_init False: the target joins its process group itself (multihost).
+    world: int = 1
+    rank_init: bool = True
 
 
 @dataclass
@@ -147,6 +252,8 @@ class Supervisor:
         *args,
         cpu_only: bool = True,
         daemon: bool = True,
+        world: int = 1,
+        rank_init: bool = True,
     ) -> Child:
         from tpu_rl_torch.utils.errlog import role_entry
 
@@ -161,6 +268,8 @@ class Supervisor:
             heartbeat=hb,
             cpu_only=cpu_only,
             daemon=daemon,
+            world=world,
+            rank_init=rank_init,
         )
         self._start(child)
         self.children.append(child)
@@ -173,12 +282,16 @@ class Supervisor:
         env = HOST_ENV if child.cpu_only else {}
         target = child.target
         with _child_env(**env):
-            child.proc = self.ctx.Process(
-                target=target,
-                args=child.args,
-                name=child.name,
-                daemon=child.daemon,
-            )
+            if child.world > 1:
+                child.proc = RankGroup(self.ctx, target, child.args, child.world, child.name,
+                                       child.daemon, init=child.rank_init)
+            else:
+                child.proc = self.ctx.Process(
+                    target=target,
+                    args=child.args,
+                    name=child.name,
+                    daemon=child.daemon,
+                )
             child.heartbeat.value = self.clock()
             child.started_at = self.clock()
             child.proc.start()
@@ -375,6 +488,12 @@ def learner_role(
     from tpu_rl_torch.runtime.learner_service import learner_main
     from tpu_rl_torch.runtime.storage import storage_main
 
+    if cfg.multihost and _host_ranks(cfg) > 1:
+        raise NotImplementedError(
+            f"a multihost learner on a host of {_host_ranks(cfg)} cards (one rank per card, each "
+            "fed its share of the host's rows) comes with slice A 8b of the port; the multihost "
+            "learner runs on hosts of one card, the colocated pod on any"
+        )
     sup = supervisor or Supervisor.from_config(cfg)
     # Supervisor restart counters ride the stat channel the storage
     # child SUB-binds on this host (same path as the learner's snapshots).
@@ -417,8 +536,24 @@ def learner_role(
         # "auto": the learner owns the card (and raises without one).
         # "cpu": a host process on the plain path (tests).
         cpu_only=(cfg.learner_device == "cpu"),
+        # one rank per device on this host, supervised as one child
+        world=_host_ranks(cfg),
     )
     return sup
+
+
+def _host_ranks(cfg: Config) -> int:
+    """Ranks this host runs for the learner or colocated role: ``mesh_data``
+    x ``mesh_seq`` on one host; under ``multihost`` one rank per card of
+    the host (``tpu_rl``'s host process drives every local device; one on
+    the CPU), each rank joining the pod at the coordinator."""
+    if cfg.multihost:
+        if cfg.learner_device == "cpu":
+            return 1
+        import torch
+
+        return max(1, torch.cuda.device_count())
+    return max(1, int(cfg.mesh_data) * int(cfg.mesh_seq))
 
 
 def worker_role(
@@ -536,8 +671,9 @@ def colocated_role(
     """Spawn the colocated-mode loop: envs live on the device inside the
     training loop, so this host's whole deployment is ONE supervised child.
     ``machines`` is accepted (and ignored) so the CLI can dispatch every
-    role through one signature. tpu_rl's Sebulba split comes with the
-    multi-GPU slice of the port."""
+    role through one signature. With ``mesh_data > 1`` (or ``multihost``
+    on a host with more than one card) the child is a group of one rank
+    per device (:class:`RankGroup`). tpu_rl's Sebulba split comes with slice A 8b."""
     del machines  # colocated mode has no fleet topology
     sup = supervisor or Supervisor.from_config(cfg)
     sup.spawn(
@@ -545,6 +681,8 @@ def colocated_role(
         functools.partial(colocated_main, max_updates=max_updates, seed=seed),
         cfg,
         cpu_only=(cfg.learner_device == "cpu"),
+        world=_host_ranks(cfg),
+        rank_init=not cfg.multihost,
     )
     return sup
 
