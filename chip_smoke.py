@@ -79,7 +79,7 @@ against its plain PyTorch version:
 8b. colocated IMPALA and V-MPO on CartPole and PPO-Continuous on Pendulum
    through ``ColocatedLoop.program`` at 128 envs, 1 + 2 updates: ms per
    update, finite metrics and params, launches = updates x K_epoch; then
-   an IMPALA learning run on step 7's recipe for 900 updates, its best
+   an IMPALA learning run on step 7's recipe for 300 updates, its best
    window printed with no bar;
 8c. bf16 compute (tpu_rl's mixed precision; the recurrence is the bf16
    scan, never B1/B2): ``mixed_dot`` on the card against the CPU (1e-5)
@@ -129,12 +129,13 @@ against its plain PyTorch version:
    the @ref bars, then at the longctx-flash width for 2 timed updates with
    B4's launches counted (n_layers x K_epoch x updates);
 11. the transformer's colocated loop: ``ColocatedLoop.program`` on
-   ``configs/longcontext_singlechip.example.json`` as shipped (blockwise;
-   CartPole, KV-cached acting, 8 x 4096) for 1 update, finite metrics, no
+   ``configs/longcontext_singlechip.example.json`` at LONGCTX_LAYERS
+   layers (blockwise; CartPole, KV-cached acting, 8 x 4096) for 1 update,
+   finite metrics, no
    B4 launch, one tick's host and device time; then the same with flash
    attention for 1 update, B4 launches n_layers x K_epoch each way;
 11a. transformer serving: the long-context config's model (d256, 8 heads,
-   4 layers, act_ctx 512, bf16 compute; obs 4, 2 actions) behind
+   LONGCTX_LAYERS layers, act_ctx 512, bf16 compute; obs 4, 2 actions) behind
    ``InferenceService`` with its KV caches in the service's carry table on
    the card, at inference_dtype f32, bf16 and int8, under mix 1 (2 x 4 x
    600, the ring wraps) and mix 2 (64 x 4 x 50) with CartPole-like
@@ -192,7 +193,7 @@ against its plain PyTorch version:
    128; one worker machine of 2 processes, worker_num_envs 1, no worker
    throttle), twice: (a) local acting, TCP, the raw relay, 50 updates;
    (b) every act step served by the learner's InferenceService through B3,
-   the manager -> storage hop over shm, 30 updates. Where gymnasium is missing, a
+   the manager -> storage hop over shm, 12 updates. Where gymnasium is missing, a
    stand-in ``gymnasium`` package over ``DeviceSpecEnv`` goes first on
    every child's path. Per run: the learner's exit code (0), updates/s and
    env steps/s ingested by storage (telemetry.json, storage's clock),
@@ -202,6 +203,23 @@ against its plain PyTorch version:
    flushes with no remote-acting fallback, all read from the learner's
    closing telemetry snapshot; only the learner child holds a CUDA context
    (nvidia-smi's compute PIDs mid-run);
+12d'. the inference fleet (``fleet_phase``): (F1) cluster run (d), run
+   (b)'s config with ``inference_replicas=2``, no hedge timer and a 20 s
+   request timeout, 30 updates, ``inference-1`` stopped (SIGSTOP) from
+   update 12 until the learner's replica 0 has served FLEET_HOLD_FLUSHES
+   flushes in its place (the workers fail over to it), then resumed:
+   every replica answers, each replica's B3 launches = its warm-ups +
+   flushes, no fallback, storage's fleet gauges (``inference-1`` evicted
+   and rejoined), three CUDA contexts (this process, the learner,
+   ``inference-1``); (F2)
+   ``tpu_rl_torch.examples.loadgen_smoke.run``: two replica processes on
+   the card under 12000 synthetic clients from 2 driver processes, 100 /
+   250 / 600 rps, 6 s a stage, the busier replica SIGKILLed 8 s in, held
+   to tpu_rl's bars, then a sweep of 600 / 1200 / 2400 / 4800 rps without
+   a kill (the saturation curve), B3 launches per replica; (F3) a replica
+   sharded over ``inference_mesh_data`` 2 devices refuses on one card, and
+   on two or more matches a one-device replica at the serving bar with
+   one B3 launch a device a flush;
 12e. data and sequence parallelism on torch.distributed (``dp_phase``,
    ``sp_phase``; one card, so none of it is a scaling number): (P1) the
    data-parallel step at IMPALA@wide-lstm, (P2) the colocated loop (20
@@ -214,8 +232,7 @@ against its plain PyTorch version:
    through host memory) against world size 1 at tests/test_parallel.py's
    bars, with each rank's B1/B2 launches; (P4) ring and Ulysses attention
    over the two ranks at (16,2048,8,64) bf16 against full attention in
-   f32, beside B4's and blockwise's times; what gloo does with CUDA
-   tensors and NCCL with two ranks on one card; (P3) the cluster with a
+   f32, beside B4's and blockwise's times; (P3) the cluster with a
    two-rank learner (run (c)), B1/B2 = updates x K_epoch on every rank;
 13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
@@ -229,6 +246,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import signal
 import subprocess
 import sys
 import threading
@@ -268,7 +286,7 @@ LEARN_CFG = dict(
 LEARN_UPDATES, LEARN_BAR, LEARN_EPISODES = 1800, 60.0, 100
 # The IMPALA learning run (no bar) at half that depth since the transformer
 # serving phases came in, to keep the whole run near its earlier length.
-IMPALA_LEARN_UPDATES = 900
+IMPALA_LEARN_UPDATES = 300  # no bar; cut from 900 for the time limit (PERF.md §4)
 
 # (B, S, H) at which B1 and B2 are held against the plain versions: the
 # training path, the learning run, a ragged batch, and two wide shapes
@@ -331,6 +349,11 @@ EPISODE_LO, EPISODE_HI = 10, 200
 TF_REF = dict(model="transformer", batch_size=128, seq_len=16, hidden_size=64, n_heads=4,
               n_layers=2, obs_shape=(4,), action_space=2)
 TF_ALGO_UPDATES = 2
+# The long-context config's depth in the colocated loop and in transformer
+# serving: cut from its 4 layers to keep the smoke inside its time limit
+# (PERF.md §4); widths, heads, context and every shape a layer sees are the
+# config's own.
+LONGCTX_LAYERS = 2
 # Transformer serving: acts a client in the profiled mix-2 burst.
 TF_SERVE_PROFILED = 5
 # Transformer serving: the clients whose every reply is replayed through
@@ -458,6 +481,9 @@ WIDE_MODEL = [(256, 64, 1024, 8)]
 # Beside those: H=100 (13 unit slices, the last of 4 units) and H=50 (not a
 # multiple of 4: the kernel's 4-byte-copy path; the last slice of 2 units).
 EDGE = [(8, 4, 100, 3), (3, 6, 50, 5)]
+# the load sweeps' replicas (examples/loadgen_smoke.fleet_config: H 32, buckets
+# 8 and 16)
+LOADGEN_MODEL = [(b, 4, 32, 2) for b in (8, 16)]
 
 
 def fail(msg: str) -> None:
@@ -474,7 +500,7 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def device_ms(fn, iters: int = 100, reps: int = 7, warmup: int = 10) -> float:
+def device_ms(fn, iters: int = 100, reps: int = 5, warmup: int = 10) -> float:
     """Median device time of one ``fn()`` call, in ms. A busy-wait kernel is
     queued first so that the host has enqueued all ``iters`` calls before
     the card reaches the start event: the events then time the card's work
@@ -535,7 +561,7 @@ def kernel_phase() -> list[dict]:
     from tpu_rl_torch.ops import fused_act as FA
 
     rows = []
-    for B, D, H, A in SERVING_LADDER + RAGGED + DEFAULT_MODEL + WIDE_MODEL + EDGE:
+    for B, D, H, A in SERVING_LADDER + RAGGED + DEFAULT_MODEL + WIDE_MODEL + EDGE + LOADGEN_MODEL:
         cfg = Config.from_dict({"hidden_size": H, "obs_shape": (D,), "action_space": A})
         family = build_family(cfg, device="cuda")
         params = seeded_params(family, 0)
@@ -2313,7 +2339,8 @@ def tf_train_phase(card: str) -> dict:
 
 def tf_colocated_phase(card: str, impl: str = "blockwise") -> dict:
     """The transformer's colocated loop: ColocatedLoop.program on
-    configs/longcontext_singlechip.example.json (env_mode set to colocated)
+    configs/longcontext_singlechip.example.json at LONGCTX_LAYERS layers
+    (env_mode set to colocated)
     for TF_COLOCATED_UPDATES updates of KV-cached acting and training, with
     the config's own blockwise attention (B4 launches 0) or with ``impl``
     in its place (flash: B4 launches n_layers x K_epoch x updates each
@@ -2322,7 +2349,7 @@ def tf_colocated_phase(card: str, impl: str = "blockwise") -> dict:
     from tpu_rl_torch.ops import attention as A
     from tpu_rl_torch.runtime.colocated import ColocatedLoop
 
-    raw = json.loads((ROOT / "configs" / "longcontext_singlechip.example.json").read_text())
+    raw = longctx_config()
     if raw["attention_impl"] != "blockwise":
         fail(f"the long-context config asks for {raw['attention_impl']!r}, not blockwise")
     cfg = Config.from_dict(dict(raw, env_mode="colocated", attention_impl=impl))
@@ -2574,14 +2601,20 @@ def tf_algos_phase(card: str) -> dict:
 
 
 # ------------------------------------------------- transformer serving
+def longctx_config() -> dict:
+    """configs/longcontext_singlechip.example.json at LONGCTX_LAYERS layers."""
+    raw = json.loads((ROOT / "configs" / "longcontext_singlechip.example.json").read_text())
+    return dict(raw, n_layers=LONGCTX_LAYERS)
+
+
 def tf_serve_cfg(dtype: str, compute_dtype: str | None = None, **kw):
     """configs/longcontext_singlechip.example.json's model (CartPole's obs 4
-    and 2 actions) behind the serving keys of SERVE_CFG, unfused
-    (act_kernel "xla": the fused kernel covers the LSTM only), at
-    ``inference_dtype=dtype``."""
+    and 2 actions, LONGCTX_LAYERS layers) behind the serving keys of
+    SERVE_CFG, unfused (act_kernel "xla": the fused kernel covers the LSTM
+    only), at ``inference_dtype=dtype``."""
     from tpu_rl_torch.config import Config
 
-    raw = json.loads((ROOT / "configs" / "longcontext_singlechip.example.json").read_text())
+    raw = longctx_config()
     serve = {k: v for k, v in SERVE_CFG.items() if k.startswith(("inference", "worker"))}
     raw.update(serve, obs_shape=(4,), action_space=2, act_kernel="xla", inference_dtype=dtype,
                **kw)
@@ -3608,15 +3641,17 @@ def report_compare_check(result_dir: str, card: str) -> dict:
 # own remote-acting test recipe: a worker's first request must not time out
 # into local acting while the learner starts.
 CLUSTER_UPDATES = 50
-CLUSTER_PROFILE = (20, 5)  # profile_start, profile_steps (updates)
+CLUSTER_PROFILE = (5, 5)  # profile_start, profile_steps (updates)
 CLUSTER_RUNS = (
     ("a", dict(act_mode="local", transport="tcp", relay_mode="raw")),
     ("b", dict(act_mode="remote", act_kernel="pallas", transport="auto",
                inference_timeout_ms=60000)),
 )
-# Run (b) is the slowest (~0.7 updates/s): 30 updates keep the smoke inside
-# its time limit (the profiler window ends at 25).
-CLUSTER_UPDATES_BY_RUN = {"b": 30}
+# Depth cut to keep the smoke inside its time limit (PERF.md §4): run (b),
+# the slowest (0.3-0.7 updates/s), to 12 updates (from 30); the
+# fleet's run (d) 30. The profiler window ends at 10. Runs (a) and (c)
+# keep 50: at ~4 updates/s fewer leave too few telemetry samples to rate.
+CLUSTER_UPDATES_BY_RUN = {"b": 12, "d": 30}
 CLUSTER_TIMEOUT_S = 300.0
 
 
@@ -3745,12 +3780,14 @@ def trace_kernels(prof_dir: Path) -> dict:
 
 
 def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
-    """One ``local_cluster`` run to CLUSTER_UPDATES updates (run (b):
+    """One ``local_cluster`` run to CLUSTER_UPDATES updates (runs (b), (d):
     CLUSTER_UPDATES_BY_RUN); telemetry.json
     (storage's aggregate of every role's snapshots, every second) is read
     while it runs and after. With ``ranks`` > 1 the learner is that many
     data-parallel ranks (``mesh_data``) sharing the card; each rank's
-    launches come in the learner's closing snapshot."""
+    launches come in the learner's closing snapshot. With
+    ``inference_replicas`` N > 1 in ``over`` the fleet's replicas 1..N-1
+    are children holding the card beside the learner (replica 0)."""
     import shutil
 
     from tpu_rl_torch.config import Config, MachinesConfig, WorkerMachine
@@ -3771,28 +3808,62 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
     done = threading.Event()
     t0 = time.perf_counter()
     n_updates = CLUSTER_UPDATES_BY_RUN.get(tag, CLUSTER_UPDATES)
+    replicas = int(over.get("inference_replicas", 1))
     sup = local_cluster(cfg, machines, max_updates=n_updates)
     children = {c.name: c for c in sup.children}
 
+    learner = children["learner"]
+    # the children that hold the card: the learner's ranks and the replicas
+    holders = [p for n in ["learner"] + [f"inference-{i}" for i in range(1, replicas)]
+               for p in getattr(children[n].proc, "procs", [children[n].proc])]
+    # A fleet's hold (FLEET_HOLD): inference-1 stopped, so that the learner's
+    # replica 0 serves the workers, then resumed.
+    victim = children["inference-1"].proc if replicas > 1 else None
+    hold: dict = {}
+
+    def hold_step(lrn: dict, sto: dict) -> None:
+        idx = metric(lrn, "learner-update-index", "gauges") or 0
+        r0 = metric(lrn, "inference-batches") or 0
+        if "stopped_at" not in hold and idx >= FLEET_HOLD["at_update"]:
+            os.kill(victim.pid, signal.SIGSTOP)
+            hold.update(stopped_at=time.monotonic(), ts=float(sto["ts"]), at_update=idx,
+                        r0_flushes_before=r0)
+        elif "stopped_at" in hold and "resumed_after_s" not in hold and (
+                r0 - hold["r0_flushes_before"] >= FLEET_HOLD["flushes"]
+                or time.monotonic() - hold["stopped_at"] >= FLEET_HOLD["max_s"]):
+            os.kill(victim.pid, signal.SIGCONT)
+            hold.update(resumed_after_s=time.monotonic() - hold["stopped_at"],
+                        r0_flushes_seen=r0 - hold["r0_flushes_before"])
+
     def watch() -> None:
-        while not done.wait(0.5):
+        while not done.wait(0.25):
             srcs = telemetry_sources(rdir)
             lrn = next((s for s in srcs if s.get("role") == "learner"), None)
             sto = next((s for s in srcs if s.get("role") == "storage"), None)
-            if lrn is None or sto is None:
+            if sto is None:
                 continue
-            idx = metric(lrn, "learner-update-index", "gauges") or 0.0
-            samples.append((float(sto["ts"]), float(idx), float(metric(sto, "storage-windows") or 0)))
-            if 5 <= idx < n_updates - 5 and len(ctx_checks) < 3:
-                ctx_checks.append({"pids": cuda_pids(),
-                                   "children": {n: c.proc.pid for n, c in children.items()},
-                                   "fds": {n: card_fds(c.proc.pid) for n, c in children.items()}})
+            windows = float(metric(sto, "storage-windows") or 0)
+            if lrn is not None:
+                idx = float(metric(lrn, "learner-update-index", "gauges") or 0.0)
+                samples.append((float(sto["ts"]), idx, windows))
+                if victim is not None:
+                    hold_step(lrn, sto)
+            # mid-run: windows flow (the workers are up), every process that
+            # should hold the card has opened its node (made its context),
+            # and the learner is alive before and after the sample (a short
+            # run may end between two telemetry writes)
+            if (windows >= 1 and len(ctx_checks) < 3 and learner.proc.is_alive()
+                    and all(card_fds(p.pid) for p in holders)):
+                check = {"pids": cuda_pids(),
+                         "children": {n: c.proc.pid for n, c in children.items()},
+                         "fds": {n: card_fds(c.proc.pid) for n, c in children.items()}}
+                if learner.proc.is_alive():
+                    ctx_checks.append(check)
 
     watcher = threading.Thread(target=watch, daemon=True)
     watcher.start()
     try:
         deadline = time.monotonic() + CLUSTER_TIMEOUT_S
-        learner = children["learner"]
         while learner.proc.is_alive() and time.monotonic() < deadline:
             time.sleep(0.25)
         wall = time.perf_counter() - t0
@@ -3807,9 +3878,13 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
     finally:
         done.set()
         watcher.join(5)
+        if "stopped_at" in hold and "resumed_after_s" not in hold:
+            os.kill(victim.pid, signal.SIGCONT)  # a stopped child would not take SIGTERM
         sup.stop()
     if exitcode != 0:
         fail(f"cluster ({tag}): the learner exited {exitcode} (alive: {learner.proc.is_alive()})")
+    if victim is not None and "resumed_after_s" not in hold:
+        fail(f"cluster ({tag}): inference-1 was never stopped and resumed: {hold}")
     srcs = telemetry_sources(rdir)
     lrn = next((s for s in srcs if s.get("role") == "learner" and s.get("closing")), None)
     sto = next((s for s in srcs if s.get("role") == "storage"), None)
@@ -3856,8 +3931,9 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
                frames_rejected=rejected, frames_dropped=dropped,
                forwarded_frames=metric(mgr, "manager-forwarded-frames"),
                windows=metric(sto, "storage-windows"))
-    # rates over the run's samples once updates flow (storage's clock)
-    live = [s for s in samples if s[1] >= 1]
+    # rates over the run's samples once updates flow (storage's clock), up
+    # to a fleet's hold (its failover stall is not the fleet's rate)
+    live = [s for s in samples if s[1] >= 1 and s[0] <= hold.get("ts", float("inf"))]
     if len(live) >= 2 and live[-1][0] > live[0][0]:
         dt = live[-1][0] - live[0][0]
         out["updates_per_s"] = (live[-1][1] - live[0][1]) / dt
@@ -3880,19 +3956,21 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
     out["b1_b2_device_ms_per_update"] = kern["b1_b2_us"] / 1e3 / steps
     out["b3_device_ms_per_update"] = kern["b3_us"] / 1e3 / steps
     out["device_kernels_per_update"] = kern["kernels"] / steps
-    # only the learner holds a CUDA context: nvidia-smi counts two compute
-    # processes (this one and the learner), and of the children only the
-    # learner holds the card's device node open
+    # only the learner (and the fleet's replica children) hold a CUDA
+    # context: nvidia-smi counts this process, the learner's ranks and the
+    # replicas, and of the children only those hold the card's device node
+    card_children = ["learner"] + [f"inference-{i}" for i in range(1, replicas)]
     if not ctx_checks:
         fail(f"cluster ({tag}): no mid-run sample of the CUDA contexts")
     for check in ctx_checks:
         n_ctx = len(check["pids"] or [])
-        if n_ctx != 1 + ranks:
+        if n_ctx != ranks + replicas:
             fail(f"cluster ({tag}): nvidia-smi lists {n_ctx} compute processes mid-run, "
-                 f"expected {1 + ranks} (this process and the learner's ranks): {check}")
+                 f"expected {ranks + replicas} (this process, the learner's ranks and "
+                 f"{replicas - 1} replica children): {check}")
         holders = sorted(n for n, fds in check["fds"].items() if fds)
-        if holders != ["learner"]:
-            fail(f"cluster ({tag}): children holding the card: {holders}, expected the learner only")
+        if holders != sorted(card_children):
+            fail(f"cluster ({tag}): children holding the card: {holders}, expected {card_children}")
     out["cuda_contexts"] = len(ctx_checks[0]["pids"])
     out["card_nodes_by_child"] = ctx_checks[0]["fds"]
     if over["act_mode"] == "remote":
@@ -3908,6 +3986,8 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
                    worker_remote_fallbacks=fallbacks,
                    inference_requests=metric(lrn, "inference-requests"),
                    inference_replies=metric(lrn, "inference-replies"))
+    if replicas > 1:
+        out["fleet"] = fleet_checks(tag, srcs, lrn, sto, workers, replicas, hold)
     print(
         f"cluster ({tag}) {over}: learner exit {exitcode}, {updates} updates in {wall:.1f} s "
         f"(from spawn), updates/s {out['updates_per_s']}, env steps ingested/s "
@@ -3919,8 +3999,10 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
         + (f", B3 launches {out['fused_act_launches']} = warm-ups {out['inference_warmups']} + "
            f"flushes {out['inference_flushes']}, fallbacks {out['worker_remote_fallbacks']}"
            if over["act_mode"] == "remote" else "")
-        + f", {out['cuda_contexts']} CUDA contexts (this process and the learner), card nodes "
-        f"by child {out['card_nodes_by_child']} [{card}]",
+        + f", {out['cuda_contexts']} CUDA contexts (this process, the learner"
+        + (f" and {replicas - 1} replica children" if replicas > 1 else "")
+        + f"), card nodes by child {out['card_nodes_by_child']}"
+        + (f"; fleet {out['fleet']}" if replicas > 1 else "") + f" [{card}]",
         flush=True,
     )
     return out
@@ -3932,6 +4014,210 @@ def cluster_phase(card: str) -> dict:
     src = gym_stand_in()
     print(f"cluster env source: {src}", flush=True)
     return {tag: cluster_run(tag, over, card) for tag, over in CLUSTER_RUNS}
+
+
+# ------------------------------------------------------ the inference fleet
+# (F1) cluster run (d): run (b)'s config with a fleet of two replicas (the
+# learner's service is replica 0, one inference-1 child), no hedge timer.
+# Left alone, the workers' FleetClients send every act to inference-1 (the
+# lower RTT) and replica 0 serves almost nothing, so inference-1 is held
+# (SIGSTOP) from update at_update until the learner's replica 0 has served
+# `flushes` flushes in its place, at most max_s, then resumed (SIGCONT).
+# A request in flight to the stopped replica fails over at the request
+# timeout: 20 s here (run (b)'s 60 s is tpu_rl's recipe for one service;
+# with two lanes a worker's first requests still have minutes before a
+# fallback), so the stall costs 20 s, not 60.
+# (F2) tpu_rl's loadgen smoke (tpu_rl_torch/examples/loadgen_smoke.py:
+# 12000 clients from 2 driver processes, 100/250/600 rps, 6 s a stage, a
+# SIGKILL of the busier replica at 8 s, tpu_rl's bars), then a sweep without a kill
+# and without bars: the two-replica fleet's saturation curve on this card.
+# (F3) the sharded replica (inference_mesh_data=2) at the serving config.
+FLEET_RUN = ("d", dict(CLUSTER_RUNS[1][1], inference_replicas=2, inference_hedge_ms=0,
+                      inference_timeout_ms=20000))
+FLEET_HOLD = dict(at_update=12, flushes=200, max_s=60.0)
+FLEET_SWEEP = dict(clients=12_000, rates=(100.0, 250.0, 600.0), duration=6.0, kill_at=8.0)
+FLEET_CURVE = dict(clients=12_000, rates=(600.0, 1200.0, 2400.0, 4800.0), duration=6.0,
+                   kill_at=None)
+SHARDED_ACTS, SHARDED_CLIENTS, SHARDED_ENVS = 20, 4, 4
+
+
+def fleet_checks(tag: str, srcs: list[dict], lrn: dict, sto: dict, workers: list[dict],
+                 replicas: int, hold: dict) -> dict:
+    """A fleet cluster's replicas and storage's fleet gauges: every replica
+    answered, B3 launched warm-ups + flushes times in each (the learner's
+    replica 0 from its closing snapshot, each child from its last snapshot,
+    read at a flush boundary), replica 0 served at least FLEET_HOLD's
+    flushes while inference-1 was held and the workers failed over to it,
+    and storage leased every child (again, after the hold) and raised the
+    version floor."""
+    children = {int(s["rid"]): s for s in srcs if s.get("role") == "inference"}
+    if sorted(children) != list(range(1, replicas)):
+        fail(f"cluster ({tag}): replica snapshots from {sorted(children)}, "
+             f"expected 1..{replicas - 1}")
+    rows = {0: lrn, **children}
+    out: dict = {"replies": {}, "b3": {}}
+    for rid, snap in sorted(rows.items()):
+        b3 = int(metric(snap, "inference-fused-act-launches"))
+        warm = int(metric(snap, "inference-warmups"))
+        flushes = int(metric(snap, "inference-batches"))
+        replies = int(metric(snap, "inference-replies"))
+        if replies <= 0:
+            fail(f"cluster ({tag}): replica {rid} answered no request")
+        if b3 != warm + flushes:
+            fail(f"cluster ({tag}): replica {rid} B3 launches {b3}, expected warm-ups {warm} + "
+                 f"flushes {flushes}")
+        out["replies"][rid] = replies
+        out["b3"][rid] = dict(launches=b3, warmups=warm, flushes=flushes)
+        if rid > 0 and metric(snap, "inference-flush-deadline") != 0:
+            fail(f"cluster ({tag}): replica {rid} flushed on a deadline")
+    total = sum(out["replies"].values())
+    out["reply_share"] = {rid: n / total for rid, n in out["replies"].items()}
+    out["hold"] = hold
+    if out["b3"][0]["flushes"] < FLEET_HOLD["flushes"]:
+        fail(f"cluster ({tag}): replica 0 flushed {out['b3'][0]['flushes']} times, expected "
+             f">= {FLEET_HOLD['flushes']} with inference-1 held: {hold}")
+    active = metric(sto, "fleet-replicas-active", "gauges")
+    floor = metric(sto, "fleet-version-floor", "gauges")
+    if active != replicas - 1 or floor is None or floor < 0:
+        fail(f"cluster ({tag}): storage's fleet-replicas-active {active} (expected "
+             f"{replicas - 1}), fleet-version-floor {floor} (expected >= 0)")
+    out.update(replicas_active=active, version_floor=floor,
+               min_active_version=metric(sto, "fleet-min-active-version", "gauges"))
+    out.update(replicas_joined=metric(sto, "fleet-replicas-joined"),
+               replicas_evicted=metric(sto, "fleet-replicas-evicted"))
+    for name in ("fleet-hedge-fired", "fleet-failovers", "fleet-dedup-replies",
+                 "fleet-floor-rejects", "fleet-reprobes"):
+        out[name] = sum(metric(w, name) or 0 for w in workers)
+    if out["fleet-failovers"] < 1:
+        fail(f"cluster ({tag}): no worker failed over while inference-1 was held: {out}")
+    return out
+
+
+def loadgen_row(doc: dict, snaps: dict[int, dict], tag: str) -> dict:
+    """One sweep's curve, with each replica's B3 launches (its last
+    snapshot: warm-ups + flushes, read at a flush boundary)."""
+    b3 = {}
+    for rid, snap in sorted(snaps.items()):
+        launches = int(metric(snap, "inference-fused-act-launches"))
+        warm, flushes = int(metric(snap, "inference-warmups")), int(metric(snap, "inference-batches"))
+        if launches != warm + flushes or flushes == 0:
+            fail(f"loadgen ({tag}): replica {rid} B3 launches {launches}, expected warm-ups "
+                 f"{warm} + flushes {flushes} (> 0)")
+        b3[rid] = dict(launches=launches, warmups=warm, flushes=flushes,
+                       replies=int(metric(snap, "inference-replies")),
+                       recompiles=metric(snap, "inference-xla-recompiles"))
+    curve = [{k: st.get(k) for k in ("offered_rps", "achieved_rps", "p50_ms", "p99_ms",
+                                     "success_rate", "hedges", "failovers", "version_floor")}
+             for st in doc["stages"]]
+    return dict(curve=curve, overall=doc["overall"], b3_by_replica=b3,
+                killed_replica=doc.get("killed_replica"))
+
+
+def sharded_phase(card: str) -> dict:
+    """(F3) A replica over ``inference_mesh_data`` 2 devices: with one card
+    it must refuse, naming the device count; with two or more, it and a
+    one-device replica answer the same scripted stream (obs, episode
+    starts, and so carries) from the same params, held at the serving bar
+    (logits and carries 1e-5; each reply's log-prob its logits at its
+    action, 1e-6), with B3 launched once a device a flush."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.fleet import InferenceReplica
+    from tpu_rl_torch.models.families import build_family
+    from tpu_rl_torch.ops import fused_act as FA
+    from tpu_rl_torch.runtime.local_router import LocalRouter
+
+    cfg1 = Config.from_dict(dict(SERVE_CFG, act_mode="remote", inference_replicas=2))
+    cfg2 = cfg1.replace(inference_mesh_data=2)
+    family = build_family(cfg1, device="cpu")
+    params = seeded_params(family, 0)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        try:
+            InferenceReplica(cfg2, family, params, LocalRouter())
+        except ValueError as e:
+            if "requested 2 devices, only 1 visible" not in str(e):
+                fail(f"sharded replica on one card raised the wrong error: {e}")
+            print(f"sharded replica (inference_mesh_data=2) on {n_cards} card: refused, "
+                  f"'{e}' [{card}]", flush=True)
+            return dict(cards=n_cards, refused=str(e))
+        fail("sharded replica (inference_mesh_data=2) on one card did not refuse")
+
+    D = int(cfg1.obs_shape[0])
+
+    def streams(k):
+        rng = np.random.default_rng(100 + k)
+        obs = rng.standard_normal((SHARDED_ACTS, SHARDED_ENVS, D)).astype(np.float32)
+        first = (rng.random((SHARDED_ACTS, SHARDED_ENVS)) < 0.1).astype(np.float32)
+        first[0] = 1.0
+        return obs, first
+
+    out: dict = {"cards": n_cards}
+    replies = {}
+    for n, cfg in ((1, cfg1), (2, cfg2)):
+        router = LocalRouter()
+        svc = InferenceReplica(cfg, build_family(cfg, device="cuda"), params, router).start()
+        if not svc.wait_ready(120.0) or svc.error is not None:
+            fail(f"sharded phase: the {n}-device replica failed: {svc.error}")
+        FA.LAUNCHES_BY_DEVICE.clear()
+        before = FA.LAUNCHES
+        r = drive(cfg, router, SHARDED_CLIENTS, SHARDED_ENVS, SHARDED_ACTS, f"shard{n}",
+                  streams=streams, keep=range(SHARDED_CLIENTS))
+        svc.close()
+        flushes = svc.n_batches
+        by_dev = dict(FA.LAUNCHES_BY_DEVICE)
+        if r["client_failures"] or r["bad_replies"]:
+            fail(f"sharded phase ({n} devices): {r['client_failures']} failures, "
+                 f"{r['bad_replies']} bad replies")
+        if FA.LAUNCHES - before != n * flushes or sorted(by_dev) != list(range(n)) or any(
+                v != flushes for v in by_dev.values()):
+            fail(f"sharded phase ({n} devices): B3 launches {by_dev} over {flushes} flushes, "
+                 f"expected one a device a flush")
+        replies[n] = r.pop("kept")
+        out[f"{n}_devices"] = dict(r, flushes=flushes, b3_by_device=by_dev,
+                                   buckets=list(svc.buckets), shards=[str(d) for d in svc.shards])
+    errs = {"logits": 0.0, "hx": 0.0, "cx": 0.0}
+    for k in range(SHARDED_CLIENTS):
+        for got, want in zip(replies[2][k], replies[1][k], strict=True):
+            for key in errs:
+                errs[key] = max(errs[key], float(np.abs(got[key] - want[key]).max()))
+    out["max_abs_err"] = errs
+    if max(errs.values()) > 1e-5:
+        fail(f"sharded replica vs one-device replica beyond 1e-5: {errs}")
+    print(f"sharded replica over {n_cards} cards (inference_mesh_data=2) vs one device: "
+          f"{out} [{card}]", flush=True)
+    return out
+
+
+def fleet_phase(card: str) -> dict:
+    """(F1) cluster run (d), (F2) the load sweeps, (F3) the sharded replica."""
+    from tpu_rl_torch.examples import loadgen_smoke
+
+    tag, over = FLEET_RUN
+    out = {"cluster": cluster_run(tag, over, card)}
+    fl = out["cluster"]["fleet"]
+    print(f"fleet cluster (d): {out['cluster']['updates_per_s']} updates/s, "
+          f"{out['cluster']['env_steps_ingested_per_s']} env steps/s, reply share by replica "
+          f"{fl['reply_share']}, B3 by replica {fl['b3']}, inference-1 held {fl['hold']}, "
+          f"failovers {fl['fleet-failovers']}, storage floor {fl['version_floor']}, active "
+          f"{fl['replicas_active']}, joined {fl['replicas_joined']}, evicted "
+          f"{fl['replicas_evicted']} [{card}]", flush=True)
+    for name, kw in (("kill", FLEET_SWEEP), ("curve", FLEET_CURVE)):
+        rdir = ROOT / ".chip_scratch" / f"loadgen-{name}"
+        t0 = time.perf_counter()
+        doc, snaps, failures = loadgen_smoke.run(base_port=free_block(12), result_dir=str(rdir),
+                                                 device="cuda", **kw)
+        if failures:
+            fail(f"loadgen ({name}): {failures}")
+        row = loadgen_row(doc, snaps, name)
+        row["wall_s"] = time.perf_counter() - t0
+        out[f"loadgen_{name}"] = row
+        print(f"loadgen ({name}, {kw['clients']} clients, 2 drivers, 2 replicas"
+              + (f", SIGKILL of replica {row['killed_replica']} at {kw['kill_at']} s"
+                 if kw["kill_at"] else "")
+              + f"): overall {row['overall']}, curve {row['curve']}, B3 by replica "
+              f"{row['b3_by_replica']} [{card}]", flush=True)
+    out["sharded"] = sharded_phase(card)
+    return out
 
 
 # ------------------------------------------ data and sequence parallelism
@@ -4098,80 +4384,13 @@ def sp_attention(mesh, impl: str) -> dict:
                 flash_bwd_launches=launches[1] + A.FLASH_BWD_LAUNCHES)
 
 
-# send/recv last: on a card it aborts the process, so the other ops are
-# read in the same pair of ranks
-GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "scatter", "all_to_all_single",
-                  "batch_isend_irecv")
-
-
-def gloo_cuda_probe(ops: list[str], out: Path) -> None:
-    """Run each of ``ops`` with gloo on CUDA tensors, with no host staging,
-    writing ``out`` after each: "ok" or gloo's own error; an op that kills
-    the process stays "started". A probe, not a path: the port never calls
-    these on CUDA tensors under gloo (its mesh stages them)."""
-    import torch.distributed as dist
-
-    world, rank = dist.get_world_size(), dist.get_rank()
-    x = torch.full((4,), float(rank + 1), device="cuda")
-    calls = {
-        "all_reduce": lambda: dist.all_reduce(x.clone()),
-        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
-        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
-        "scatter": lambda: dist.scatter(torch.empty_like(x),
-                                        [x.clone() for _ in range(world)] if rank == 0 else None,
-                                        src=0),
-        "all_to_all_single": lambda: dist.all_to_all_single(
-            torch.empty(4 * world, device="cuda"), torch.ones(4 * world, device="cuda")),
-        "batch_isend_irecv": lambda: [r.wait() for r in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x.clone(), (rank + 1) % world),
-            dist.P2POp(dist.irecv, torch.empty_like(x), (rank - 1) % world)])],
-    }
-    res: dict = {}
-    for name in ops:
-        res[name] = "started"
-        out.write_text(json.dumps(res))
-        try:
-            calls[name]()
-            torch.cuda.synchronize()
-            res[name] = "ok"
-        except Exception as e:  # noqa: BLE001 — the error is the measurement
-            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-        out.write_text(json.dumps(res))
-
-
-def gloo_probe_phase(rdir: Path) -> dict:
-    """What gloo does with CUDA tensors, op by op, in pairs of ranks on the
-    card; an op that aborts its process is recorded with the exit code and
-    the rest go on in a new pair."""
-    todo, found = list(GLOO_PROBE_OPS), {}
-    while todo:
-        d = rdir / f"gloo-{len(found)}"
-        d.mkdir()
-        codes = spawn_ranks(DP_RANKS, d, ["--probe", "gloo", "--ops", ",".join(todo)],
-                            timeout=120.0)
-        f = d / "gloo-rank0.json"
-        got = json.loads(f.read_text()) if f.exists() else {}
-        for name in todo:
-            if name in got and got[name] != "started":
-                found[name] = got[name]
-            elif name in got:
-                found[name] = f"the process died (exit codes {codes})"
-        done = [n for n in todo if n in found]
-        todo = [n for n in todo if n not in found]
-        if not done:  # nothing reached: do not loop
-            found.update({n: f"not reached (exit codes {codes})" for n in todo})
-            break
-    return found
-
-
 def rank_main(argv: list[str]) -> None:
     """One of ``W`` ranks (``--rank R --world W --rdv FILE --out DIR``), on
     the card and backend the port's rule gives it (one card: every rank on
     it, gloo; a card a rank: NCCL): (P1) the DP step at IMPALA@wide-lstm on
     this rank's rows, (P2) the colocated loop with its checkpoint resume,
-    (P4) ring and Ulysses attention. With ``--probe gloo --ops a,b`` or
-    ``--probe nccl`` it runs that probe instead, every rank on card 0.
-    Results go to ``DIR/rank<R>.json`` and ``DIR/rank<R>-*.pt``."""
+    (P4) ring and Ulysses attention. Results go to ``DIR/rank<R>.json``
+    and ``DIR/rank<R>-*.pt``."""
     args = dict(zip(argv[0::2], argv[1::2]))
     rank, world = int(args["--rank"]), int(args["--world"])
     out = Path(args["--out"])
@@ -4186,31 +4405,6 @@ def rank_main(argv: list[str]) -> None:
         rank_device,
     )
 
-    if args.get("--probe") == "gloo":
-        import torch.distributed as dist
-
-        dist.init_process_group("gloo", init_method=f"file://{args['--rdv']}",
-                                world_size=world, rank=rank)
-        gloo_cuda_probe(args["--ops"].split(","), out / f"gloo-rank{rank}.json")
-        dist.barrier()
-        return
-    if args.get("--probe") == "nccl":
-        # NCCL with two ranks on one card: its own answer
-        import torch.distributed as dist
-
-        res = {}
-        try:
-            dist.init_process_group("nccl", init_method=f"file://{args['--rdv']}",
-                                    world_size=world, rank=rank,
-                                    device_id=torch.device("cuda", 0))
-            x = torch.ones(4, device="cuda")
-            dist.all_reduce(x)
-            torch.cuda.synchronize()
-            res["nccl_all_reduce"] = f"ok ({x.tolist()})"
-        except Exception as e:  # noqa: BLE001 — the error is the measurement
-            res["nccl_all_reduce"] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
-        (out / f"nccl-rank{rank}.json").write_text(json.dumps(res))
-        return
     dev, share = rank_device(rank, world)
     backend = init_process_group(f"file://{args['--rdv']}", world, rank, dev, share)
     res: dict = {"rank": rank, "backend": backend, "device": str(dev)}
@@ -4244,15 +4438,14 @@ def rank_main(argv: list[str]) -> None:
     torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(world: int, out: Path, extra: list[str] | None = None,
-                timeout: float = DP_RANK_TIMEOUT_S) -> list[int | None]:
+def spawn_ranks(world: int, out: Path, timeout: float = DP_RANK_TIMEOUT_S) -> list[int | None]:
     """``world`` children running :func:`rank_main`; returns their exit
     codes (None for a child killed at the timeout). Every child is stopped
     before this returns."""
     rdv = out / f"rdv-{time.time_ns()}"
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r), "--world", str(world),
-         "--rdv", str(rdv), "--out", str(out), *(extra or [])],
+         "--rdv", str(rdv), "--out", str(out)],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     codes: list[int | None] = []
@@ -4274,15 +4467,14 @@ def spawn_ranks(world: int, out: Path, extra: list[str] | None = None,
     return codes
 
 
-def dp_phase(card: str, ranks: int = DP_RANKS, probes: bool = True) -> dict:
+def dp_phase(card: str, ranks: int = DP_RANKS) -> dict:
     """(P1) the DP train step at IMPALA@wide-lstm, (P2) the colocated loop,
     (P4, DP half) the transformer at longctx-flash width with flash: each at
     world size 1 over NCCL against the plain step or loop (bit for bit),
     then at DP_RANKS ranks sharing the card over gloo against world size 1
     at tests/test_parallel.py's bars; (P3) the cluster with the learner at
     mesh_data DP_RANKS. Launch counts per rank; the DP wrapper's cost. On a
-    machine with a card a rank, ``ranks`` ranks run over NCCL instead
-    (``probes=False`` leaves out the one-card probes and the cluster)."""
+    machine with a card a rank, ``ranks`` ranks run over NCCL instead."""
     import tempfile
 
     import torch.distributed as dist
@@ -4455,17 +4647,6 @@ def dp_phase(card: str, ranks: int = DP_RANKS, probes: bool = True) -> dict:
               + f" [{card}]", flush=True)
     print(f"{ranks} ranks vs world 1, share of tests/test_parallel.py's bars: {two} [{card}]",
           flush=True)
-    if not probes:
-        return out
-    out["gloo_cuda"] = gloo_probe_phase(rdir)
-    print(f"gloo on CUDA tensors (no staging): {out['gloo_cuda']} [{card}]", flush=True)
-    nccl_dir = rdir / "nccl"
-    nccl_dir.mkdir()
-    spawn_ranks(DP_RANKS, nccl_dir, ["--probe", "nccl"], timeout=90.0)
-    out["nccl_two_ranks_one_card"] = [
-        json.loads(f.read_text()) for f in sorted(nccl_dir.glob("nccl-rank*.json"))]
-    print(f"NCCL, {DP_RANKS} ranks on one card: {out['nccl_two_ranks_one_card']} [{card}]",
-          flush=True)
     # --- (P3) the cluster with the learner's ranks
     tag, over = DP_CLUSTER_RUN
     out["cluster"] = cluster_run(tag, over, card, ranks=DP_RANKS)
@@ -4539,26 +4720,47 @@ def main() -> None:
     for line in build.resource_usage():
         print(f"ptxas: {line}", flush=True)
 
+    laps = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous phase ended (where the limit goes)."""
+        laps.append(time.perf_counter())
+        print(f"phase {name}: {laps[-1] - laps[-2]:.1f} s (at {laps[-1] - t_start:.1f} s)",
+              flush=True)
+
     shapes = kernel_phase()
+    lap("shapes")
     serving = serve_phase()
+    lap("serving")
     serving_checks(serving, "serving", card)
     profiled = serve_phase(profile=True)
+    lap("profiled")
     serving_checks(profiled, "serving (profiled)", card)
     serving_b3_time(shapes, profiled, card)
     quant_policy = quant_policy_check(card)
+    lap("quant_policy")
     quant_serving = {}
     for mode in SERVE_DTYPES:
         quant_serving[mode] = serve_phase(dtype=mode, mixes=SERVE_MIXES[:1])
         serving_checks(quant_serving[mode], f"serving {mode}", card)
+    lap("quant_serving")
 
     lstm_rows = lstm_phase()
+    lap("lstm_rows")
     training = train_phase(card)
+    lap("training")
     learning = learn_phase(card)
+    lap("learning")
     wide_training = wide_lstm_train_phase(card)
+    lap("wide_training")
     wide_impala = wide_lstm_train_phase(card, "IMPALA")
+    lap("wide_impala")
     mixed_dot_rows = mixed_dot_check(card)
+    lap("mixed_dot_rows")
     bf16_ref = bf16_ref_phase(card)
+    lap("bf16_ref")
     wide_bf16 = wide_lstm_train_phase(card, "IMPALA", "bfloat16")
+    lap("wide_bf16")
     print(
         "IMPALA@wide-lstm f32 vs bf16 (this run): "
         + " ".join(
@@ -4571,25 +4773,46 @@ def main() -> None:
         flush=True,
     )
     bf16_colocated = bf16_colocated_phase(card)
+    lap("bf16_colocated")
     checkpointing = checkpoint_phase(card)
+    lap("checkpointing")
     ref_rows = {name: ref_row_phase(name, card) for name in REF_ROWS}
+    lap("ref_rows")
     colocated_algos = colocated_algos_phase(card)
+    lap("colocated_algos")
     impala_learning = impala_learn_phase(card)
+    lap("impala_learning")
     attn_rows = attention_phase()
+    lap("attn_rows")
     blockwise_rows = blockwise_phase(card)
+    lap("blockwise_rows")
     tf_training = tf_train_phase(card)
+    lap("tf_training")
     tf_algos = tf_algos_phase(card)
+    lap("tf_algos")
     tf_colocated = tf_colocated_phase(card)
+    lap("tf_colocated")
     tf_colocated_flash = tf_colocated_phase(card, "flash")
+    lap("tf_colocated_flash")
     tf_serving = {m: tf_serve_phase(card, m) for m in ("f32", *SERVE_DTYPES)}
     tf_serving["f32 compute"] = tf_serve_phase(card, "f32", "float32")
+    lap("tf_serving")
     telemetry = telemetry_phase(card)
+    lap("telemetry")
     inline = inline_sac_phase(card, lstm_rows)
+    lap("inline")
     feeds = replay_feed_phase(card)
+    lap("feeds")
     reports = report_compare_check(telemetry["colocated"].pop("result_dir"), card)
+    lap("reports")
     cluster = cluster_phase(card)
+    lap("cluster")
+    fleet = fleet_phase(card)
+    lap("fleet")
     dp = dp_phase(card)
+    lap("dp")
     sp = sp_phase(card, dp, attn_rows, blockwise_rows)
+    lap("sp")
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -4627,7 +4850,20 @@ def main() -> None:
         serving_device_launches=profiled["launches"],
         # the distributed runtime: every worker's act step served by the
         # learner's InferenceService (cluster run (b); warm-ups + flushes)
-        launches_by_path={"cluster (b) remote acting": cluster["b"]["fused_act_launches"]},
+        launches_by_path={
+            "cluster (b) remote acting": cluster["b"]["fused_act_launches"],
+            # the fleet: each replica's own count (warm-ups + flushes), the
+            # learner's replica 0 and the inference-<i> children; each
+            # loadgen replica; each device of the sharded replica
+            **{f"fleet cluster (d) replica {rid}": b["launches"]
+               for rid, b in fleet["cluster"]["fleet"]["b3"].items()},
+            **{f"loadgen {name} replica {rid}": b["launches"]
+               for name in ("kill", "curve")
+               for rid, b in fleet[f"loadgen_{name}"]["b3_by_replica"].items()},
+            **{f"sharded replica ({n}) device {dev}": v
+               for n in ("1_devices", "2_devices") if n in fleet["sharded"]
+               for dev, v in fleet["sharded"][n]["b3_by_device"].items()},
+        },
         card=card,
         shapes=shapes,
     )]
@@ -4683,6 +4919,7 @@ def main() -> None:
                 # the distributed runtime's learner child, each run
                 **{f"cluster ({tag}) {'remote' if r['config']['act_mode'] == 'remote' else 'local'}"
                    f" acting PPO": r[f"{name}_launches"] for tag, r in cluster.items()},
+                "fleet cluster (d) PPO": fleet["cluster"][f"{name}_launches"],
                 # the data-parallel paths: world size 1 over NCCL, and each
                 # of DP_RANKS ranks sharing the card (counted in that rank)
                 "DP IMPALA@wide-lstm world 1": dp["p1_world1"]["dp"][f"{name}_launches"],
@@ -4761,7 +4998,7 @@ def main() -> None:
         "blockwise_attention": blockwise_rows, "transformer_algos": tf_algos,
         "transformer_serving": tf_serving,
         "telemetry": telemetry, "inline": inline, "feeds": feeds,
-        "report_compare": reports, "cluster": cluster, "data_parallel": dp,
+        "report_compare": reports, "cluster": cluster, "fleet": fleet, "data_parallel": dp,
         "sequence_parallel": sp}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,6 +75,9 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.heal.ingress", "tpu_rl_torch.heal.watchdog",
         *(f"tpu_rl_torch.obs.{m}" for m in ("trace", "clocksync", "merge")),
         "tpu_rl_torch.utils.errlog", "tpu_rl_torch.utils.platform", "tpu_rl_torch.__main__",
+        *(f"tpu_rl_torch.fleet.{m}" for m in ("client", "membership", "replica")),
+        "tpu_rl_torch.fleet", "tpu_rl_torch.loadgen", "tpu_rl_torch.loadgen.driver",
+        "tpu_rl_torch.examples.loadgen_smoke",
     ):
         assert name in doc["imported"], name
 
@@ -141,19 +144,44 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("sebulba_split", 1, "sebulba slice"),
+    ("sebulba_split", 1, "sebulba slice \\(A 8c\\)"),
     ("chaos_spec", "nan:rollout@p=0.4", "fleet and operations slice"),
-    ("inference_replicas", 2, "fleet slice"),
-    ("inference_mesh_data", 2, "fleet slice"),
 ])
 def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
-    """A key that makes tpu_rl split one process's devices, shard its
-    inference, arm chaos or run replicas is refused away from its default,
-    naming the slice that brings it; at its default (or absent) it loads."""
+    """A key that makes tpu_rl split one process's devices or arm chaos is
+    refused away from its default, naming the slice that brings it; at its
+    default (or absent) it loads."""
     with pytest.raises(NotImplementedError, match=slice_name):
         Config.from_dict({key: value})
-    default = {"chaos_spec": None, "sebulba_split": 0}.get(key, 1)
+    default = {"chaos_spec": None, "sebulba_split": 0}[key]
     assert Config.from_dict({key: default}).extra == {key: default}
+
+
+@pytest.mark.parametrize("key,value", [("inference_replicas", 3), ("inference_mesh_data", 2)])
+def test_config_loads_the_fleet_keys_as_fields(key, value):
+    """The inference fleet's keys are fields with tpu_rl's defaults."""
+    from tpu_rl.config import Config as JaxConfig
+
+    assert getattr(Config(), key) == getattr(JaxConfig(), key) == 1
+    cfg = Config.from_dict({key: value})
+    assert getattr(cfg, key) == value and cfg.extra == {}
+    assert getattr(JaxConfig.from_dict({key: value}), key) == value
+
+
+# tpu_rl's fleet asserts (config.py:752-785) on inputs that break each
+@pytest.mark.parametrize("raw", [
+    {"inference_replicas": 0},
+    {"inference_mesh_data": 0},
+    {"inference_replicas": 2, "inference_base_port": 65535},
+    {"inference_replicas": 3, "inference_base_port": 31010, "telemetry_port": 31012},
+], ids=["replicas0", "mesh_data0", "ports-past-65535", "range-hits-telemetry"])
+def test_fleet_asserts_match_tpu_rl(raw):
+    from tpu_rl.config import Config as JaxConfig
+
+    with pytest.raises(AssertionError):
+        JaxConfig.from_dict(raw)
+    with pytest.raises(AssertionError):
+        Config.from_dict(raw)
 
 
 @pytest.mark.parametrize("key,value", [

@@ -105,7 +105,7 @@ def test_colocated_pod_matches_single_host(tmp_path, local_ranks):
 def test_multihost_takes_tpu_rl_keys_and_a_rank_per_card(monkeypatch):
     """``multihost`` takes tpu_rl's three keys; a host's ranks are its
     cards (one on the CPU), which the colocated pod spawns and the
-    multihost learner, one rank a host until slice A 8b, refuses."""
+    multihost learner, one rank a host until slice A 8c, refuses."""
     from tpu_rl_torch.runtime.learner_service import LearnerService
     from tpu_rl_torch.runtime.runner import _host_ranks, learner_role
 
@@ -117,10 +117,10 @@ def test_multihost_takes_tpu_rl_keys_and_a_rank_per_card(monkeypatch):
     assert _host_ranks(colocated) == 4
     assert _host_ranks(colocated.replace(learner_device="cpu")) == 1
     learner = Config.from_dict(dict(RAW, multihost=host))
-    with pytest.raises(NotImplementedError, match="A 8b"):
+    with pytest.raises(NotImplementedError, match="A 8c"):
         learner_role(learner, _machines(free_block(6)))
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A 8b"):
+    with pytest.raises(NotImplementedError, match="A 8c"):
         LearnerService(learner.replace(learner_device="cpu"), None, 0).run()
 
 

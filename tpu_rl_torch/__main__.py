@@ -41,9 +41,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="env-batch size for colocated mode (0/unset = batch_size)")
     p.add_argument("--act-mode", choices=["local", "remote"], default=None,
                    help="'remote' routes worker acting through the learner's "
-                   "inference service; 'local' acts on worker host cores")
+                   "inference service or fleet; 'local' acts on worker host cores")
+    p.add_argument("--inference-replicas", type=int, default=None,
+                   help="inference fleet size for act_mode=remote: replica 0 serves in "
+                   "the learner, replicas 1..N-1 are supervised children fed by the "
+                   "model broadcast (default 1 = the learner's one service)")
     p.add_argument("--inference-base-port", type=int, default=None,
-                   help="port of the inference service (0/unset = learner_port + 2)")
+                   help="first port of the fleet's consecutive replica port range "
+                   "(0/unset = learner_port + 2)")
+    p.add_argument("--inference-hedge-ms", type=int, default=None,
+                   help="resend an unanswered inference request to a second replica "
+                   "after this many ms (0/unset = only at the timeout: plain failover)")
+    p.add_argument("--inference-mesh-data", type=int, default=None,
+                   help="devices each inference replica splits its act batch over "
+                   "(1/unset = one device)")
     p.add_argument("--inference-dtype", choices=["f32", "bf16", "int8"], default=None,
                    help="serving-param precision (default: f32)")
     p.add_argument("--inference-buckets", type=int, default=None,
@@ -99,6 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
 _OVERRIDES = (
     ("env", "env"), ("algo", "algo"), ("env_mode", "env_mode"),
     ("colocated_envs", "colocated_envs"), ("act_mode", "act_mode"),
+    ("inference_replicas", "inference_replicas"), ("inference_hedge_ms", "inference_hedge_ms"),
+    ("inference_mesh_data", "inference_mesh_data"),
     ("inference_base_port", "inference_base_port"), ("inference_dtype", "inference_dtype"),
     ("inference_buckets", "inference_buckets"), ("act_kernel", "act_kernel"),
     ("telemetry_port", "telemetry_port"), ("history_dir", "history_dir"),

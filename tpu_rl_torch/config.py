@@ -6,10 +6,11 @@ distributed-runtime slices read, with ``tpu_rl``'s names, defaults and
 asserts, so an existing params file loads unchanged. Keys the port does not
 know yet are kept in ``extra``: a full ``tpu_rl`` params file still loads.
 Those of them that would make ``tpu_rl`` do something the port does not do
-yet (split one process's devices, arm chaos, run replicas) are refused at
-a value other than their default (:data:`LATER_SLICES`), so that a run
-never silently does less than asked. The multi-GPU keys (``mesh_data``,
-``mesh_seq``, ``multihost``) are fields, with ``tpu_rl``'s asserts.
+yet (split one process's devices, arm chaos) are refused at a value other
+than their default (:data:`LATER_SLICES`), so that a run never silently
+does less than asked. The multi-GPU keys (``mesh_data``, ``mesh_seq``,
+``multihost``) and the inference fleet's (``inference_replicas``,
+``inference_mesh_data``) are fields, with ``tpu_rl``'s asserts.
 
 One deliberate divergence (ROADMAP C 7): ``learner_device="auto"`` means
 the card, and a learner without one raises; ``tpu_rl`` probes its
@@ -47,10 +48,8 @@ def is_off_policy(algo: str) -> bool:
 # away from their default: (key, is it set?, the slice of the port that
 # brings it). Defaults as in tpu_rl.config.Config.
 LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
-    ("sebulba_split", lambda v: v != 0, "sebulba slice (A 8b)"),
+    ("sebulba_split", lambda v: v != 0, "sebulba slice (A 8c)"),
     ("chaos_spec", lambda v: v is not None, "fleet and operations slice"),
-    ("inference_replicas", lambda v: v > 1, "fleet slice"),
-    ("inference_mesh_data", lambda v: v > 1, "fleet slice (A 8b, the sharded inference service)"),
 )
 
 
@@ -248,10 +247,19 @@ class Config:
     inference_retries: int = 2
     inference_reprobe_s: float = 5.0
     inference_reprobe_max_s: float = 60.0
-    # First port of the inference replica range (0 = learner_port + 2) and
-    # the fleet client's hedge delay (0 = none); the port runs one replica.
+    # Inference fleet (tpu_rl_torch.fleet): replicas serving the acting
+    # plane. 1 = the learner's one service; N > 1: replica 0 in the learner,
+    # replicas 1..N-1 standalone processes fed by the model broadcast, and
+    # workers act through the FleetClient.
+    inference_replicas: int = 1
+    # First port of the replica range [base, base + replicas) (0 =
+    # learner_port + 2).
     inference_base_port: int = 0
+    # FleetClient: resend the same request to a second replica after this
+    # many ms without a reply (0 = only at the timeout: plain failover).
     inference_hedge_ms: int = 0
+    # Devices one replica spans: each runs B3 on its share of a flush's rows.
+    inference_mesh_data: int = 1
     # Supervisor: silence before a child is restarted, the grace after a
     # (re)start, the poll period, and the sliding-window restart budget
     # with its backoff.
@@ -469,7 +477,7 @@ class Config:
 
     def _validate_runtime(self) -> None:
         """tpu_rl's asserts of the distributed runtime's keys, in its order."""
-        replicas = int(self.extra.get("inference_replicas", 1))
+        replicas = self.inference_replicas
         assert self.profile_start >= 0, self.profile_start
         assert self.profile_steps >= 1, self.profile_steps
         assert self.worker_step_sleep >= 0, self.worker_step_sleep
@@ -485,11 +493,13 @@ class Config:
             f"inference_reprobe_max_s ({self.inference_reprobe_max_s}) must "
             f"be >= inference_reprobe_s ({self.inference_reprobe_s})"
         )
+        assert self.inference_replicas >= 1, self.inference_replicas
         assert self.inference_hedge_ms >= 0, self.inference_hedge_ms
         assert self.inference_hedge_ms <= self.inference_timeout_ms, (
             f"inference_hedge_ms ({self.inference_hedge_ms}) past the "
             f"request timeout ({self.inference_timeout_ms} ms) can never fire"
         )
+        assert self.inference_mesh_data >= 1, self.inference_mesh_data
         if self.inference_base_port:
             assert (
                 0 < self.inference_base_port
@@ -647,7 +657,7 @@ class MachinesConfig:
         base = cfg.inference_base_port or self.inference_port
         return plan_range(
             base,
-            int(cfg.extra.get("inference_replicas", 1)),
+            cfg.inference_replicas,
             reserved_ports(self, cfg),
             "inference replica",
         )

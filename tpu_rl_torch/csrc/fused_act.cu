@@ -78,6 +78,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "device_once.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -534,11 +536,8 @@ cudaError_t set_attributes() {
   return cudaSuccess;
 }
 
-// Once per process (a function-local static is initialised once, thread-safely).
-cudaError_t setup() {
-  static const cudaError_t err = set_attributes();
-  return err;
-}
+// Once on each device a launch meets (device_once.cuh).
+cudaError_t setup() { return once_per_device<set_attributes>(); }
 
 // cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda).
 PFN_cuTensorMapEncodeTiled_v12000 encoder() {

@@ -386,10 +386,8 @@ cudaError_t set_attributes() {
   return cudaSuccess;
 }
 
-cudaError_t setup() {
-  static const cudaError_t err = set_attributes();
-  return err;
-}
+// Once on each device a launch meets (device_once.cuh).
+cudaError_t setup() { return once_per_device<set_attributes>(); }
 
 }  // namespace
 }  // namespace lstm

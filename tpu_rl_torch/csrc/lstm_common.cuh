@@ -18,6 +18,8 @@
 
 #include <cstdint>
 
+#include "device_once.cuh"
+
 namespace lstm {
 
 namespace cg = cooperative_groups;

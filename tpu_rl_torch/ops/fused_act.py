@@ -43,9 +43,10 @@ from tpu_rl_torch.models.cells import lstm_gates
 from tpu_rl_torch.ops import distributions as D
 
 # Kernel launches made through fused_act_step (plain-version calls excluded),
-# in all and by row count.
+# in all, by row count and by device index.
 LAUNCHES = 0
 LAUNCHES_BY_ROWS: dict[int, int] = {}
+LAUNCHES_BY_DEVICE: dict[int, int] = {}
 
 # state_dict keys, in the kernel's argument order.
 _WEIGHTS = (
@@ -255,6 +256,7 @@ def _fused_act(
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_ROWS[B] = LAUNCHES_BY_ROWS.get(B, 0) + 1
+    LAUNCHES_BY_DEVICE[obs.device.index] = LAUNCHES_BY_DEVICE.get(obs.device.index, 0) + 1
     return out
 
 
@@ -286,6 +288,8 @@ def _launch(inputs: dict, plan: ActPlan):
     # The launch is asynchronous on the current stream: the caching
     # allocator hands an input's memory to later work on that same stream
     # only, which runs after the kernel, so no reference needs holding here.
+    # The C entry launches on (and sets the kernel's attributes for) the
+    # current device, which on_card has checked is the tensors'.
     err = build.bind(
         "fused_act", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     )(

@@ -464,6 +464,8 @@ def _launch_fwd(xp, wh, h0, c0, keep, plan: LstmPlan):
     acts = torch.empty((B, S, G), dtype=torch.float32, device=xp.device)
     # Asynchronous on the current stream; the caching allocator hands an
     # input's memory to later work on that stream only, after the kernel.
+    # The C entry launches on (and sets its attributes for) the current
+    # device, which on_card has checked is the tensors'.
     err = build.bind("lstm_fwd", [ctypes.c_void_p] * 8 + _PLAN_ARGS)(
         xp.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), keep.data_ptr(),
         hs.data_ptr(), cs.data_ptr(), acts.data_ptr(), *_plan_args(B, S, H, plan, plan.smem_fwd),

@@ -294,15 +294,23 @@ class InferenceService:
         is assigned, so a flush reading the old tensors is never written
         into. The next flush acts with the new weights and replies echo
         ``version``."""
+        new = self._prepare(params)
+        with self._lock:
+            self._install(new, version)
+
+    def _prepare(self, params):
+        """The served copy of ``params``, quantized, its copies finished."""
         new = self._quantize(params)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        sig = signature(new)
-        with self._lock:
-            self._params = new
-            self._params_sig = sig
-            self._version = version
-            self.param_bytes = tree_bytes(new)
+        return new
+
+    def _install(self, new, version: int) -> None:
+        """Serve ``new`` from the next flush on (the caller holds the lock)."""
+        self._params = new
+        self._params_sig = signature(new)
+        self._version = version
+        self.param_bytes = tree_bytes(new)
 
     def close(self, timeout: float = 10.0) -> None:
         self._stop.set()
@@ -357,14 +365,18 @@ class InferenceService:
         a, logits, log_prob, h2, c2 = act(params, obs, h, c, generator)
         return a, logits, log_prob, h, c, h2, c2
 
-    def _run(self, act, st: _Staging, rows: int, params, params_sig, generator) -> list[np.ndarray]:
+    def _run(
+        self, act, st: _Staging, rows: int, params, params_sig, generator,
+        write: np.ndarray | None = None,
+    ) -> list[np.ndarray]:
         """One host-to-device copy; on the device the carry rows gathered
         from the table, one act step, the first ``rows`` rows' post-step
-        carry scattered back; one device-to-host copy. Returns host copies
-        of the outputs, in ``_Staging.out_shapes``. With telemetry on, the
-        bucket's tracker watches the step's argument signature:
-        ``params_sig`` (taken when the params were swapped in) and the
-        step's tensors' own, not a walk of the params tree."""
+        carry scattered back (only rows ``write`` when given: see
+        ``_flush``); one device-to-host copy. Returns host copies of the
+        outputs, in ``_Staging.out_shapes``. With telemetry on, the bucket's
+        tracker watches the step's argument signature: ``params_sig`` (taken
+        when the params were swapped in) and the step's tensors' own, not a
+        walk of the params tree."""
         dev_in = st.in_host.to(self.device, non_blocking=True)
         self.h2d_bytes += st.in_host.nbytes
         obs, first, slot = _views(dev_in, st.in_shapes)
@@ -378,8 +390,14 @@ class InferenceService:
         else:
             outs = self._step(act, params, obs, h, c, first, generator)
         a, logits, log_prob, h_pre, c_pre, h2, c2 = outs
-        table.h[slot[:rows]] = h2[:rows]
-        table.c[slot[:rows]] = c2[:rows]
+        if write is None:
+            table.h[slot[:rows]] = h2[:rows]
+            table.c[slot[:rows]] = c2[:rows]
+        else:
+            w = torch.from_numpy(write).to(self.device, non_blocking=True)
+            self.h2d_bytes += write.nbytes
+            table.h[slot[w]] = h2[w]
+            table.c[slot[w]] = c2[w]
         outs = (a, logits, log_prob, h_pre, c_pre)[:len(st.out_shapes)]
         st.out_host.copy_(torch.cat([t.reshape(-1) for t in outs]), non_blocking=True)
         if self.device.type == "cuda":
@@ -550,17 +568,29 @@ class InferenceService:
         st.reset()
         off = 0
         offsets = []
-        for req in chunk:
+        last: dict[bytes, int] = {}  # each client's last request in the chunk
+        for i, req in enumerate(chunk):
             n = req.obs.shape[0]
             base = self.clients[req.identity].base
             st.obs[off:off + n] = req.obs
             st.first[off:off + n] = req.first
             st.slot[off:off + n] = np.arange(base, base + n)
             offsets.append(off)
+            last[req.identity] = i
             off += n
+        # A client with two requests in one chunk (a retry, or one DEALER
+        # carrying many synthetic clients): each acts from the same pre-step
+        # carry and the later one's post-step carry is kept, as in tpu_rl.
+        write = None
+        if len(last) < len(chunk):
+            write = np.concatenate([
+                np.arange(o, o + r.obs.shape[0])
+                for i, (r, o) in enumerate(zip(chunk, offsets)) if last[r.identity] == i
+            ])
         with self._lock:
             params, params_sig, version = self._params, self._params_sig, self._version
-        a, logits, log_prob, *carry = self._run(act, st, rows, params, params_sig, generator)
+        a, logits, log_prob, *carry = self._run(
+            act, st, rows, params, params_sig, generator, write)
         # Counted before the replies go out, so a client that holds its reply
         # also sees the flush counted.
         self.n_batches += 1

@@ -26,7 +26,9 @@ checkpoints every ``model_save_interval`` updates and heartbeats:
   :class:`~tpu_rl_torch.runtime.inference_service.InferenceService` on the
   learner's device behind a :class:`~tpu_rl_torch.runtime.transport.Router`
   on ``inference_port``, its params swapped after every update (kernel B3
-  under ``act_kernel="pallas"``).
+  under ``act_kernel="pallas"``); under ``inference_replicas > 1`` that
+  service is the fleet's replica 0, an
+  :class:`~tpu_rl_torch.fleet.replica.InferenceReplica`.
 
 The learner runs on ``learner_device``: ``"auto"`` is the card, and raises
 when there is none (ROADMAP C 7: ``tpu_rl`` degrades to the CPU instead);
@@ -51,7 +53,7 @@ the same state, take rank 0's at start (after its resume) and run the same
 data-parallel step on their rows. Under ``multihost`` each host's learner
 feeds its own rows from its own storage (``host_local_batch_to_global``),
 as ``tpu_rl``'s multihost feed does (one rank a host: a host of more
-cards waits for slice A 8b); world rank 0 checkpoints and decides each
+cards waits for slice A 8c); world rank 0 checkpoints and decides each
 watchdog check, and its rollback reaches every rank. The
 chained step over the mesh is ``make_parallel_train_step(chain=K)``. The
 closing telemetry snapshot carries every rank's kernel launch counts
@@ -312,7 +314,7 @@ class LearnerService:
         dev = torch.device(learner_device(cfg))
         if cfg.multihost and host_rank()[1] != 1:
             raise NotImplementedError(
-                "a multihost learner with more than one rank a host comes with slice A 8b of "
+                "a multihost learner with more than one rank a host comes with slice A 8c of "
                 "the port: it runs one rank per host"
             )
         if cfg.multihost:
@@ -567,8 +569,15 @@ class LearnerService:
         # every update. Requests that land while the buckets warm up wait
         # in the Router's queue.
         if cfg.act_mode == "remote" and self.inference_port is not None:
-            from tpu_rl_torch.runtime.inference_service import InferenceService
             from tpu_rl_torch.runtime.transport import Router
+
+            if cfg.inference_replicas > 1:
+                # Fleet: the learner's service is replica 0, continuous
+                # batching and the version-keyed swap (the learner's versions
+                # only rise, so every in-process swap applies).
+                from tpu_rl_torch.fleet import InferenceReplica as InferenceService
+            else:
+                from tpu_rl_torch.runtime.inference_service import InferenceService
 
             self._router = Router("*", self.inference_port, bind=True)
             self._inference = InferenceService(

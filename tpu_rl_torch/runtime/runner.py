@@ -16,10 +16,15 @@ Roles:
 - ``local``: everything on one host, the smallest real cluster;
 - ``colocated``: the single colocated-loop child (``runtime/colocated.py``).
 
+With ``act_mode="remote"`` and ``inference_replicas`` N > 1 the learner
+role also spawns the inference fleet's replicas 1..N-1 (``inference-<i>``,
+:func:`~tpu_rl_torch.fleet.replica.replica_main`).
+
 Workers, managers and storage are host processes: the supervisor starts
 them with ``CUDA_VISIBLE_DEVICES=""`` in their environment and
 ``role_entry`` hides the card again before the role runs
-(``utils.platform.host_role``), so only the learner opens a CUDA context.
+(``utils.platform.host_role``), so only the learner and the inference
+replicas open a CUDA context.
 The population and autopilot roles come with the fleet and operations
 slice of the port (ROADMAP A 9).
 """
@@ -491,7 +496,7 @@ def learner_role(
     if cfg.multihost and _host_ranks(cfg) > 1:
         raise NotImplementedError(
             f"a multihost learner on a host of {_host_ranks(cfg)} cards (one rank per card, each "
-            "fed its share of the host's rows) comes with slice A 8b of the port; the multihost "
+            "fed its share of the host's rows) comes with slice A 8c of the port; the multihost "
             "learner runs on hosts of one card, the colocated pod on any"
         )
     sup = supervisor or Supervisor.from_config(cfg)
@@ -508,8 +513,8 @@ def learner_role(
     sup.spawn(
         "storage", storage_main, cfg, handles, machines.learner_port, stat_array
     )
-    # Inference port plan (collision-checked): the one replica lives inside
-    # the learner process (zero-staleness swaps).
+    # Inference port plan (collision-checked): replica 0 lives inside the
+    # learner process (zero-staleness swaps), replicas 1..N-1 are children.
     inference_ports = (
         machines.inference_ports(cfg) if cfg.act_mode == "remote" else None
     )
@@ -539,6 +544,24 @@ def learner_role(
         # one rank per device on this host, supervised as one child
         world=_host_ranks(cfg),
     )
+    if inference_ports is not None and cfg.inference_replicas > 1:
+        from tpu_rl_torch.fleet import replica_main
+
+        for i in range(1, cfg.inference_replicas):
+            # Named as tpu_rl's: its chaos plane's kill:inference-<i> faults
+            # match these children. A replica holds the card as the learner
+            # does (or runs the plain path beside a CPU learner).
+            sup.spawn(
+                f"inference-{i}",
+                functools.partial(replica_main, seed=seed),
+                cfg,
+                i,
+                inference_ports[i],
+                "127.0.0.1",  # the learner (model PUB) is on this host
+                machines.model_port,
+                machines.learner_port,
+                cpu_only=(cfg.learner_device == "cpu"),
+            )
     return sup
 
 
@@ -587,9 +610,14 @@ def worker_role(
                 worker_main,
                 seed=seed * 1000 + machine_idx * 100 + i,
                 initial_params=initial_params,
+                # A fleet (N > 1) hands workers every replica's port, for the
+                # FleetClient to balance and hedge over; one service keeps
+                # the scalar port and the plain InferenceClient.
                 inference_port=(
-                    machines.inference_ports(cfg)[0]
-                    if cfg.act_mode == "remote" else None
+                    None if cfg.act_mode != "remote"
+                    else machines.inference_ports(cfg)
+                    if cfg.inference_replicas > 1
+                    else machines.inference_ports(cfg)[0]
                 ),
             ),
             cfg,
@@ -673,7 +701,7 @@ def colocated_role(
     ``machines`` is accepted (and ignored) so the CLI can dispatch every
     role through one signature. With ``mesh_data > 1`` (or ``multihost``
     on a host with more than one card) the child is a group of one rank
-    per device (:class:`RankGroup`). tpu_rl's Sebulba split comes with slice A 8b."""
+    per device (:class:`RankGroup`). tpu_rl's Sebulba split comes with slice A 8c."""
     del machines  # colocated mode has no fleet topology
     sup = supervisor or Supervisor.from_config(cfg)
     sup.spawn(

@@ -1,7 +1,8 @@
 """Learner-storage process: bridge from the DCN transport into device-feedable
-shared memory — the port of ``tpu_rl.runtime.storage``. The inference-fleet
-replica table (``tpu_rl.fleet``) and the chaos hooks come with the fleet and
-operations slices; the port's Config refuses replicas and chaos until then.
+shared memory — the port of ``tpu_rl.runtime.storage``. Storage also keeps
+the inference fleet's replica table (:class:`~tpu_rl_torch.fleet.membership.
+ReplicaTable`, leased from the replicas' telemetry). The chaos hooks come
+with the operations slice; the port's Config refuses chaos until then.
 
 Capability parity with the reference ``LearnerStorage``
 (``agents/learner_storage.py:25-159``): SUB-bind on the
@@ -158,6 +159,13 @@ class LearnerStorage:
         self.n_stale_epoch = 0
         # Worker join/leave registry (heartbeat lease over frame arrivals).
         self.members = MembershipTable(cfg.membership_lease_s)
+        # Inference-replica registry: the same leases keyed by the `rid` on
+        # replica telemetry snapshots, with each replica's served version
+        # and the fleet's version floor. Imported here: fleet.membership
+        # subclasses MembershipTable from this module.
+        from tpu_rl_torch.fleet.membership import ReplicaTable
+
+        self.replicas = ReplicaTable(cfg.membership_lease_s)
         self._next_evict = 0.0
         # Telemetry plane (tpu_rl_torch.obs): the aggregator lives HERE — storage
         # is the learner-side edge of the stat channel, the one hop every
@@ -249,6 +257,7 @@ class LearnerStorage:
                 if now_m >= self._next_evict:
                     self._next_evict = now_m + 1.0
                     self.members.evict_expired(now_m)
+                    self.replicas.evict_expired(now_m)
                 if self.aggregator is not None:
                     self._telemetry_tick()
                 if self.heartbeat is not None:
@@ -399,6 +408,14 @@ class LearnerStorage:
         reg.counter("storage-members-evicted").set_total(
             self.members.n_evicted
         )
+        # Inference-fleet membership and the version watch: the floor is the
+        # ratchet clients pin to, min-active the worst staleness a balanced
+        # request can land on now.
+        reg.gauge("fleet-replicas-active").set(len(self.replicas.active))
+        reg.counter("fleet-replicas-joined").set_total(self.replicas.n_joined)
+        reg.counter("fleet-replicas-evicted").set_total(self.replicas.n_evicted)
+        reg.gauge("fleet-version-floor").set(self.replicas.floor)
+        reg.gauge("fleet-min-active-version").set(self.replicas.min_active_version())
         if self._ingress is not None:
             # Self-healing plane: poisoned (failed validation) and
             # quarantined (clean but from a quarantined wid) frame drops
@@ -617,6 +634,7 @@ class LearnerStorage:
             # stale-epoch worker must stay visible to /healthz while it
             # re-attaches.
             self._touch_member(payload)
+            self._touch_replica(payload)
             if isinstance(payload, dict):
                 e = payload.get("epoch")
                 if isinstance(e, int) and e > self.run_epoch:
@@ -687,6 +705,22 @@ class LearnerStorage:
         if not isinstance(wid, int):
             return
         if self.members.touch(wid):
+            sa = self.stat_array
+            if sa is not None and len(sa) > SLOT_JOIN_REQ:
+                sa[SLOT_JOIN_REQ] = 1.0
+
+    def _touch_replica(self, payload) -> None:
+        """Renew an inference replica's lease from its telemetry snapshot
+        (``rid`` and served ``ver``). A new replica raises the join flag a
+        worker's join does: the learner's join push re-publishes the current
+        weights and version, which a random-init replica needs."""
+        if not isinstance(payload, dict):
+            return
+        rid = payload.get("rid")
+        if not isinstance(rid, int):
+            return
+        ver = payload.get("ver")
+        if self.replicas.touch(rid, ver=ver if isinstance(ver, int) else -1):
             sa = self.stat_array
             if sa is not None and len(sa) > SLOT_JOIN_REQ:
                 sa[SLOT_JOIN_REQ] = 1.0

@@ -19,16 +19,18 @@ plain version. The broadcast carries the actor in ``tpu_rl``'s flax layout
   ``seed * 9973 + worker_id``;
 - ``"remote"``: the tick's observations go to the learner's
   :class:`~tpu_rl_torch.runtime.inference_service.InferenceService` over a
-  DEALER/ROUTER channel; actions, logits, log-probs (and the pre-step carry
-  rows) come back and the published RolloutBatch has the same layout as in
-  local mode. If the service times out ``inference_retries`` times the
-  worker logs once and falls back to local acting on its last broadcast
-  params, then re-probes the service every ``inference_reprobe_s`` seconds
-  (doubling); ``inference_reprobe_s=0`` keeps the fallback permanent.
+  DEALER/ROUTER channel, or, with ``inference_replicas > 1``, to the
+  inference fleet through a :class:`~tpu_rl_torch.fleet.client.FleetClient`
+  (``inference_port`` is then the list of replica ports); actions, logits,
+  log-probs (and the pre-step carry rows) come back and the published
+  RolloutBatch has the same layout as in local mode. If the service (or
+  every replica) times out ``inference_retries`` times the worker logs once
+  and falls back to local acting on its last broadcast params, then
+  re-probes every ``inference_reprobe_s`` seconds (doubling);
+  ``inference_reprobe_s=0`` keeps the fallback permanent.
 
-The chaos hooks and the fleet client come with the operations and fleet
-slices (the port's Config refuses ``chaos_spec`` and more than one
-inference replica until then).
+The chaos hooks come with the operations slice (the port's Config refuses
+``chaos_spec`` until then).
 """
 
 from __future__ import annotations
@@ -49,6 +51,16 @@ from tpu_rl_torch.runtime.protocol import Protocol, make_trace_id, pack_trace
 from tpu_rl_torch.runtime.transport import MODEL_HWM, Pub, Sub
 
 
+# The FleetClient's event counts, published by their telemetry names.
+_FLEET_COUNTERS = {
+    "fleet-hedge-fired": "n_hedges",
+    "fleet-failovers": "n_failovers",
+    "fleet-dedup-replies": "n_dedups",
+    "fleet-floor-rejects": "n_floor_rejects",
+    "fleet-reprobes": "n_reprobes",
+}
+
+
 class Worker:
     def __init__(
         self,
@@ -62,7 +74,7 @@ class Worker:
         heartbeat=None,
         initial_params=None,
         seed: int = 0,
-        inference_port: int | None = None,
+        inference_port: int | list[int] | None = None,
     ):
         self.cfg = cfg
         self.worker_id = worker_id
@@ -135,11 +147,19 @@ class Worker:
         )
 
     def _make_remote(self, cfg: Config, learner_ip: str):
-        """Build the remote-acting client for ``self.inference_port`` (the
-        initial client and every re-probe)."""
+        """Build the remote-acting client for ``self.inference_port``: a
+        :class:`~tpu_rl_torch.fleet.client.FleetClient` over a list of
+        replica ports, else the single service's :class:`InferenceClient`.
+        Used for the initial client and every re-probe, so a fallback under
+        a fleet re-probes the whole fleet."""
+        port = self.inference_port
+        if isinstance(port, (list, tuple)):
+            from tpu_rl_torch.fleet import FleetClient
+
+            return FleetClient(cfg, [(learner_ip, int(p)) for p in port], wid=self.worker_id)
         from tpu_rl_torch.runtime.inference_service import InferenceClient
 
-        return InferenceClient(cfg, learner_ip, self.inference_port, wid=self.worker_id)
+        return InferenceClient(cfg, learner_ip, port, wid=self.worker_id)
 
     # ------------------------------------------------------------------ run
     def run(self) -> None:
@@ -234,6 +254,13 @@ class Worker:
         # so the published total survives any number of fallback/restore
         # cycles.
         remote_rejected = 0
+        # Fleet-event totals, accumulated the same way across client
+        # generations (FleetClient only; 0 under a single service).
+        fleet = dict.fromkeys(_FLEET_COUNTERS.values(), 0)
+
+        def _fold_fleet(client) -> None:
+            for attr in fleet:
+                fleet[attr] += getattr(client, attr, 0)
         # Fallback recovery state: when remote acting drops to local, probe
         # the service again every `inference_reprobe_s`, doubling up to
         # `inference_reprobe_max_s` while it stays down. 0 disables (the
@@ -326,6 +353,7 @@ class Worker:
                     # RESTARTED server regains this client.
                     self._log_fallback(cfg, reprobe_backoff)
                     remote_rejected += remote.n_rejected
+                    _fold_fleet(remote)
                     remote.close()
                     remote = None
                     self.fell_back = True
@@ -359,6 +387,7 @@ class Worker:
                         self._log_restore()
                     else:
                         remote_rejected += probe.n_rejected
+                        _fold_fleet(probe)
                         probe.close()
                         reprobe_backoff = min(
                             reprobe_backoff * 2.0,
@@ -521,6 +550,10 @@ class Worker:
                         registry.counter(
                             "worker-remote-restores"
                         ).set_total(self.n_restores)
+                        for name, attr in _FLEET_COUNTERS.items():
+                            registry.counter(name).set_total(
+                                fleet[attr] + getattr(remote, attr, 0)
+                            )
                     if emitter.due():
                         # /proc self-stats only just before an emit — the
                         # reads cost syscalls, the gauges only travel then.
@@ -567,7 +600,7 @@ def worker_main(
     heartbeat,
     initial_params=None,
     seed: int = 0,
-    inference_port: int | None = None,
+    inference_port: int | list[int] | None = None,
 ) -> None:
     """mp.Process target (reference ``worker_run``, ``main.py:155-162``)."""
     Worker(
