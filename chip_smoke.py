@@ -5,6 +5,8 @@
 
 It drives the port's serving path (f32, bf16 and int8 weights), its
 distributed runtime (worker -> manager -> storage -> learner processes), its
+training topology (the Sebulba split, the multihost learner on hosts of
+several ranks, the population plane), its
 colocated LSTM training path (with checkpoint and resume), bf16-compute
 LSTM training, the other algorithms' train steps and colocated loops
 (IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous), the transformer's
@@ -58,10 +60,11 @@ against its plain PyTorch version:
    transitions/s, ms per update, its rollout/train split, the device busy
    share over a 10-update profiler window, and B1/B2 launch counts equal to
    updates x K_epoch with no fused-act launch;
-7. learning: ``ColocatedLoop.run`` on tpu_rl's colocated smoke recipe
-   (batch 32, lr 3e-4, entropy 1e-3, seed 0) for 1800 updates, one line per
-   200-update window; fails unless the best window's mean return is >= 60
-   over >= 100 episodes;
+7. learning: ``ColocatedLoop.program`` on tpu_rl's colocated smoke recipe
+   (batch 32, lr 3e-4, entropy 1e-3, seed 0), one line per 200-update
+   window (``ColocatedLoop.run``'s), up to 1800 updates, stopped at the
+   first window that meets the bar; fails unless a window's mean return is
+   >= 60 over >= 100 episodes;
 8. wide LSTM training: ``get_algo(algo).build`` and its train step at
    bench.py's IMPALA@wide-lstm row (1024 x 16, H=1024, obs 64, 8 actions,
    f32), with PPO (as in earlier slices) and with the row's IMPALA, on a
@@ -79,7 +82,7 @@ against its plain PyTorch version:
 8b. colocated IMPALA and V-MPO on CartPole and PPO-Continuous on Pendulum
    through ``ColocatedLoop.program`` at 128 envs, 1 + 2 updates: ms per
    update, finite metrics and params, launches = updates x K_epoch; then
-   an IMPALA learning run on step 7's recipe for 300 updates, its best
+   an IMPALA learning run on step 7's recipe for 100 updates, its best
    window printed with no bar;
 8c. bf16 compute (tpu_rl's mixed precision; the recurrence is the bf16
    scan, never B1/B2): ``mixed_dot`` on the card against the CPU (1e-5)
@@ -173,7 +176,7 @@ against its plain PyTorch version:
    steps, wallclock, env steps/s; B1/B2 launches per update = 8/5 x
    K_epoch; B1/B2 at (32,5,64) beside their bounds; one train step's host
    enqueue vs device time (profiler); the act step's host ms per env step;
-   then SAC on CartPole-v1 for 200 updates after a 2000-step warm-up:
+   then SAC on CartPole-v1 for 100 updates after a 2000-step warm-up:
    launches 8/3 per update, every loss finite;
 12b. the data plane onto the card (``replay_feed_phase``): a ReplayStore at
    the reference's capacity (10240 windows at SAC@ref's 128 x 5, H 64, obs
@@ -191,7 +194,7 @@ against its plain PyTorch version:
 12d. the distributed runtime (``cluster_phase``): ``runtime.runner.local_cluster``
    with tpu_rl's default config (PPO, CartPole-v1, H 64, seq_len 5, batch
    128; one worker machine of 2 processes, worker_num_envs 1, no worker
-   throttle), twice: (a) local acting, TCP, the raw relay, 50 updates;
+   throttle), twice: (a) local acting, TCP, the raw relay, 20 updates;
    (b) every act step served by the learner's InferenceService through B3,
    the manager -> storage hop over shm, 12 updates. Where gymnasium is missing, a
    stand-in ``gymnasium`` package over ``DeviceSpecEnv`` goes first on
@@ -222,8 +225,8 @@ against its plain PyTorch version:
    one B3 launch a device a flush;
 12e. data and sequence parallelism on torch.distributed (``dp_phase``,
    ``sp_phase``; one card, so none of it is a scaling number): (P1) the
-   data-parallel step at IMPALA@wide-lstm, (P2) the colocated loop (20
-   updates, then a run checkpointed at 10 and resumed to 15) and the
+   data-parallel step at IMPALA@wide-lstm, (P2) the colocated loop (10
+   updates, then a run checkpointed at 5 and resumed to 8) and the
    transformer at longctx-flash width with flash, each at world size 1 over
    a one-rank NCCL group in this process against the plain path (bit for
    bit), with the wrapper's cost, the grad bytes all-reduced and the
@@ -234,6 +237,25 @@ against its plain PyTorch version:
    over the two ranks at (16,2048,8,64) bf16 against full attention in
    f32, beside B4's and blockwise's times; (P3) the cluster with a
    two-rank learner (run (c)), B1/B2 = updates x K_epoch on every rank;
+12f. the training topology (one card, so no scaling number): (S1)
+   ``SebulbaLoop`` with both lanes on the card (the test seam's
+   ``devices=["cuda:0", "cuda:0"]``, split 1, queue 2) at the default
+   config for 100 updates: B1/B2 on the learner lane = updates x K_epoch,
+   queue peak <= depth, staleness <= depth + 1, compute and queue-wait on
+   both lane ledgers, the learner's state = the colocated train step
+   replaying the consumed batches, bit for bit; updates/s and
+   transitions/s beside ``ColocatedLoop.run``'s, the lanes' overlap; (S2)
+   ``python -m tpu_rl_torch local --env-mode colocated --sebulba-split 1``
+   refuses on one card naming the count (runs on two or more); (M1) the
+   multihost learner as 2 hosts x 2 ranks sharing the card over gloo, each
+   host's rank 0 sampling only its own store and scattering over its
+   host-local group: B1/B2 = updates x K_epoch on every rank, equal params
+   on every rank, within tests/test_parallel.py's bar of one card's plain
+   steps on the global batches; (PBT) a population of 2 colocated PPO
+   members with member 0 poisoned, its controller a process with no CUDA
+   context: an exploit whose loser resumes the copied committed checkpoint
+   at a bumped epoch, B1/B2 = updates run x K_epoch in each member's
+   telemetry, one context per member (nvidia-smi, /proc fds);
 13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
 
 Any failed phase raises and the script exits non-zero before the last line.
@@ -286,12 +308,13 @@ LEARN_CFG = dict(
 LEARN_UPDATES, LEARN_BAR, LEARN_EPISODES = 1800, 60.0, 100
 # The IMPALA learning run (no bar) at half that depth since the transformer
 # serving phases came in, to keep the whole run near its earlier length.
-IMPALA_LEARN_UPDATES = 300  # no bar; cut from 900 for the time limit (PERF.md §4)
+IMPALA_LEARN_UPDATES = 100  # no bar; cut from 900, then 300, for the time limit (PERF.md §4)
 
 # (B, S, H) at which B1 and B2 are held against the plain versions: the
-# training path, the learning run, a ragged batch, and two wide shapes
-# (tpu_rl's IMPALA@wide-lstm is the last, bench.py:241-246).
-LSTM_SHAPES = [(128, 5, 64), (32, 5, 64), (100, 5, 64), (256, 16, 256), (1024, 16, 1024)]
+# training path, the learning run, a ragged batch, two wide shapes
+# (tpu_rl's IMPALA@wide-lstm, bench.py:241-246) and a multihost rank's rows.
+LSTM_SHAPES = [(128, 5, 64), (32, 5, 64), (100, 5, 64), (256, 16, 256), (1024, 16, 1024),
+               (64, 5, 64)]  # the last: a multihost rank's rows (M1: 128 a host over 2 ranks)
 LSTM_FWD_TOL, LSTM_GRAD_TOL = 1e-5, 3e-5
 
 # (B, T, H, D, dtype, mean seams per row, shuffled ids) at which B4 is held
@@ -396,7 +419,7 @@ INLINE_CONT_DEVICE = dict(updates=6000, algo="SAC-Continuous", env_name="Pendulu
                           target=-400.0, log_every=500, overrides=dict(lr=1e-3))
 # SAC on CartPole-v1 (run_baselines.py's warm-up; no learning bar: tpu_rl
 # needs 27k+ updates), and one inline train step timed and profiled.
-INLINE_SAC = dict(updates=200, algo="SAC", env_name="CartPole-v1", seed=0, log_every=100,
+INLINE_SAC = dict(updates=100, algo="SAC", env_name="CartPole-v1", seed=0, log_every=50,
                   overrides=dict(warmup_steps=2000))
 INLINE_STEP_TIMED, INLINE_STEP_PROFILED = 20, 5
 # (b) the data plane onto the card: a ReplayStore at the reference's replay
@@ -488,7 +511,136 @@ LOADGEN_MODEL = [(b, 4, 32, 2) for b in (8, 16)]
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    if ADOPTING:
+        left = stop_leftovers()
+        if left:
+            print(f"chip_smoke: stopped {len(left)} leftover processes: {left}", file=sys.stderr)
     sys.exit(1)
+
+
+# --------------------------------------------------------------- processes
+ADOPTING = False  # set by adopt_orphans()
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def children_of(pid: int) -> list[int]:
+    """The PIDs whose parent is ``pid``, read from /proc."""
+    kids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            kids.append(int(d))
+    return kids
+
+
+def proc_state(pid: int) -> str | None:
+    """``pid``'s state letter from /proc (``Z``: ended, not yet reaped), or
+    None when there is no such process."""
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+    except (OSError, IndexError):
+        return None
+
+
+def running(pid: int) -> bool:
+    """Whether ``pid`` exists and has not ended (a zombie has ended)."""
+    return proc_state(pid) not in (None, "Z", "X")
+
+
+def subtree(pid: int) -> list[int]:
+    """Every descendant of ``pid``, read from /proc."""
+    out, todo = [], [pid]
+    while todo:
+        kids = children_of(todo.pop())
+        out += kids
+        todo += kids
+    return out
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process the run starts
+    (``prctl(PR_SET_CHILD_SUBREAPER)``, an attribute of this process alone):
+    a process whose parent ends first is re-parented here rather than to
+    init, so :func:`stop_leftovers` still finds it."""
+    global ADOPTING
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+    ADOPTING = True
+    main_pid = os.getpid()
+
+    def stopped_by(signum, frame):
+        # a stop from outside (a time limit's SIGTERM) takes the run's
+        # processes with it; a forked child restores the default action
+        if os.getpid() != main_pid:
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        print(f"chip_smoke: stopped by signal {signum}", file=sys.stderr, flush=True)
+        left = stop_leftovers(grace_s=2.0)
+        print(f"chip_smoke: stopped {len(left)} processes: {left}", file=sys.stderr, flush=True)
+        os._exit(128 + signum)
+
+    for signum in (signal.SIGTERM, signal.SIGHUP):
+        signal.signal(signum, stopped_by)
+
+
+def stop_leftovers(grace_s: float = 5.0) -> list[dict]:
+    """Stop every process of the run that is still running: the
+    descendants of this process (orphans included, see
+    :func:`adopt_orphans`) but multiprocessing's resource tracker, which
+    ends with this process. SIGCONT and SIGTERM, then SIGKILL after
+    ``grace_s``, in rounds, since a stopped parent's own children come
+    here next. Returns what it found: pid, command line."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker._pid
+    found: dict[int, dict] = {}
+    for _round in range(5):
+        live = [p for p in subtree(os.getpid()) if p != tracker and running(p)]
+        if not live:
+            break
+        for p in live:
+            try:
+                cmd = Path(f"/proc/{p}/cmdline").read_bytes().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+            except OSError:
+                cmd = "?"
+            found.setdefault(p, dict(pid=p, cmd=cmd[:300]))
+            for sig in (signal.SIGCONT, signal.SIGTERM):
+                try:
+                    os.kill(p, sig)
+                except ProcessLookupError:
+                    pass
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline and any(running(p) for p in live):
+            time.sleep(0.1)
+        for p in live:
+            if running(p):
+                try:
+                    os.kill(p, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                found[p]["killed"] = True
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline and any(running(p) for p in live):
+            time.sleep(0.1)
+    # reap what has ended here (orphans re-parented to this process among
+    # them), so that none outlives the run as a zombie
+    for p in children_of(os.getpid()):
+        if proc_state(p) == "Z":
+            try:
+                os.waitpid(p, os.WNOHANG)
+            except ChildProcessError:
+                pass
+    return list(found.values())
 
 
 def card_line() -> str:
@@ -500,7 +652,7 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def device_ms(fn, iters: int = 100, reps: int = 5, warmup: int = 10) -> float:
+def device_ms(fn, iters: int = 100, reps: int = 3, warmup: int = 10) -> float:
     """Median device time of one ``fn()`` call, in ms. A busy-wait kernel is
     queued first so that the host has enqueued all ``iters`` calls before
     the card reaches the start event: the events then time the card's work
@@ -1161,17 +1313,41 @@ def train_phase(card: str) -> dict:
 
 
 def learn_phase(card: str) -> dict:
-    """tpu_rl's colocated learning check through ColocatedLoop.run."""
+    """tpu_rl's colocated learning check: ``ColocatedLoop.program`` at
+    LEARN_CFG, the windows ``ColocatedLoop.run`` logs (the same draws, so
+    the same run), stopped at the first window that meets the bar (best
+    window mean return >= LEARN_BAR over >= LEARN_EPISODES episodes)
+    within LEARN_UPDATES updates."""
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import lstm as L
     from tpu_rl_torch.runtime.colocated import ColocatedLoop
 
     L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
     loop = ColocatedLoop(Config(**LEARN_CFG), seed=0, max_updates=LEARN_UPDATES, device="cuda")
-    out = loop.run(log=True)
+    window = loop.cfg.loss_log_interval
+    state, carry, stats = loop.state, loop.init_carry(), loop.init_stats()
+    it, last_ep, last_ret, best = 0, 0, 0.0, float("-inf")
+    t0 = time.perf_counter()
+    while it < LEARN_UPDATES:
+        for _ in range(window):
+            state, carry, stats, metrics = loop.program(state, carry, stats)
+        it += window
+        episodes, ret_sum = int(stats["episodes"]), float(stats["ret_sum"])
+        if episodes > last_ep:
+            best = max(best, (ret_sum - last_ret) / (episodes - last_ep))
+        print(f"[colocated] update {it}  episodes {episodes}  window mean_return "
+              f"{(ret_sum - last_ret) / max(1, episodes - last_ep):.1f}  loss "
+              f"{float(metrics['loss']):.4f}", flush=True)
+        last_ep, last_ret = episodes, ret_sum
+        if best >= LEARN_BAR and episodes >= LEARN_EPISODES:
+            break
+    elapsed = time.perf_counter() - t0
+    out = dict(updates=it, episodes=last_ep, mean_return_best_window=best, elapsed_s=elapsed,
+               transitions_per_s=it * loop.cfg.batch_size * loop.cfg.seq_len / elapsed)
     fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
     print(
-        f"learning: {out['updates']} updates, {out['episodes']} episodes, best-window mean return "
+        f"learning: {out['updates']} updates (stopped at the bar), {out['episodes']} episodes, "
+        f"best-window mean return "
         f"{out['mean_return_best_window']:.1f} (bar {LEARN_BAR}), {out['elapsed_s']:.1f} s, "
         f"{out['transitions_per_s']:.1f} transitions/s, lstm launches {fwd}/{bwd} [{card}]",
         flush=True,
@@ -2077,7 +2253,7 @@ def attention_phase() -> list[dict]:
             fail(f"B4 vs plain at {(B, T, H, D, dtype)}: {checks}, finite {finite}")
 
         big = B * H * T * T > 2**30
-        kw = dict(iters=3, reps=3, warmup=2) if big else dict(iters=20, reps=5, warmup=3)
+        kw = dict(iters=3, reps=3, warmup=2) if big else dict(iters=20, reps=3, warmup=3)
         fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg, plan), **kw)
         bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o, lse, do, plan), **kw)
         plan_ms = None if plan is None else device_ms(lambda: A.tile_plan(seg), **kw)
@@ -3640,7 +3816,7 @@ def report_compare_check(result_dir: str, card: str) -> dict:
 # the manager -> storage hop over shm. inference_timeout_ms 60000 is tpu_rl's
 # own remote-acting test recipe: a worker's first request must not time out
 # into local acting while the learner starts.
-CLUSTER_UPDATES = 50
+CLUSTER_UPDATES = 20  # cut from 50 for the time limit (PERF.md §4)
 CLUSTER_PROFILE = (5, 5)  # profile_start, profile_steps (updates)
 CLUSTER_RUNS = (
     ("a", dict(act_mode="local", transport="tcp", relay_mode="raw")),
@@ -4036,7 +4212,9 @@ FLEET_RUN = ("d", dict(CLUSTER_RUNS[1][1], inference_replicas=2, inference_hedge
                       inference_timeout_ms=20000))
 FLEET_HOLD = dict(at_update=12, flushes=200, max_s=60.0)
 FLEET_SWEEP = dict(clients=12_000, rates=(100.0, 250.0, 600.0), duration=6.0, kill_at=8.0)
-FLEET_CURVE = dict(clients=12_000, rates=(600.0, 1200.0, 2400.0, 4800.0), duration=6.0,
+# (the saturation curve has no bar: its stages cut from 6 s for the time
+# limit, PERF.md §4)
+FLEET_CURVE = dict(clients=12_000, rates=(600.0, 1200.0, 2400.0, 4800.0), duration=3.0,
                    kill_at=None)
 SHARDED_ACTS, SHARDED_CLIENTS, SHARDED_ENVS = 20, 4, 4
 
@@ -4229,7 +4407,7 @@ def fleet_phase(card: str) -> dict:
 DP_WARMUP, DP_UPDATES = 2, 5  # (P1) IMPALA@wide-lstm, untimed + timed
 # (P2) the default config's colocated loop: updates, then a run saving every
 # DP_SAVE_EVERY updates to DP_SAVED and one resuming from it to DP_RESUMED
-DP_COLOCATED_UPDATES, DP_SAVE_EVERY, DP_SAVED, DP_RESUMED = 20, 5, 10, 15
+DP_COLOCATED_UPDATES, DP_SAVE_EVERY, DP_SAVED, DP_RESUMED = 10, 5, 5, 8
 # tests/test_parallel.py:83-96's bars: loss (rtol, atol), params (rtol, atol)
 DP_LOSS_TOL, DP_PARAM_TOL = (2e-4, 2e-5), (2e-3, 2e-5)
 DP_RANKS = 2
@@ -4509,7 +4687,7 @@ def dp_phase(card: str, ranks: int = DP_RANKS) -> dict:
         if close_to(world1_p1, plain_p1, DP_PARAM_TOL) > 1.0:
             fail(f"DP step world 1 vs plain: params beyond the bar (max |diff| {diff_p1})")
     buf = torch.zeros(n_grads + 1, device="cuda")
-    ar_ms = device_ms(lambda: mesh.all_reduce_(buf), iters=20, reps=5, warmup=3)
+    ar_ms = device_ms(lambda: mesh.all_reduce_(buf), iters=20, reps=3, warmup=3)
     del d_state
     out["p1_world1"] = dict(plain=p_time, dp=d_time, bitwise=bitwise_p1, max_abs_diff=diff_p1,
                             grad_bytes_per_update=4 * (n_grads + 1) * cfg.K_epoch,
@@ -4688,6 +4866,475 @@ def sp_phase(card: str, dp: dict, attn_rows: list[dict], blockwise_rows: list[di
     return out
 
 
+# ------------------------------------------------------------ training topology
+# (S1) the Sebulba split with both lanes on the one card, at the default
+# config; SEBULBA_UPDATES timed updates each way beside the colocated loop
+SEBULBA_UPDATES, SEBULBA_QUEUE = 100, 2
+# (M1) the multihost learner: MH_HOSTS hosts of MH_LOCAL ranks sharing the
+# card over gloo, each host's storage fed seeded windows at tpu_rl's
+# default config (batch 128 a host, S 5, H 64)
+MH_HOSTS, MH_LOCAL, MH_UPDATES = 2, 2, 10
+MH_CFG = dict(env="CartPole-v1", algo="PPO", obs_shape=(4,), action_space=2, batch_size=128,
+              buffer_size=128, seq_len=5, hidden_size=64, loss_log_interval=10)
+MH_TIMEOUT_S = 300.0
+# (PBT) K colocated PPO members at the default config, member 0 poisoned
+# (one evaluation: the second generation's threshold lies past the budget,
+# so the exploited member's last incarnation runs updates)
+PBT_K, PBT_UPDATES, PBT_INTERVAL, PBT_POISON_LR = 2, 150, 110, 0.05
+PBT_TIMEOUT_S = 300.0
+
+
+def sebulba_phase(card: str) -> dict:
+    """(S1) ``SebulbaLoop`` on the test seam's ``["cuda:0", "cuda:0"]``
+    (split 1, queue SEBULBA_QUEUE) at the default config (PPO, CartPole-v1,
+    H 64, S 5, 128 envs): B1/B2 launches on the learner lane = updates x
+    K_epoch (counters zeroed just before the run, read just after); the
+    queue peak within the depth and every batch's staleness within depth +
+    1; compute and queue-wait on both lane ledgers; the learner's final
+    state equal, bit for bit, to the colocated train step replaying the
+    batches the lane consumed from the initial state; updates/s and
+    transitions/s beside ``ColocatedLoop.run`` at the same config on the
+    same card (no scaling number: one card), and the lanes' overlap."""
+    import copy
+    import tempfile
+
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import fused_act as FA
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.runtime.colocated import ColocatedLoop
+    from tpu_rl_torch.runtime.sebulba import SebulbaLoop
+
+    kw = dict(TRAIN_CFG, sebulba_split=1, sebulba_queue=SEBULBA_QUEUE,
+              loss_log_interval=SEBULBA_UPDATES // 4,
+              result_dir=tempfile.mkdtemp(prefix="chip_smoke_sebulba_"))
+    loop = SebulbaLoop(Config(**kw), seed=0, max_updates=SEBULBA_UPDATES, device="cuda",
+                       devices=["cuda:0", "cuda:0"], record_batches=True)
+    init = copy.deepcopy(loop.state)
+    torch.cuda.synchronize()
+    fa0 = FA.LAUNCHES
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    out = loop.run(log=False)
+    fwd, bwd = L.LSTM_FWD_LAUNCHES, L.LSTM_BWD_LAUNCHES
+    want = SEBULBA_UPDATES * loop.cfg.K_epoch
+    if (out["updates"], fwd, bwd) != (SEBULBA_UPDATES, want, want) or FA.LAUNCHES != fa0:
+        fail(f"sebulba: {out['updates']} updates, B1/B2 launches {fwd}/{bwd} (want {want}), "
+             f"fused act +{FA.LAUNCHES - fa0}")
+    if not 1 <= out["queue_peak_depth"] <= SEBULBA_QUEUE:
+        fail(f"sebulba: queue peak {out['queue_peak_depth']} outside [1, {SEBULBA_QUEUE}]")
+    if not 0 <= out["max_staleness"] <= SEBULBA_QUEUE + 1:
+        fail(f"sebulba: staleness {out['max_staleness']} past depth + 1")
+    buckets = {led.role: led.snapshot()["buckets"] for led in loop._ledgers()}
+    for role, b in buckets.items():
+        if not (b["compute"] > 0 and b["queue-wait"] > 0):
+            fail(f"sebulba: the {role} ledger has compute {b['compute']}, queue-wait "
+                 f"{b['queue-wait']}")
+    ref = ColocatedLoop(Config(**TRAIN_CFG), seed=0, device="cuda")
+    state = init
+    for _it, seed_it, _ver, batch in loop.consumed:
+        state, _m = ref.train_step(state, batch, torch.Generator("cuda").manual_seed(seed_it))
+    if not states_equal(state, loop.state):
+        fail("sebulba: the learner's state is not the replay of the batches it consumed")
+    del loop.consumed[:]
+    coloc = ColocatedLoop(Config(**dict(TRAIN_CFG, loss_log_interval=SEBULBA_UPDATES // 4)),
+                          seed=0, max_updates=SEBULBA_UPDATES, device="cuda")
+    base = coloc.run(log=False)
+    wall = out["elapsed_s"]
+    overlap = max(0.0, buckets["sebulba-actor"]["compute"]
+                  + buckets["sebulba-learner"]["compute"] - wall) / wall
+    rec = dict(
+        updates=out["updates"], lstm_fwd_launches=fwd, lstm_bwd_launches=bwd,
+        queue_peak_depth=out["queue_peak_depth"], max_staleness=out["max_staleness"],
+        updates_per_s=out["updates"] / wall, transitions_per_s=out["transitions_per_s"],
+        colocated_updates_per_s=base["updates"] / base["elapsed_s"],
+        colocated_transitions_per_s=base["transitions_per_s"],
+        ledgers=buckets, overlap_share=overlap,
+        lane_compute_share={r: b["compute"] / wall for r, b in buckets.items()},
+        # each lane's compute per batch, beside train_phase's rollout_ms and
+        # train_step_ms (the same work, one thread)
+        lane_ms_per_update={r: b["compute"] / out["updates"] * 1e3 for r, b in buckets.items()},
+        episodes=out["episodes"], replay_bit_for_bit=True,
+    )
+    print(
+        f"(S1) sebulba split 1 on cuda:0 + cuda:0, queue {SEBULBA_QUEUE}, PPO CartPole 128 "
+        f"envs H 64: {out['updates']} updates, {rec['updates_per_s']:.4f} updates/s, "
+        f"{rec['transitions_per_s']:.1f} transitions/s (colocated loop "
+        f"{rec['colocated_updates_per_s']:.4f} updates/s, "
+        f"{rec['colocated_transitions_per_s']:.1f} transitions/s; one card, no scaling "
+        f"number); lane compute shares {rec['lane_compute_share']} (ms an update "
+        f"{rec['lane_ms_per_update']}), overlap {overlap:.4f} of "
+        f"the wall; queue peak {out['queue_peak_depth']}/{SEBULBA_QUEUE}, staleness max "
+        f"{out['max_staleness']} (<= depth + 1); B1/B2 launches {fwd}/{bwd} (= updates x "
+        f"K_epoch); learner state = replay, bit for bit [{card}]",
+        flush=True,
+    )
+    return rec
+
+
+SEBULBA_CLI = [sys.executable, "-m", "tpu_rl_torch", "local", "--env-mode", "colocated",
+               "--sebulba-split", "1", "--max-updates", "20", "--no-result-dir"]
+
+
+def sebulba_cli_start() -> subprocess.Popen:
+    """(S2)'s command, started (it runs beside (M1), which checks no
+    context count)."""
+    return subprocess.Popen(SEBULBA_CLI, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def sebulba_cli_phase(card: str, proc: subprocess.Popen | None = None) -> dict:
+    """(S2) ``python -m tpu_rl_torch local --env-mode colocated
+    --sebulba-split 1`` (``proc``, started by :func:`sebulba_cli_start`):
+    on one card it refuses, naming the count of cards; on two or more it
+    runs to its budget."""
+    n = torch.cuda.device_count()
+    cmd = SEBULBA_CLI
+    proc = proc or sebulba_cli_start()
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("(S2) the split's CLI did not end in 300 s")
+    p = subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+    if n == 1:
+        want = "sebulba_split=1 must partition torch.cuda.device_count()=1"
+        if p.returncode == 0 or want not in p.stderr:
+            fail(f"(S2) on one card the split should refuse naming the count: rc "
+                 f"{p.returncode}, stderr {p.stderr[-1500:]}")
+    elif p.returncode != 0 or "[sebulba] done" not in p.stdout:
+        fail(f"(S2) on {n} cards the split should run: rc {p.returncode}, "
+             f"{p.stdout[-1000:]} {p.stderr[-1500:]}")
+    last = (p.stderr.strip().splitlines() or [""])[-1]
+    print(f"(S2) {' '.join(cmd[1:])} on {n} card(s): rc {p.returncode}: {last[:200]} [{card}]",
+          flush=True)
+    return dict(cards=n, rc=p.returncode, message=last)
+
+
+def mh_rank_main(argv: list[str]) -> None:
+    """One rank of (M1) (``--mh-rank R --coord HOST:PORT --out DIR``, with
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` set): a multihost
+    ``LearnerService`` at MH_CFG on the card, its host's store fed seeded
+    windows tagged with the host's index in ``obs[..., 0]`` by a thread
+    (a host's rank 0 reads it; the others get their rows from it).
+    Writes DIR/mh<R>.json (updates, B1/B2 launches, the host tags of the
+    rows it trained on, ms per update) and DIR/mh<R>.pt (its params, and a
+    host's rank 0's assembled batches)."""
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, out = int(args["--mh-rank"]), Path(args["--out"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.data.layout import BatchLayout
+    from tpu_rl_torch.data.shm_ring import alloc_handles, make_store
+    from tpu_rl_torch.ops import lstm as L
+    from tpu_rl_torch.parallel.multihost import host_rank
+    from tpu_rl_torch.runtime.learner_service import LearnerService, RankChannel
+    from tpu_rl_torch.runtime.mailbox import STAT_SLOTS
+    from tpu_rl_torch.types import BATCH_FIELDS
+    from tpu_rl_torch.utils.tree import tree_leaves
+
+    host = rank // host_rank()[1]
+    cfg = Config.from_dict(dict(MH_CFG, multihost={
+        "coordinator": args["--coord"], "num_processes": MH_HOSTS, "process_id": host}))
+    layout = BatchLayout.from_config(cfg)
+    handles = alloc_handles(layout, cfg.batch_size)
+    store = make_store(cfg, layout, handles=handles)
+    stop = threading.Event()
+    rng = np.random.default_rng(100 + host)
+
+    def feed():
+        while not stop.is_set():
+            w = {f: rng.standard_normal((layout.seq_len, layout.width(f))).astype(np.float32)
+                 * 0.1 for f in BATCH_FIELDS}
+            w["act"] = rng.integers(0, 2, w["act"].shape).astype(np.float32)
+            w["is_fir"][:] = 0.0
+            w["is_fir"][0] = 1.0
+            w["log_prob"][:] = -0.7
+            w["obs"][:, 0] = float(host)
+            while not stop.is_set() and not store.put(w):
+                time.sleep(0.001)
+
+    assembled, tags, steps = [], set(), []
+    assemble, unpack = LearnerService._assemble_device, RankChannel._unpack
+
+    def assembling(self, raws, dev, stager):
+        assembled.extend({k: np.array(v) for k, v in r.items() if k != "ver"} for r in raws)
+        return assemble(self, raws, dev, stager)
+
+    def unpacking(self, flat):
+        b = unpack(self, flat)
+        tags.update(b.obs[..., 0].unique().tolist())
+        steps.append(time.perf_counter())
+        return b
+
+    LearnerService._assemble_device = assembling
+    RankChannel._unpack = unpacking
+    last = {}
+    publish = LearnerService._publish
+
+    def recording(self, pub, state, ver=-1):
+        last["params"] = torch.cat([t.reshape(-1) for t in tree_leaves(state.params)]).cpu()
+        return publish(self, pub, state, ver)
+
+    LearnerService._publish = recording
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    L.LSTM_FWD_LAUNCHES = L.LSTM_BWD_LAUNCHES = 0
+    svc = LearnerService(cfg, handles, model_port=int(args["--model-port"]),
+                         stat_array=[0.0] * STAT_SLOTS, max_updates=MH_UPDATES,
+                         stop_event=threading.Event())
+    try:
+        svc.run()
+    finally:
+        stop.set()
+        feeder.join(10)
+    params = svc.state.params if getattr(svc, "state", None) is not None else None
+    if params is not None:
+        last["params"] = torch.cat([t.reshape(-1) for t in tree_leaves(params)]).cpu()
+    gaps = np.diff(steps[1:]) if len(steps) > 2 else np.array([float("nan")])
+    res = dict(rank=rank, host=host, world=svc.mesh.world, backend=svc.mesh.backend,
+               device=str(svc.device), updates=svc.n_updates,
+               lstm_fwd_launches=L.LSTM_FWD_LAUNCHES, lstm_bwd_launches=L.LSTM_BWD_LAUNCHES,
+               tags=sorted(tags), rows=len(assembled) and int(assembled[0]["obs"].shape[0]),
+               ms_per_update=float(np.median(gaps)) * 1e3,
+               staged_bytes=svc.mesh.staged_bytes)
+    torch.save({"params": last.get("params"), "assembled": assembled[:MH_UPDATES]},
+               out / f"mh{rank}.pt")
+    (out / f"mh{rank}.json").write_text(json.dumps(res))
+
+
+def multihost_phase(card: str) -> dict:
+    """(M1) the multihost learner on hosts of several ranks: MH_HOSTS hosts
+    of MH_LOCAL ranks each, every rank a process sharing the one card over
+    gloo (``python3 chip_smoke.py --mh-rank R ...``), each host's rank 0
+    sampling only its own storage and scattering the rows over its
+    host-local group. B1/B2 on every rank = updates x K_epoch; every rank
+    trained only on its host's rows; every rank ends on the same params,
+    which equal one card's plain train step on the global batches (each
+    host's batch in host order) at tests/test_parallel.py's bars. Its ms
+    per update is host-staged gloo on one card: no scaling number."""
+    import shutil
+
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.types import Batch
+
+    rdir = ROOT / ".chip_scratch" / "mh-ranks"
+    shutil.rmtree(rdir, ignore_errors=True)
+    rdir.mkdir(parents=True)
+    world = MH_HOSTS * MH_LOCAL
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mh-rank", str(r), "--coord", coord,
+         "--model-port", str(free_port()), "--out", str(rdir)],
+        cwd=ROOT, env=dict(os.environ, LOCAL_RANK=str(r % MH_LOCAL),
+                           LOCAL_WORLD_SIZE=str(MH_LOCAL)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    t0 = time.perf_counter()
+    codes, deadline = [], time.monotonic() + MH_TIMEOUT_S
+    for r, p in enumerate(procs):
+        try:
+            log, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            codes.append(p.returncode)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            log, _ = p.communicate()
+            codes.append(None)
+        if codes[-1] != 0:
+            print("\n".join(f"  mh rank {r}| {ln}" for ln in log.splitlines()[-15:]), flush=True)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    if any(c != 0 for c in codes):
+        fail(f"(M1) the {world} multihost ranks exited {codes}")
+    docs = [json.loads((rdir / f"mh{r}.json").read_text()) for r in range(world)]
+    blobs = [torch.load(rdir / f"mh{r}.pt", weights_only=False) for r in range(world)]
+    want = MH_UPDATES * Config().K_epoch
+    for d in docs:
+        if (d["world"], d["updates"]) != (world, MH_UPDATES):
+            fail(f"(M1) rank {d['rank']}: world {d['world']}, updates {d['updates']}")
+        if (d["lstm_fwd_launches"], d["lstm_bwd_launches"]) != (want, want):
+            fail(f"(M1) rank {d['rank']}: B1/B2 launches {d['lstm_fwd_launches']}/"
+                 f"{d['lstm_bwd_launches']}, want updates x K_epoch = {want}")
+        if d["tags"] != [float(d["host"])]:
+            fail(f"(M1) rank {d['rank']} of host {d['host']} trained on rows of hosts {d['tags']}")
+    if not all(b["params"] is not None and torch.equal(b["params"], blobs[0]["params"])
+               for b in blobs):
+        fail("(M1) the ranks hold different params")
+    leaders = [blobs[h * MH_LOCAL]["assembled"] for h in range(MH_HOSTS)]
+    cfg = Config.from_dict(MH_CFG)
+    _f, state, step = get_algo(cfg.algo).build(cfg, torch.Generator().manual_seed(0),
+                                               device="cuda")
+    for k in range(MH_UPDATES):
+        glob = {f: np.concatenate([h[k][f] for h in leaders]) for f in leaders[0][k]}
+        state, _m = step(state, Batch.from_mapping(glob, device="cuda"))
+    from tpu_rl_torch.utils.tree import tree_leaves
+
+    mine = torch.cat([t.reshape(-1) for t in tree_leaves(state.params)])
+    share = close_to(blobs[0]["params"].cuda(), mine, DP_PARAM_TOL)
+    if not share <= 1.0:
+        fail(f"(M1) the pod vs one card's steps on the global batches: {share} of the bar")
+    rec = dict(hosts=MH_HOSTS, local_ranks=MH_LOCAL, updates=MH_UPDATES, ranks=docs,
+               vs_one_card_share_of_bar=share, wall_s=wall,
+               ms_per_update=max(d["ms_per_update"] for d in docs))
+    for d in docs:
+        print(f"(M1) rank {d['rank']}/{world} (host {d['host']}, {d['backend']} on "
+              f"{d['device']}): {d['updates']} updates, B1/B2 launches {d['lstm_fwd_launches']}/"
+              f"{d['lstm_bwd_launches']} (= updates x K_epoch), rows from hosts {d['tags']}, "
+              f"{d['ms_per_update']:.4f} ms/update, host-staged {d['staged_bytes']} bytes "
+              f"[{card}]", flush=True)
+    print(f"(M1) {MH_HOSTS} hosts x {MH_LOCAL} ranks on one card over gloo vs one card's plain "
+          f"steps on the global batches: {share:.4f} of tests/test_parallel.py's params bar; "
+          f"{wall:.1f} s from spawn (no scaling number) [{card}]", flush=True)
+    return rec
+
+
+def population_main(argv: list[str]) -> None:
+    """The (PBT) controller process (``--population CFG.json --out
+    FILE``): ``PopulationController`` with member 0 poisoned
+    (lr PBT_POISON_LR). It opens no CUDA context; its members do."""
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.population.controller import PopulationController
+
+    args = dict(zip(argv[0::2], argv[1::2]))
+    cfg = Config.from_json(args["--population"])
+    ctrl = PopulationController(cfg, max_updates=PBT_UPDATES,
+                                initial_values={0: {"lr": PBT_POISON_LR}})
+    # every member incarnation's newest counters, keyed by its pid (a
+    # respawned member's telemetry.json is rewritten by its next process)
+    incarnations: dict = {}
+    scrape = ctrl._scrape
+
+    def watching(m):
+        scrape(m)
+        for src in telemetry_sources(Path(m.dir)):
+            ran = metric(src, "colocated-updates-run")
+            if ran is not None:
+                fwd = metric(src, "colocated-lstm-fwd-launches")
+                bwd = metric(src, "colocated-lstm-bwd-launches")
+                incarnations[f"{m.idx}:{src['pid']}"] = dict(
+                    member=m.idx, pid=src["pid"], updates_run=int(ran),
+                    lstm_fwd_launches=-1 if fwd is None else int(fwd),
+                    lstm_bwd_launches=-1 if bwd is None else int(bwd))
+
+    ctrl._scrape = watching
+    doc = ctrl.run()
+    doc["incarnations"] = list(incarnations.values())
+    doc["cuda_initialized"] = torch.cuda.is_initialized()
+    Path(args["--out"]).write_text(json.dumps(doc))
+    raise SystemExit(0 if doc["ok"] else 1)
+
+
+def population_phase(card: str) -> dict:
+    """(PBT) a population of PBT_K colocated PPO members on the card at
+    the default config, member 0 poisoned: its controller a process of its
+    own (``python3 chip_smoke.py --population ...``) holding no CUDA
+    context, each member one (nvidia-smi's count: this process and the
+    members; /proc fds: the card's node in each member, none in the
+    controller); at least one exploit, whose loser resumes the copied
+    committed checkpoint at a bumped run epoch; B1/B2 in each member
+    process = its updates run x K_epoch, read from its telemetry by the
+    controller at every scrape (every incarnation of a member)."""
+    import tempfile
+
+    from tpu_rl_torch.config import Config
+
+    rdir = Path(tempfile.mkdtemp(prefix="chip_smoke_pbt_"))
+    cfg = Config(**dict(
+        TRAIN_CFG, result_dir=str(rdir), model_save_interval=PBT_INTERVAL // 4,
+        loss_log_interval=10, telemetry_interval_s=0.25, supervise_poll_s=0.25,
+        pop_spec=f"lr:log[1e-4,1e-3] interval={PBT_INTERVAL}u k={PBT_K} quantile=0.5",
+        pop_seed=3))
+    cfg_path = rdir / "population-config.json"
+    cfg.to_json(cfg_path)
+    out_path = rdir / "population-doc.json"
+    t0 = time.perf_counter()
+    ctl = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--population", str(cfg_path),
+         "--out", str(out_path)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    contexts = None
+    log_lines: list[str] = []
+    reader = threading.Thread(target=lambda: log_lines.extend(ctl.stdout), daemon=True)
+    reader.start()
+    deadline = time.monotonic() + PBT_TIMEOUT_S
+    while ctl.poll() is None and time.monotonic() < deadline:
+        # a process opens the card's node before its context shows in
+        # nvidia-smi: keep the sample with the most contexts while every
+        # member holds the node
+        members = []
+        for p in children_of(ctl.pid):
+            try:
+                if "spawn_main" in Path(f"/proc/{p}/cmdline").read_text(errors="ignore"):
+                    members.append(p)
+            except OSError:
+                pass
+        if len(members) == PBT_K and all(card_fds(p) for p in members):
+            pids = cuda_pids()
+            if contexts is None or len(pids or ()) > len(contexts["pids"] or ()):
+                contexts = dict(pids=pids, controller_fds=card_fds(ctl.pid),
+                                member_fds={p: card_fds(p) for p in members})
+        time.sleep(0.5)
+    if ctl.poll() is None:
+        for p in [ctl.pid, *subtree(ctl.pid)]:  # the controller and its members
+            try:
+                os.kill(p, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        ctl.wait()
+        fail(f"(PBT) the population did not finish in {PBT_TIMEOUT_S} s: {log_lines[-20:]}")
+    reader.join(10)
+    wall = time.perf_counter() - t0
+    if ctl.returncode != 0 or not out_path.exists():
+        fail(f"(PBT) the controller exited {ctl.returncode}: {''.join(log_lines[-20:])}")
+    doc = json.loads(out_path.read_text())
+    if contexts is None:
+        fail("(PBT) never saw every member holding the card at once")
+    if doc["cuda_initialized"] or contexts["controller_fds"]:
+        fail(f"(PBT) the controller holds a CUDA context: {contexts}")
+    if contexts["pids"] is None or len(contexts["pids"]) != 1 + PBT_K:
+        fail(f"(PBT) nvidia-smi counts {contexts['pids']} contexts, want this process and "
+             f"{PBT_K} members")
+    if doc["counts"]["exploits"] < 1:
+        fail(f"(PBT) no exploit: {doc['counts']}")
+    events = [json.loads(x) for x in (rdir / "population.jsonl").read_text().splitlines()]
+    exploits = [e for e in events if e["ev"] == "exploit"]
+    e0 = exploits[-1]  # a member's last exploit is the one its process resumes
+    resumes = [json.loads(x) for x in (rdir / f"member-{e0['loser']}" / "learner_resume.jsonl")
+               .read_text().splitlines()]
+    if not any(r["idx"] == e0["dst_idx"] and r["epoch"] == e0["epoch"] + 1 for r in resumes):
+        fail(f"(PBT) the loser never resumed the copied checkpoint: {e0} {resumes}")
+    # each member process counts its own launches: every incarnation the
+    # controller scraped, and their sums a member
+    k_epoch = cfg.K_epoch
+    for inc in doc["incarnations"]:
+        want = inc["updates_run"] * k_epoch
+        if (inc["lstm_fwd_launches"], inc["lstm_bwd_launches"]) != (want, want):
+            fail(f"(PBT) member {inc['member']} (pid {inc['pid']}): B1/B2 launches "
+                 f"{inc['lstm_fwd_launches']}/{inc['lstm_bwd_launches']}, want updates run x "
+                 f"K_epoch = {want}")
+    members = {k: dict(incarnations=[i for i in doc["incarnations"] if i["member"] == k])
+               for k in range(PBT_K)}
+    for m in members.values():
+        for key in ("updates_run", "lstm_fwd_launches", "lstm_bwd_launches"):
+            m[key] = sum(i[key] for i in m["incarnations"])
+    if not all(m["updates_run"] > 0 for m in members.values()):
+        fail(f"(PBT) a member's telemetry shows no update: {members}")
+    rec = dict(k=PBT_K, updates=PBT_UPDATES, wall_s=wall, counts=doc["counts"],
+               exploits=exploits, members=members, contexts=contexts,
+               leaderboard=doc["leaderboard"])
+    print(f"(PBT) {PBT_K} colocated PPO members, 128 envs H 64, {PBT_UPDATES} updates each, "
+          f"member 0 at lr {PBT_POISON_LR}: {wall:.1f} s from the controller's spawn; counts "
+          f"{doc['counts']}; last exploit {e0['winner']} -> {e0['loser']} at generation "
+          f"{e0['gen']} (committed idx {e0['src_idx']} copied as {e0['dst_idx']}, resumed at "
+          f"epoch {e0['epoch'] + 1}); B1/B2 per member, summed over its processes, = updates "
+          f"run x K_epoch: {members}; contexts {contexts} [{card}]", flush=True)
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs one CUDA card")
@@ -4699,6 +5346,7 @@ def main() -> None:
         fail(f"tpu_rl_torch was imported from {tpu_rl_torch.__file__}, not from {ROOT}")
     if any(m.split(".")[0] in ("jax", "flax", "tpu_rl") for m in sys.modules):
         fail("JAX or the JAX package was imported")
+    adopt_orphans()
     t_start = time.perf_counter()
 
     card = card_line()
@@ -4813,6 +5461,19 @@ def main() -> None:
     lap("dp")
     sp = sp_phase(card, dp, attn_rows, blockwise_rows)
     lap("sp")
+    sebulba = sebulba_phase(card)
+    lap("sebulba")
+    cli = sebulba_cli_start()
+    multihost = multihost_phase(card)
+    sebulba_cli = sebulba_cli_phase(card, cli)
+    lap("multihost and sebulba_cli")
+    population = population_phase(card)
+    lap("population")
+    # every process the run started has ended by now; any that has not is
+    # stopped here and named
+    leftovers = stop_leftovers()
+    print(f"leftover processes stopped at the end of the run: {len(leftovers)} {leftovers}",
+          flush=True)
 
     main_path = [r for r in shapes if r["shape"]["H"] == 256 and r["shape"]["D"] == 4]
     top = next(r for r in main_path if r["shape"]["rows"] == 256)
@@ -4930,6 +5591,15 @@ def main() -> None:
                    for d in dp["two_ranks"]["ranks"]},
                 **{f"cluster (c) DP learner rank {r}/{DP_RANKS}": int(x[0 if name == "lstm_fwd" else 1])
                    for r, x in enumerate(dp["cluster"]["launches_by_rank"])},
+                # the training topology: the Sebulba learner lane, every rank
+                # of the multihost learner, every population member's last
+                # incarnation (each counted in its own process)
+                "sebulba learner lane PPO": sebulba[f"{name}_launches"],
+                **{f"multihost learner rank {d['rank']}/{MH_HOSTS * MH_LOCAL} (host {d['host']})":
+                   d[f"{name}_launches"] for d in multihost["ranks"]},
+                **{f"population member {k} ({m['updates_run']} updates run over "
+                   f"{len(m['incarnations'])} processes)": m[f"{name}_launches"]
+                   for k, m in population["members"].items()},
             },
             # the inline trainer's shape (32,5,64), lstm_phase's row
             inline_ms=inline["kernel_ms"][name],
@@ -4999,7 +5669,9 @@ def main() -> None:
         "transformer_serving": tf_serving,
         "telemetry": telemetry, "inline": inline, "feeds": feeds,
         "report_compare": reports, "cluster": cluster, "fleet": fleet, "data_parallel": dp,
-        "sequence_parallel": sp}, default=str), flush=True)
+        "sequence_parallel": sp, "sebulba": sebulba, "sebulba_cli": sebulba_cli,
+        "multihost": multihost, "population": population,
+        "leftover_processes": leftovers}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -5016,5 +5688,14 @@ def main() -> None:
 if __name__ == "__main__":
     if "--rank" in sys.argv:
         rank_main(sys.argv[1:])
+    elif "--mh-rank" in sys.argv:
+        mh_rank_main(sys.argv[1:])
+    elif "--population" in sys.argv:
+        population_main(sys.argv[1:])
     else:
-        main()
+        try:
+            main()
+        except BaseException:
+            if ADOPTING:
+                stop_leftovers()
+            raise

@@ -109,3 +109,63 @@ def test_zero_window_carry_warns_like_tpu_rl(algo, warns):
     assert bool(msgs[1]) == warns
     if warns:
         assert msgs[1][0].startswith(f"zero_window_carry=True with {algo}: GAE-based")
+
+
+# ROADMAP C 13: the keys of the planes the training-topology slice brings
+# (tpu_rl/config.py:729-741, 847-865), which the port used to load into
+# ``extra`` unchecked; tpu_rl's refusal of each, and the port's
+C13 = [
+    ({"sebulba_queue": 0}, AssertionError),
+    ({"pop_seed": -1}, AssertionError),
+    ({"pop_spec": "lr:log[1e-2,1e-4]"}, ValueError),
+    ({"pop_spec": "env:choice[a,b]"}, ValueError),
+    ({"autopilot_spec": "x"}, ValueError),
+]
+
+
+@pytest.mark.parametrize("raw,err", C13, ids=["sebulba_queue0", "pop_seed-1", "pop-lo-hi",
+                                               "pop-choice-str", "autopilot-x"])
+def test_c13_refusals_match(raw, err):
+    with pytest.raises(err):
+        JaxConfig.from_dict(raw)
+    with pytest.raises(err):
+        Config.from_dict(raw)
+
+
+@pytest.mark.parametrize("key", ["autopilot_spec", "autopilot_poll_s", "autopilot_drain_s"])
+def test_autopilot_keys_refused_where_tpu_rl_refuses(key):
+    """The autopilot's keys stay in ``extra`` until its slice: every
+    candidate ``tpu_rl`` refuses, the port refuses (its knobs with the same
+    exception type; a spec string with a ValueError, as tpu_rl's parse
+    error); a set spec is refused whatever it says, naming the slice that
+    brings it; the defaults load."""
+    from tpu_rl_torch.config import NotPortedError
+
+    for value in CANDIDATES:
+        want = _refusal(JaxConfig, {key: value})
+        if want is None:
+            continue
+        got = _refusal(Config, {key: value})
+        assert got is not None, (key, value, want)
+        if key != "autopilot_spec" or isinstance(value, str):
+            assert issubclass(got, want), (key, value, want, got)
+    default = getattr(JaxConfig(), key)
+    assert Config.from_dict({key: default}).extra == {key: default}
+    if key == "autopilot_spec":
+        spec = "scale_out:replicas?burn:inference-rtt>0.5@sustain=3@max=4"
+        JaxConfig.from_dict({key: spec})
+        with pytest.raises(NotPortedError, match="serving and operations slice"):
+            Config.from_dict({key: spec})
+
+
+def test_slice_fields_round_trip_through_to_json(tmp_path):
+    """The population controller rewrites a member's config.json: the
+    port's Config writes what it loads, the ``extra`` keys included."""
+    raw = {"env_mode": "colocated", "sebulba_split": 1, "sebulba_queue": 3,
+           "pop_spec": "lr:log[1e-4,1e-3] k=2", "pop_seed": 7, "chaos_seed": 5,
+           "value_target_clip": [0.0, 1.0]}
+    cfg = Config.from_dict(raw)
+    cfg.to_json(tmp_path / "c.json")
+    back = Config.from_json(tmp_path / "c.json")
+    assert back == cfg and back.extra == {"chaos_seed": 5}
+    assert JaxConfig.from_json(tmp_path / "c.json").pop_seed == 7

@@ -78,6 +78,8 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         *(f"tpu_rl_torch.fleet.{m}" for m in ("client", "membership", "replica")),
         "tpu_rl_torch.fleet", "tpu_rl_torch.loadgen", "tpu_rl_torch.loadgen.driver",
         "tpu_rl_torch.examples.loadgen_smoke",
+        "tpu_rl_torch.runtime.sebulba", "tpu_rl_torch.launch", "tpu_rl_torch.population",
+        *(f"tpu_rl_torch.population.{m}" for m in ("spec", "member", "controller")),
     ):
         assert name in doc["imported"], name
 
@@ -107,13 +109,13 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 def test_config_keeps_unknown_keys_and_refuses_later_slices():
     cfg = Config.from_dict(
         {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4,
-         "worker_step_sleep": 0.05, "mesh_seq": 1, "sebulba_queue": 2}
+         "worker_step_sleep": 0.05, "mesh_seq": 1, "sebulba_queue": 2, "chaos_seed": 3}
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
     # the distributed runtime's keys are fields since its slice, the mesh
-    # keys since the multi-GPU slice
-    assert cfg.worker_step_sleep == 0.05 and cfg.mesh_seq == 1
-    assert cfg.extra == {"chaos_spec": None, "sebulba_queue": 2}
+    # keys since the multi-GPU slice, the split's since the topology slice
+    assert cfg.worker_step_sleep == 0.05 and cfg.mesh_seq == 1 and cfg.sebulba_queue == 2
+    assert cfg.extra == {"chaos_spec": None, "chaos_seed": 3}
     # bf16/int8 serving and the checkpoint directory load now
     for mode in ("bf16", "int8"):
         assert Config.from_dict({"inference_dtype": mode}).inference_dtype == mode
@@ -144,17 +146,17 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("sebulba_split", 1, "sebulba slice \\(A 8c\\)"),
-    ("chaos_spec", "nan:rollout@p=0.4", "fleet and operations slice"),
+    ("autopilot_spec", "scale_out:replicas?burn:x>0.5", "serving and operations slice"),
+    ("chaos_spec", "nan:rollout@p=0.4", "serving and operations slice"),
 ])
 def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
-    """A key that makes tpu_rl split one process's devices or arm chaos is
-    refused away from its default, naming the slice that brings it; at its
-    default (or absent) it loads."""
+    """A key that makes tpu_rl run its autopilot or arm chaos is refused
+    away from its default, naming the slice that brings it; at its default
+    (or absent) it loads. (The split, refused here until it was ported,
+    is a field now: tests/test_torch_sebulba.py.)"""
     with pytest.raises(NotImplementedError, match=slice_name):
         Config.from_dict({key: value})
-    default = {"chaos_spec": None, "sebulba_split": 0}[key]
-    assert Config.from_dict({key: default}).extra == {key: default}
+    assert Config.from_dict({key: None}).extra == {key: None}
 
 
 @pytest.mark.parametrize("key,value", [("inference_replicas", 3), ("inference_mesh_data", 2)])

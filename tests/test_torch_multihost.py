@@ -30,6 +30,7 @@ from tpu_rl_torch.algos.registry import get_algo
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.parallel.sequence import full_attention
 from tpu_rl_torch.types import Batch
+from tpu_rl_torch.utils.tree import tree_leaves
 
 RAW = dict(algo="IMPALA", hidden_size=16, seq_len=5, batch_size=8, buffer_size=32,
            obs_shape=(4,), action_space=2, K_epoch=1)
@@ -104,8 +105,11 @@ def test_colocated_pod_matches_single_host(tmp_path, local_ranks):
 
 def test_multihost_takes_tpu_rl_keys_and_a_rank_per_card(monkeypatch):
     """``multihost`` takes tpu_rl's three keys; a host's ranks are its
-    cards (one on the CPU), which the colocated pod spawns and the
-    multihost learner, one rank a host until slice A 8c, refuses."""
+    cards (one on the CPU), which the colocated pod and the multihost
+    learner both spawn: the learner role's child is a group of one rank per
+    card whose ranks join the pod themselves (no file rendezvous), and a
+    host's batch must split over its ranks."""
+    from tpu_rl_torch.runtime import runner
     from tpu_rl_torch.runtime.learner_service import LearnerService
     from tpu_rl_torch.runtime.runner import _host_ranks, learner_role
 
@@ -117,10 +121,22 @@ def test_multihost_takes_tpu_rl_keys_and_a_rank_per_card(monkeypatch):
     assert _host_ranks(colocated) == 4
     assert _host_ranks(colocated.replace(learner_device="cpu")) == 1
     learner = Config.from_dict(dict(RAW, multihost=host))
-    with pytest.raises(NotImplementedError, match="A 8c"):
-        learner_role(learner, _machines(free_block(6)))
-    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A 8c"):
+    spawned = {}
+
+    def spawn(self, name, target, *args, **kw):
+        spawned[name] = kw
+
+    monkeypatch.setattr(runner.Supervisor, "spawn", spawn)
+    monkeypatch.setattr(runner, "alloc_handles", lambda *a, **k: None)
+    learner_role(learner, _machines(free_block(6)))
+    assert spawned["learner"]["world"] == 4 and spawned["learner"]["rank_init"] is False
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "3")
+    monkeypatch.setattr("tpu_rl_torch.parallel.multihost.init_multihost", lambda *a, **k: None)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 6)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+    monkeypatch.setattr("tpu_rl_torch.parallel.mesh._build", lambda shape, dev: None)
+    with pytest.raises(ValueError, match="not divisible by the host's 3 ranks"):
         LearnerService(learner.replace(learner_device="cpu"), None, 0).run()
 
 
@@ -144,6 +160,28 @@ def test_multihost_learner_rollback_reaches_every_rank(tmp_path):
     for r in runs:
         assert (r["world"], r["updates"], r["rollbacks"], r["epoch"], r["ver"]) == (2, 11, 1, 1, 8)
     torch.testing.assert_close(runs[1]["params"], runs[0]["params"], rtol=0, atol=0)
+
+
+@pytest.mark.timeout(300)
+def test_multihost_learner_rollback_reaches_every_rank_of_every_host(tmp_path):
+    """As above on two hosts of two ranks each: world rank 0's rollback
+    reaches the other host's rank 0 through the verdict's broadcast and
+    every host's follower through its host's channel, so all four ranks
+    run the same 11 updates and end with equal params."""
+    port = free_port()
+    raw = dict(RAW, env="CartPole-v1", algo="PPO", obs_shape=(4,), learner_device="cpu",
+               model_dir=str(tmp_path / "models"), model_save_interval=2, ckpt_keep=2,
+               watchdog_enabled=True, loss_log_interval=1,
+               multihost={"coordinator": f"127.0.0.1:{port}", "num_processes": 2,
+                          "process_id": 0})
+    res = run_ranks([dict(kind="learner", raw=raw, updates=8, trip_at=5,
+                          model_ports=[free_port() for _ in range(4)])], 4, str(tmp_path),
+                    coordinator=f"127.0.0.1:{port}", pod=True, local_ranks=2)
+    runs = [r[0] for r in res]
+    for r in runs:
+        assert (r["world"], r["updates"], r["rollbacks"], r["epoch"]) == (4, 11, 1, 1)
+        torch.testing.assert_close(r["params"], runs[0]["params"], rtol=0, atol=0)
+    assert runs[0]["ver"] == runs[2]["ver"] == 8
 
 
 @pytest.mark.timeout(300)
@@ -185,3 +223,37 @@ def test_learner_dp_cluster_exits_at_max_updates(tmp_path):
         assert counters["learner-scattered-bytes"] > 0
     finally:
         sup.stop()
+
+
+@pytest.mark.timeout(300)
+def test_multihost_learner_hosts_of_two_ranks_match_one_rank(tmp_path):
+    """Two hosts of two ranks each (gloo subprocesses, one store a host):
+    each host's rank 0 samples only its own storage (every row a rank
+    trains on carries its host's tag) and scatters the rows over the
+    host-local group; all four ranks end on the same params, which equal
+    the one-rank learner's steps on the global batches (each host's batch
+    in host order) at the data-parallel bars (params rtol 1e-4, atol
+    1e-5)."""
+    port = free_port()
+    raw = dict(RAW, env="CartPole-v1", algo="PPO", obs_shape=(4,), learner_device="cpu",
+               loss_log_interval=2,
+               multihost={"coordinator": f"127.0.0.1:{port}", "num_processes": 2,
+                          "process_id": 0})
+    res = run_ranks([dict(kind="learner", raw=raw, updates=UPDATES, trip_at=None, record=True,
+                          model_ports=[free_port() for _ in range(4)])], 4, str(tmp_path),
+                    coordinator=f"127.0.0.1:{port}", pod=True, local_ranks=2)
+    runs = [r[0] for r in res]
+    for rank, r in enumerate(runs):
+        assert (r["world"], r["updates"]) == (4, UPDATES)
+        assert r["tags"] == [float(rank // 2)], (rank, r["tags"])
+        torch.testing.assert_close(r["params"], runs[0]["params"], rtol=0, atol=0)
+    assert runs[1]["assembled"] == runs[3]["assembled"] == []
+    cfg = Config.from_dict(dict(raw, multihost=None))
+    _f, state, step = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for k in range(UPDATES):
+        host_batches = [runs[0]["assembled"][k], runs[2]["assembled"][k]]
+        glob = {f: np.concatenate([b[f] for b in host_batches]) for f in host_batches[0]
+                if f != "ver"}
+        state, _m = step(state, Batch.from_mapping(glob, device="cpu"))
+    want = torch.cat([t.reshape(-1) for t in tree_leaves(state.params)])
+    np.testing.assert_allclose(runs[0]["params"].numpy(), want.numpy(), rtol=1e-4, atol=1e-5)

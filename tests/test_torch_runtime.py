@@ -324,11 +324,19 @@ def test_cli_local_role(tmp_path):
 
 
 def test_later_roles_are_refused():
+    """The autopilot role waits for its slice; the population role, ported
+    with the training-topology slice, builds its controller (and, as
+    tpu_rl's, asserts a pop_spec)."""
+    from tpu_rl_torch.population import PopulationController
     from tpu_rl_torch.runtime.runner import autopilot_role, population_role
 
-    for role in (population_role, autopilot_role):
-        with pytest.raises(NotImplementedError, match="A 9"):
-            role(Config())
+    with pytest.raises(NotImplementedError, match="A 9"):
+        autopilot_role(Config())
+    with pytest.raises(AssertionError, match="pop_spec"):
+        population_role(Config())
+    ctrl = population_role(Config.from_dict({"env_mode": "colocated", "result_dir": "unused",
+                                             "pop_spec": "lr:log[1e-4,1e-3] k=2"}))
+    assert isinstance(ctrl, PopulationController) and len(ctrl.members) == 2
 
 
 @pytest.mark.timeout(300)

@@ -23,8 +23,16 @@ Jobs (dicts, ``kind`` first):
   flat params, episode count and mesh.
 - ``learner``: a multihost ``LearnerService`` on ``raw`` for ``updates``
   updates, its store fed seeded random windows by a thread, its watchdog
-  made to trip at check ``trip_at`` (world rank 0's); its flat params,
-  updates run, rollbacks and run epoch.
+  made to trip at check ``trip_at`` (world rank 0's; None: never); its flat
+  params, updates run, rollbacks and run epoch. With ``record``: every
+  host's windows carry the host's index in ``obs[..., 0]``, and each rank
+  returns the raw batches it assembled from its store (a host's rank 0
+  only) and the host tags of the rows it trained on.
+
+- ``sebulba``: a ``SebulbaLoop`` on ``raw`` over the test seam's
+  ``devices``, whose learner group is the ranks: rank 0 runs both lanes
+  for ``updates`` updates and returns the batches its learner lane
+  consumed, every other rank follows; each rank's flat params.
 
 A rendezvous of the form ``tcp://host:port`` joins through
 ``init_multihost`` (one process per host) instead of a ``file://`` store;
@@ -189,6 +197,26 @@ def _learner(job):
     W.DivergenceWatchdog.observe = tripping
     cfg = Config.from_dict(_pod_raw(job["raw"]))
     rank = int(os.environ["RANK"])
+    from tpu_rl_torch.parallel.multihost import host_rank
+    from tpu_rl_torch.runtime.learner_service import RankChannel
+
+    host = rank // host_rank()[1]
+    record = job.get("record", False)
+    assembled, tags = [], set()
+    if record:
+        assemble, unpack = LearnerService._assemble_device, RankChannel._unpack
+
+        def assembling(self, raws, dev, stager):
+            assembled.extend({k: np.array(v) for k, v in r.items()} for r in raws)
+            return assemble(self, raws, dev, stager)
+
+        def unpacking(self, flat):
+            b = unpack(self, flat)
+            tags.update(b.obs[..., 0].unique().tolist())
+            return b
+
+        LearnerService._assemble_device = assembling
+        RankChannel._unpack = unpacking
     layout = BatchLayout.from_config(cfg)
     handles = alloc_handles(layout, cfg.batch_size)
     store = make_store(cfg, layout, handles=handles)
@@ -203,6 +231,8 @@ def _learner(job):
             w["is_fir"][:] = 0.0
             w["is_fir"][0] = 1.0
             w["log_prob"][:] = -0.7
+            if record:
+                w["obs"][:, 0] = float(host)
             while not stop.is_set() and not store.put(w):
                 time.sleep(0.001)
 
@@ -225,8 +255,28 @@ def _learner(job):
     finally:
         stop.set()
         feeder.join(10)
-    return {"updates": svc.n_updates, "rollbacks": svc.n_rollbacks, "epoch": svc.run_epoch,
-            "world": svc.mesh.world, **last}
+    out = {"updates": svc.n_updates, "rollbacks": svc.n_rollbacks, "epoch": svc.run_epoch,
+           "world": svc.mesh.world, **last}
+    if getattr(svc, "state", None) is not None:  # a follower rank's final state
+        out["params"] = torch.cat([t.reshape(-1) for t in tree_leaves(svc.state.params)])
+    if record:
+        out.update(assembled=assembled, tags=sorted(tags))
+    return out
+
+
+def _sebulba(job):
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.runtime.sebulba import SebulbaLoop
+
+    loop = SebulbaLoop(Config.from_dict(job["raw"]), seed=0, max_updates=job["updates"],
+                       device="cpu", devices=job["devices"], record_batches=True)
+    out = {"world": loop.mesh.world}
+    if loop.mesh.rank == 0:
+        out.update(run=loop.run(log=False), consumed=loop.consumed)
+    else:
+        out["updates"] = loop.follow()
+    out["params"] = torch.cat([t.reshape(-1) for t in loop.state.params["actor"].values()])
+    return out
 
 
 def main(argv: list[str]) -> None:
@@ -261,6 +311,8 @@ def main(argv: list[str]) -> None:
             results.append(_colocated(job))
         elif kind == "learner":
             results.append(_learner(job))
+        elif kind == "sebulba":
+            results.append(_sebulba(job))
         else:
             raise ValueError(kind)
     torch.save(results, f"{out}.{rank}")

@@ -7,12 +7,16 @@ Examples:
     python -m tpu_rl_torch learner --params params.json --machines machines.json
     python -m tpu_rl_torch manager --machines machines.json --machine-idx 0
     python -m tpu_rl_torch worker  --machines machines.json --machine-idx 0
+    python -m tpu_rl_torch local --env-mode colocated --sebulba-split 1
+    python -m tpu_rl_torch population --env-mode colocated \
+        --pop-spec 'lr:log[1e-4,1e-3] interval=50u k=2' --max-updates 200
 
 The learner trains on the card (``learner_device="auto"``, the default) and
 refuses to run without one; a params file with ``"learner_device": "cpu"``
 runs it on the plain path on the CPU. There is no device flag, as in
-``tpu_rl``. The population and autopilot roles, and the flags of the
-multi-GPU, fleet and chaos planes, come with later slices of the port.
+``tpu_rl``. The population role runs the PBT controller in this process
+(its members are its children); the autopilot role and the chaos flags
+come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ from tpu_rl_torch.config import Config, MachinesConfig, default_result_dirs
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tpu_rl_torch")
-    p.add_argument("role", choices=["local", "learner", "manager", "worker"],
-                   help="which role this host runs")
+    p.add_argument("role", choices=["local", "learner", "manager", "worker", "population"],
+                   help="which role this host runs ('population' = the PBT controller "
+                   "orchestrating K member runs; see tpu_rl_torch.population)")
     p.add_argument("--params", help="parameters.json-shaped config file")
     p.add_argument("--machines", help="machines.json-shaped topology file")
     p.add_argument("--machine-idx", type=int, default=0,
@@ -39,6 +44,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "process on the device (device envs only; see tpu_rl_torch/envs)")
     p.add_argument("--colocated-envs", type=int, default=None,
                    help="env-batch size for colocated mode (0/unset = batch_size)")
+    p.add_argument("--sebulba-split", type=int, default=None,
+                   help="colocated mode: this many of the host's cards act, the rest "
+                   "train, fed through a bounded queue of batches on the card "
+                   "(Podracer's Sebulba); 0/unset = the colocated loop")
+    p.add_argument("--sebulba-queue", type=int, default=None,
+                   help="batch slots between the sebulba groups (2 = double buffering)")
     p.add_argument("--act-mode", choices=["local", "remote"], default=None,
                    help="'remote' routes worker acting through the learner's "
                    "inference service or fleet; 'local' acts on worker host cores")
@@ -100,6 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="declarative SLO rules (see tpu_rl_torch.obs.slo)")
     p.add_argument("--slo-fail-run", action="store_true",
                    help="exit nonzero (storage child) on a failing final SLO verdict")
+    p.add_argument("--pop-spec", default=None,
+                   help="PBT search space and schedule of the population role, e.g. "
+                   "'lr:log[1e-4,1e-2] entropy_coef:lin[0,0.05] perturb=1.2,0.8 "
+                   "interval=200u k=4' (see tpu_rl_torch.population.spec)")
+    p.add_argument("--pop-seed", type=int, default=None,
+                   help="seed of the population's sampling, mutation and selection")
     p.add_argument("--heartbeat-timeout", type=float, default=None)
     p.add_argument("--startup-grace", type=float, default=None)
     p.add_argument("--supervise-poll", type=float, default=None)
@@ -109,7 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 _OVERRIDES = (
     ("env", "env"), ("algo", "algo"), ("env_mode", "env_mode"),
-    ("colocated_envs", "colocated_envs"), ("act_mode", "act_mode"),
+    ("colocated_envs", "colocated_envs"), ("sebulba_split", "sebulba_split"),
+    ("sebulba_queue", "sebulba_queue"), ("pop_spec", "pop_spec"), ("pop_seed", "pop_seed"),
+    ("act_mode", "act_mode"),
     ("inference_replicas", "inference_replicas"), ("inference_hedge_ms", "inference_hedge_ms"),
     ("inference_mesh_data", "inference_mesh_data"),
     ("inference_base_port", "inference_base_port"), ("inference_dtype", "inference_dtype"),
@@ -170,6 +189,13 @@ def main(argv: list[str] | None = None) -> int:
 
     from tpu_rl_torch.runtime import runner
 
+    if args.role == "population":
+        # The controller is the orchestrator: it runs in this process and
+        # drives its own supervisor (the members are its children).
+        ctrl = runner.population_role(cfg, machines, max_updates=args.max_updates)
+        ctrl.install_signal_handlers()
+        doc = ctrl.run()
+        return 0 if doc.get("ok") else 1
     if cfg.env_mode == "colocated" and args.role in ("manager", "worker"):
         print(
             f"colocated mode has no {args.role} role: the envs live inside "

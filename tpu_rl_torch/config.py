@@ -6,11 +6,13 @@ distributed-runtime slices read, with ``tpu_rl``'s names, defaults and
 asserts, so an existing params file loads unchanged. Keys the port does not
 know yet are kept in ``extra``: a full ``tpu_rl`` params file still loads.
 Those of them that would make ``tpu_rl`` do something the port does not do
-yet (split one process's devices, arm chaos) are refused at a value other
-than their default (:data:`LATER_SLICES`), so that a run never silently
-does less than asked. The multi-GPU keys (``mesh_data``, ``mesh_seq``,
-``multihost``) and the inference fleet's (``inference_replicas``,
-``inference_mesh_data``) are fields, with ``tpu_rl``'s asserts.
+yet (arm chaos, run the autopilot) are refused at a value other than
+their default (:data:`LATER_SLICES`, :class:`NotPortedError`), so that a
+run never silently does less than asked. The multi-GPU keys
+(``mesh_data``, ``mesh_seq``, ``multihost``, ``sebulba_split``,
+``sebulba_queue``), the inference fleet's (``inference_replicas``,
+``inference_mesh_data``) and the population's (``pop_spec``, ``pop_seed``)
+are fields, with ``tpu_rl``'s asserts.
 
 One deliberate divergence (ROADMAP C 7): ``learner_device="auto"`` means
 the card, and a learner without one raises; ``tpu_rl`` probes its
@@ -48,9 +50,17 @@ def is_off_policy(algo: str) -> bool:
 # away from their default: (key, is it set?, the slice of the port that
 # brings it). Defaults as in tpu_rl.config.Config.
 LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
-    ("sebulba_split", lambda v: v != 0, "sebulba slice (A 8c)"),
-    ("chaos_spec", lambda v: v is not None, "fleet and operations slice"),
+    ("chaos_spec", lambda v: v is not None, "serving and operations slice (A 9: chaos)"),
+    ("autopilot_spec", lambda v: v is not None,
+     "serving and operations slice (A 9: autopilot)"),
 )
+
+
+class NotPortedError(NotImplementedError, ValueError):
+    """A key of a plane the port does not run yet, set away from its
+    default. Also a ``ValueError``: the type ``tpu_rl`` raises for a spec
+    string it cannot parse, so a params file that ``tpu_rl`` refuses is
+    refused here with a type its callers already catch."""
 
 
 @dataclass
@@ -213,6 +223,14 @@ class Config:
     # Env batch of the colocated loop; 0 = batch_size (the env batch IS the
     # train batch).
     colocated_envs: int = 0
+    # Sebulba split (runtime/sebulba.py): this many of the host's cards act,
+    # the rest train, fed through a bounded queue of batches on the card
+    # (0 = off: the colocated loop). Needs env_mode="colocated"; the split
+    # must leave both groups non-empty (checked where the cards are counted).
+    sebulba_split: int = 0
+    # Batch slots between the two groups (2 = double buffering): bounds the
+    # learner's staging memory and the policy lag (at most depth + 1).
+    sebulba_queue: int = 2
     # ---- distributed runtime (runtime/{runner,worker,manager,storage,
     # learner_service}.py) ----
     # Updates per learner dispatch: K consumed batches, K sequential
@@ -293,6 +311,11 @@ class Config:
     # the fleet trace (0 = off).
     trace_capacity: int = 4096
     trace_sample_n: int = 0
+    # Population plane (tpu_rl_torch.population): the PBT search space and
+    # schedule (population/spec.py grammar, parse-checked at load), and the
+    # seed every member's seed, draw and mutation derive from.
+    pop_spec: str | None = None
+    pop_seed: int = 0
     # runtime-derived (filled by the runner, not the JSON)
     obs_shape: tuple[int, ...] = (4,)
     action_space: int = 2
@@ -321,7 +344,7 @@ class Config:
         for key, is_set, slice_name in LATER_SLICES:
             value = self.extra.get(key)
             if value is not None and is_set(value):
-                raise NotImplementedError(
+                raise NotPortedError(
                     f"{key}={value!r}: the port does not do this yet; it comes with the "
                     f"{slice_name} of the port"
                 )
@@ -373,6 +396,18 @@ class Config:
             from tpu_rl_torch.obs.slo import parse_slo_spec
 
             parse_slo_spec(self.slo_spec)
+        if self.pop_spec:
+            # fail at load, with the searchable-field rule: a sampled field
+            # must be numeric and outside FINGERPRINT_FIELDS
+            from tpu_rl_torch.population.spec import PopSpec
+
+            PopSpec.parse(self.pop_spec).check_searchable()
+        assert self.pop_seed >= 0, self.pop_seed
+        # the autopilot's knobs (its spec is refused above until it is ported)
+        poll = self.extra.get("autopilot_poll_s", 1.0)
+        assert poll > 0, poll
+        drain = self.extra.get("autopilot_drain_s", 0.5)
+        assert drain >= 0, drain
         assert 0 <= self.telemetry_port < 65536, self.telemetry_port
         assert self.telemetry_interval_s > 0, self.telemetry_interval_s
         assert self.telemetry_stale_s > 0, self.telemetry_stale_s
@@ -409,6 +444,17 @@ class Config:
                     f"multihost num_processes ({nproc}) — it shards over "
                     "the global data axis"
                 )
+        assert self.sebulba_split >= 0, self.sebulba_split
+        assert self.sebulba_queue >= 1, self.sebulba_queue
+        if self.sebulba_split:
+            assert self.env_mode == "colocated", (
+                "sebulba_split splits the colocated plane's device groups; "
+                "set env_mode='colocated'"
+            )
+            assert self.multihost is None, (
+                "sebulba_split is a per-host (single-process) split; "
+                "multihost pod scaling uses the fused Anakin path"
+            )
         assert self.action_repeat >= 1, self.action_repeat
         assert self.compute_dtype in (
             "float32",
@@ -574,7 +620,7 @@ class Config:
             assert self.multihost is None, (
                 "learner_chain > 1 is not supported with a multihost learner"
             )
-            assert self.extra.get("sebulba_split", 0) == 0, (
+            assert self.sebulba_split == 0, (
                 "learner_chain > 1 is not supported with a sebulba split"
             )
         if self.entropy_anneal is not None:
@@ -602,6 +648,25 @@ class Config:
         new = dataclasses.replace(self, **kw)
         new.validate()
         return new
+
+    def to_dict(self) -> dict[str, Any]:
+        """The params-file shape ``from_dict`` loads: every field, and the
+        ``extra`` keys beside them."""
+        out = dataclasses.asdict(self)
+        return {**out.pop("extra"), **out}
+
+    def to_json(self, path: str | os.PathLike) -> None:
+        """Write :meth:`to_dict` crash-atomically (tmp + ``os.replace``):
+        the population controller rewrites a live member's config.json on
+        exploit, and a member respawning meanwhile must read the old or the
+        new file, never a torn one."""
+        path = os.fspath(path)
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
 
 
 @dataclass

@@ -60,20 +60,22 @@ def backend_for(device: torch.device, ranks_share_card: bool) -> str:
 
 
 def rank_device(
-    local_rank: int, local_ranks: int, device: str | torch.device = "cuda"
+    local_rank: int, local_ranks: int, device: str | torch.device = "cuda", first: int = 0
 ) -> tuple[torch.device, bool]:
     """This rank's device, and whether the host's ``local_ranks`` ranks
     share cards (more ranks than cards: then every rank of the host
-    decides the same, so they all pick gloo): ``cuda:local_rank`` on a
-    host with a card per rank, else card ``local_rank % cards``."""
+    decides the same, so they all pick gloo): of the cards from ``first``
+    on (a sebulba learner group's, after its actor cards),
+    ``cuda:first + local_rank`` on a host with a card per rank, else card
+    ``first + local_rank % cards``."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return torch.device("cpu"), False
     from tpu_rl_torch import resolve_device
 
     resolve_device("cuda")
-    n = torch.cuda.device_count()
-    return torch.device("cuda", local_rank % n), local_ranks > n
+    n = torch.cuda.device_count() - first
+    return torch.device("cuda", first + local_rank % n), local_ranks > n
 
 
 def init_process_group(
@@ -167,8 +169,9 @@ class Mesh:
         dist.all_gather(parts, s, group=self.groups[axis])
         return self.unstage(torch.cat(parts, dim=dim), t)
 
-    def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-        """Rank ``src``'s values into ``tensors`` on every rank, one
+    def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0, group=None) -> None:
+        """Rank ``src``'s values into ``tensors`` on every rank (of
+        ``group``, the world by default; ``src`` is a world rank), one
         flattened buffer per dtype."""
         by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
         for t in tensors:
@@ -176,7 +179,7 @@ class Mesh:
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
             s = self.stage(flat)
-            dist.broadcast(s, src=src)
+            dist.broadcast(s, src=src, group=group)
             flat = self.unstage(s, flat)
             off = 0
             for t in ts:

@@ -107,6 +107,7 @@ from tpu_rl_torch.obs import (
 from tpu_rl_torch.obs import publish as publish_diag
 from tpu_rl_torch.obs.goodput import CKPT, COMPUTE
 from tpu_rl_torch.ops import distributions as D
+from tpu_rl_torch.ops import lstm as L
 from tpu_rl_torch.parallel.dp import make_parallel_train_step, replicate
 from tpu_rl_torch.parallel.mesh import check_divisible, make_mesh, publish_mesh
 from tpu_rl_torch.parallel.multihost import init_multihost
@@ -192,8 +193,7 @@ class ColocatedLoop:
         self._build_meshes()
         self.chief = self.mesh is None or self.mesh.rank == 0
         self.spec = get_spec(cfg.env)
-        spec = self.spec if self.mesh is None else rank_rows_spec(self.spec, self.mesh)
-        self._v_reset, self._v_step = make_vec_env(spec, self.n_local, cfg.time_horizon)
+        self._v_reset, self._v_step = make_vec_env(self._env_spec(), self.n_local, cfg.time_horizon)
         self.family, self.state, step = get_algo(cfg.algo).build(
             cfg, torch.Generator().manual_seed(self.seed), self.device, mesh=self.mesh
         )
@@ -255,15 +255,23 @@ class ColocatedLoop:
         check_divisible(cfg.batch_size, self.mesh)
         self.n_local = cfg.batch_size // self.mesh.n_data
 
+    def _env_spec(self):
+        """The env spec the vectorized envs step: under a mesh, the one whose
+        resets draw the world's envs and keep this rank's rows."""
+        return self.spec if self.mesh is None else rank_rows_spec(self.spec, self.mesh)
+
     # ------------------------------------------------------------ device init
-    def init_carry(self, generator: torch.Generator | None = None) -> dict:
-        """Fresh acting carry: reset envs, zero recurrent state, ``is_fir=1``
-        (every env starts an episode), zero running returns."""
+    def init_carry(self, generator: torch.Generator | None = None,
+                   device: torch.device | None = None) -> dict:
+        """Fresh acting carry on ``device`` (the loop's by default): reset
+        envs, zero recurrent state, ``is_fir=1`` (every env starts an
+        episode), zero running returns."""
         gen = self.generator if generator is None else generator
-        env, obs = self._v_reset(gen, self.device)
+        dev = self.device if device is None else device
+        env, obs = self._v_reset(gen, dev)
         n = self.n_local
         hw, cw = self.family.carry_widths
-        f32 = dict(dtype=torch.float32, device=self.device)
+        f32 = dict(dtype=torch.float32, device=dev)
         return {
             "env": env,
             "obs": obs,
@@ -280,9 +288,10 @@ class ColocatedLoop:
         }
 
     # ------------------------------------------------------------------ steps
-    def _tick(self, params, cr: dict, generator: torch.Generator):
-        """One acting tick: the worker loop's body on the device."""
-        a, logits, log_prob, h2, c2 = self.family.act(
+    def _tick(self, params, cr: dict, generator: torch.Generator, family=None):
+        """One acting tick: the worker loop's body on the device (acting
+        through ``family``, the loop's by default)."""
+        a, logits, log_prob, h2, c2 = (family or self.family).act(
             params, cr["obs"], cr["h"], cr["c"], generator, **self._act_noise(generator))
         env, obs2, rew, done = self._v_step(cr["env"], a, generator)
         ret2 = cr["ret"] + rew
@@ -290,7 +299,7 @@ class ColocatedLoop:
             hx, cx = cr["h"], cr["c"]
         else:  # transformer: zero placeholders, not the caches
             n = self.n_local
-            hx, cx = (torch.zeros((n, w), dtype=torch.float32, device=self.device)
+            hx, cx = (torch.zeros((n, w), dtype=torch.float32, device=cr["obs"].device)
                       for w in self.family.stored_carry_widths)
         ys = dict(
             obs=cr["obs"],
@@ -331,11 +340,11 @@ class ColocatedLoop:
         return {"gumbel": D.gumbel_noise(shape, like, generator)[rows]}
 
     @torch.no_grad()
-    def rollout(self, params, carry: dict, generator: torch.Generator | None = None):
+    def rollout(self, params, carry: dict, generator: torch.Generator | None = None, family=None):
         gen = self.generator if generator is None else generator
         ticks = []
         for _ in range(self.cfg.seq_len):
-            carry, ys = self._tick(params, carry, gen)
+            carry, ys = self._tick(params, carry, gen, family)
             ticks.append(ys)
 
         def stack(f: str) -> torch.Tensor:  # S ticks of (B, w) -> (B, S, w)
@@ -444,6 +453,11 @@ class ColocatedLoop:
         reg.counter("colocated-updates").set_total(updates)
         reg.counter("colocated-env-steps").set_total(env_steps)
         reg.counter("colocated-episodes").set_total(episodes)
+        # this process's updates and its B1/B2 launches (counted on the card
+        # only): a population member's launches are read against them
+        reg.counter("colocated-updates-run").set_total(updates - self._start_it)
+        reg.counter("colocated-lstm-fwd-launches").set_total(L.LSTM_FWD_LAUNCHES)
+        reg.counter("colocated-lstm-bwd-launches").set_total(L.LSTM_BWD_LAUNCHES)
         if self.mesh is not None:
             publish_mesh(reg, self.mesh)
         reg.gauge("colocated-updates-per-s").set(ups)

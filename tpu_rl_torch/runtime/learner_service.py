@@ -50,11 +50,16 @@ over a broadcast of the whole batch because a scatter moves each row once)
 behind a command word that also carries the entropy anneal, a rollback's
 state and the stop. The other ranks (:meth:`LearnerService._follow`) build
 the same state, take rank 0's at start (after its resume) and run the same
-data-parallel step on their rows. Under ``multihost`` each host's learner
-feeds its own rows from its own storage (``host_local_batch_to_global``),
-as ``tpu_rl``'s multihost feed does (one rank a host: a host of more
-cards waits for slice A 8c); world rank 0 checkpoints and decides each
-watchdog check, and its rollback reaches every rank. The
+data-parallel step on their rows. Under ``multihost`` each host feeds its
+own rows of the global batch from its own storage, as ``tpu_rl``'s
+multihost feed does: a host of one card is one rank training on its
+host's batch; on a host of several cards (one rank each) the host's local
+rank 0 samples its storage and scatters the rows over a host-local process
+group (``dist.new_group`` per host, made in the same order on every rank)
+through the same :class:`RankChannel`, and the grads still all-reduce over
+the world. World rank 0 checkpoints and decides each watchdog check, and
+its rollback reaches every rank: each host's rank 0 tells its followers to
+join the verdict's broadcast. The
 chained step over the mesh is ``make_parallel_train_step(chain=K)``. The
 closing telemetry snapshot carries every rank's kernel launch counts
 (``learner-lstm-fwd-launches-rank<r>``, ...), ``mesh-world`` and
@@ -198,27 +203,35 @@ class AsyncPublisher:
 
 
 class RankChannel:
-    """Rank 0's commands and batches to the follower ranks of a one-host
-    data-parallel learner. A command is one broadcast word
+    """A leader rank's commands and batches to its follower ranks: world
+    rank 0 to the ranks of a one-host data-parallel learner, or under
+    ``multihost`` a host's local rank 0 (world rank ``src``) to the ranks
+    of its host's ``group``. A command is one broadcast word
     ``[cmd, a, b, c]``; a batch is scattered as one ``(B, F)`` buffer of
     the packed fields, each rank taking its block of rows."""
 
-    STEP, ANNEAL, STATE, STOP = 1, 2, 3, 4
+    STEP, ANNEAL, STATE, STOP, WATCH = 1, 2, 3, 4, 5
 
-    def __init__(self, mesh, layout: BatchLayout):
+    def __init__(self, mesh, layout: BatchLayout, group=None, src: int = 0,
+                 size: int | None = None):
         self.mesh = mesh
         self.layout = layout
+        self.group, self.src = group, src
+        # ranks the channel reaches, and the row blocks a batch splits into
+        # (seq minor: the seq ranks of one data shard take the same rows)
+        self.size = mesh.world if size is None else size
+        self.n_seq = mesh.n_seq if group is None else 1
         self.widths = [layout.seq_len * layout.width(f) for f in BATCH_FIELDS]
         self.bytes_scattered = 0
 
     def command(self, cmd: int, *vals: float) -> None:
         word = torch.tensor([float(cmd), *vals, *[0.0] * (3 - len(vals))],
                             dtype=torch.float64, device=self.mesh.device)
-        self.mesh.broadcast_([word])
+        self.mesh.broadcast_([word], src=self.src, group=self.group)
 
     def receive(self) -> tuple[int, list[float]]:
         word = torch.zeros(4, dtype=torch.float64, device=self.mesh.device)
-        self.mesh.broadcast_([word])
+        self.mesh.broadcast_([word], src=self.src, group=self.group)
         vals = word.tolist()
         return int(vals[0]), vals[1:]
 
@@ -228,19 +241,17 @@ class RankChannel:
         dst = mesh.stage(mine)
         parts = None
         if full is not None:
-            # rank r takes the rows of its data index (seq minor: the seq
-            # ranks of one data shard take the same rows)
-            blocks = full.chunk(mesh.n_data, dim=0)
-            parts = [mesh.stage(blocks[r // mesh.n_seq].contiguous()) for r in range(mesh.world)]
-            self.bytes_scattered += full.numel() * full.element_size() * mesh.n_seq
-        dist.scatter(dst, parts, src=0)
+            blocks = full.chunk(self.size // self.n_seq, dim=0)
+            parts = [mesh.stage(blocks[r // self.n_seq].contiguous()) for r in range(self.size)]
+            self.bytes_scattered += full.numel() * full.element_size() * self.n_seq
+        dist.scatter(dst, parts, src=self.src, group=self.group)
         return mesh.unstage(dst, mine) if dst is not mine else mine
 
     def scatter(self, batch: Batch) -> Batch:
-        """Rank 0: send each rank its rows of ``batch``; returns rank 0's."""
+        """The leader: send each rank its rows of ``batch``; returns its own."""
         B = batch.obs.shape[0]
         full = torch.cat([getattr(batch, f).reshape(B, -1) for f in BATCH_FIELDS], dim=1)
-        return self._unpack(self._scatter(full, B // self.mesh.n_data))
+        return self._unpack(self._scatter(full, B // (self.size // self.n_seq)))
 
     def receive_batch(self, rows: int) -> Batch:
         return self._unpack(self._scatter(None, rows))
@@ -303,6 +314,8 @@ class LearnerService:
         self.n_updates = 0  # updates this process ran
         self._rank_launches = None  # every rank's launch counts at the end
         self._watch_ranks = False  # multihost: rank 0 decides each watchdog check
+        self._rows = cfg.batch_size  # rows this rank trains on
+        self._following = False  # a follower rank (it never sends commands)
 
     # ------------------------------------------------------------------ run
     def run(self) -> None:
@@ -312,11 +325,7 @@ class LearnerService:
 
         cfg = self.cfg
         dev = torch.device(learner_device(cfg))
-        if cfg.multihost and host_rank()[1] != 1:
-            raise NotImplementedError(
-                "a multihost learner with more than one rank a host comes with slice A 8c of "
-                "the port: it runs one rank per host"
-            )
+        local_rank, local_ranks = host_rank()
         if cfg.multihost:
             # tpu_rl's learner joins the pod here too (learner_service.run)
             init_multihost(**cfg.multihost, device=dev)
@@ -333,9 +342,25 @@ class LearnerService:
             else:
                 n = world if cfg.multihost and world > 1 and cfg.mesh_data == 1 else cfg.mesh_data
                 self.mesh = make_mesh(n, device=dev)
+            layout = BatchLayout.from_config(cfg)
             if not cfg.multihost and self.mesh.world > 1:
-                self._channel = RankChannel(self.mesh, BatchLayout.from_config(cfg))
+                self._channel = RankChannel(self.mesh, layout)
+                self._rows = cfg.batch_size // self.mesh.n_data
                 if self.mesh.rank > 0:
+                    return self._follow(dev)
+            elif cfg.multihost and local_ranks > 1:
+                # the host's local rank 0 feeds its host's ranks their rows
+                if cfg.batch_size % local_ranks:
+                    raise ValueError(
+                        f"batch_size={cfg.batch_size} (a host's rows) not divisible by the "
+                        f"host's {local_ranks} ranks"
+                    )
+                group, leader = self._host_group(local_ranks)
+                self._channel = RankChannel(self.mesh, layout, group=group, src=leader,
+                                            size=local_ranks)
+                self._rows = cfg.batch_size // local_ranks
+                self._watch_ranks = bool(cfg.watchdog_enabled and cfg.model_dir)
+                if local_rank > 0:
                     return self._follow(dev)
         elif cfg.mesh_data * cfg.mesh_seq > 1:
             raise ValueError(
@@ -343,6 +368,20 @@ class LearnerService:
                 "per device: the learner role spawns them (runtime.runner.learner_role)"
             )
         self._run(dev)
+
+    @staticmethod
+    def _host_group(local_ranks: int):
+        """This host's process group (every host's made in the same order on
+        every rank, as ``new_group`` requires) and its leader's world rank:
+        hosts hold consecutive world ranks, ``process_id * local_ranks +
+        local_rank``."""
+        world, rank = dist.get_world_size(), dist.get_rank()
+        mine = None
+        for h in range(world // local_ranks):
+            g = dist.new_group(list(range(h * local_ranks, (h + 1) * local_ranks)))
+            if h == rank // local_ranks:
+                mine = g
+        return mine, rank // local_ranks * local_ranks
 
     @property
     def chief(self) -> bool:
@@ -408,10 +447,11 @@ class LearnerService:
         from tpu_rl_torch.parallel.dp import replicate
 
         cfg = self.cfg
+        self._following = True
         spec, family, state, train_step, gen = self._build(dev)
         replicate(state, self.mesh)  # as rank 0: the seed-built init agrees
         self._sync_start(state, gen, 0)
-        rows = cfg.batch_size // self.mesh.n_data
+        rows = self._rows
         chain = self._chain()
         ch = self._channel
         while True:
@@ -432,8 +472,15 @@ class LearnerService:
             elif cmd == RankChannel.STATE:
                 replicate(state, self.mesh, check=False)
                 self._sync_start(state, gen, 0)
+            elif cmd == RankChannel.WATCH:
+                # world rank 0's watchdog verdict; a rollback's state follows it
+                if self._watch_word() == self.WATCH_ROLLBACK:
+                    replicate(state, self.mesh, check=False)
+                    self._sync_start(state, gen, 0)
+                    self.n_rollbacks += 1
             elif cmd == RankChannel.STOP:
                 self._gather_launches()
+                self.state = state
                 return
             else:
                 raise RuntimeError(f"learner rank {self.mesh.rank}: unknown command {cmd}")
@@ -1028,7 +1075,7 @@ class LearnerService:
             # the other ranks take the restored state and generator
             from tpu_rl_torch.parallel.dp import replicate
 
-            if self._channel is not None:
+            if self._channel is not None and not self._watch_ranks:
                 self._channel.command(RankChannel.STATE)
             self._watch_word(self.WATCH_ROLLBACK)
             replicate(state, self.mesh, check=False)
@@ -1061,6 +1108,9 @@ class LearnerService:
         ``word`` otherwise."""
         if not self._watch_ranks:
             return word
+        if self._channel is not None and self._channel.group is not None and not self._following:
+            # this host's follower ranks join the verdict's broadcast
+            self._channel.command(RankChannel.WATCH)
         t = torch.tensor([float(word or 0)], dtype=torch.float64, device=self.mesh.device)
         self.mesh.broadcast_([t])
         return int(t.item())

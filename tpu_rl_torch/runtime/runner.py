@@ -14,7 +14,10 @@ Roles:
 - ``manager``: one relay;
 - ``worker``: ``num_p`` actor processes;
 - ``local``: everything on one host, the smallest real cluster;
-- ``colocated``: the single colocated-loop child (``runtime/colocated.py``).
+- ``colocated``: the single colocated-loop child (``runtime/colocated.py``),
+  or with ``sebulba_split`` the split's (``runtime/sebulba.py``);
+- ``population``: the PBT controller (``population/controller.py``), which
+  runs in the calling process and supervises the K members itself.
 
 With ``act_mode="remote"`` and ``inference_replicas`` N > 1 the learner
 role also spawns the inference fleet's replicas 1..N-1 (``inference-<i>``,
@@ -25,8 +28,8 @@ them with ``CUDA_VISIBLE_DEVICES=""`` in their environment and
 ``role_entry`` hides the card again before the role runs
 (``utils.platform.host_role``), so only the learner and the inference
 replicas open a CUDA context.
-The population and autopilot roles come with the fleet and operations
-slice of the port (ROADMAP A 9).
+The autopilot role comes with the serving and operations slice of the port
+(ROADMAP A 9).
 """
 
 from __future__ import annotations
@@ -86,7 +89,10 @@ def rank_entry(target: Callable, rank: int, world: int, rdv: str | None, *args) 
         from tpu_rl_torch.parallel.mesh import init_process_group, rank_device
 
         cfg = args[0]
-        dev, share = rank_device(rank, world, "cpu" if cfg.learner_device == "cpu" else "cuda")
+        # a sebulba learner group's ranks take the cards after the actor group's
+        first = cfg.sebulba_split if cfg.env_mode == "colocated" else 0
+        dev, share = rank_device(rank, world, "cpu" if cfg.learner_device == "cpu" else "cuda",
+                                 first=first)
         init_process_group(f"file://{rdv}", world, rank, dev, share)
         del torch
     target(*args)
@@ -493,12 +499,6 @@ def learner_role(
     from tpu_rl_torch.runtime.learner_service import learner_main
     from tpu_rl_torch.runtime.storage import storage_main
 
-    if cfg.multihost and _host_ranks(cfg) > 1:
-        raise NotImplementedError(
-            f"a multihost learner on a host of {_host_ranks(cfg)} cards (one rank per card, each "
-            "fed its share of the host's rows) comes with slice A 8c of the port; the multihost "
-            "learner runs on hosts of one card, the colocated pod on any"
-        )
     sup = supervisor or Supervisor.from_config(cfg)
     # Supervisor restart counters ride the stat channel the storage
     # child SUB-binds on this host (same path as the learner's snapshots).
@@ -541,8 +541,10 @@ def learner_role(
         # "auto": the learner owns the card (and raises without one).
         # "cpu": a host process on the plain path (tests).
         cpu_only=(cfg.learner_device == "cpu"),
-        # one rank per device on this host, supervised as one child
+        # one rank per device on this host, supervised as one child; under
+        # multihost the ranks join the pod at the coordinator themselves
         world=_host_ranks(cfg),
+        rank_init=not cfg.multihost,
     )
     if inference_ports is not None and cfg.inference_replicas > 1:
         from tpu_rl_torch.fleet import replica_main
@@ -701,15 +703,27 @@ def colocated_role(
     ``machines`` is accepted (and ignored) so the CLI can dispatch every
     role through one signature. With ``mesh_data > 1`` (or ``multihost``
     on a host with more than one card) the child is a group of one rank
-    per device (:class:`RankGroup`). tpu_rl's Sebulba split comes with slice A 8c."""
+    per device (:class:`RankGroup`). With ``sebulba_split > 0`` the child
+    is the split (``runtime/sebulba.py``), checked here against the host's
+    cards first: a split that leaves a group empty (any split of one card)
+    is refused before anything is spawned; a learner group of several
+    cards is a group of one rank per learner card."""
     del machines  # colocated mode has no fleet topology
+    world = _host_ranks(cfg)
+    child_main = colocated_main
+    if cfg.sebulba_split > 0:
+        from tpu_rl_torch.runtime.sebulba import sebulba_main, split_local_devices
+        from tpu_rl_torch.utils.platform import learner_device
+
+        _acts, learns = split_local_devices(cfg.sebulba_split, device=learner_device(cfg))
+        world, child_main = len(learns), sebulba_main
     sup = supervisor or Supervisor.from_config(cfg)
     sup.spawn(
         "colocated",
-        functools.partial(colocated_main, max_updates=max_updates, seed=seed),
+        functools.partial(child_main, max_updates=max_updates, seed=seed),
         cfg,
         cpu_only=(cfg.learner_device == "cpu"),
-        world=_host_ranks(cfg),
+        world=world,
         rank_init=not cfg.multihost,
     )
     return sup
@@ -750,11 +764,13 @@ def population_role(
     machines: MachinesConfig | None = None,
     max_updates: int | None = None,
 ):
-    """tpu_rl's PBT controller; not in the port yet."""
-    raise NotImplementedError(
-        "the population role comes with the fleet and operations slice of the "
-        "port (ROADMAP A 9)"
-    )
+    """Build the PBT controller (``population/controller.py``). Unlike the
+    other roles this returns the controller, not a Supervisor: the
+    controller is the orchestrator and runs in the calling process, owning
+    its own supervisor whose children are the K ``member-<k>`` runs."""
+    from tpu_rl_torch.population import PopulationController
+
+    return PopulationController(cfg, machines=machines, max_updates=max_updates)
 
 
 def autopilot_role(
@@ -765,6 +781,6 @@ def autopilot_role(
 ):
     """tpu_rl's fleet autopilot; not in the port yet."""
     raise NotImplementedError(
-        "the autopilot role comes with the fleet and operations slice of the "
+        "the autopilot role comes with the serving and operations slice of the "
         "port (ROADMAP A 9)"
     )
