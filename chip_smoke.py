@@ -6,7 +6,8 @@
 It drives the port's serving path (f32, bf16 and int8 weights), its
 distributed runtime (worker -> manager -> storage -> learner processes), its
 training topology (the Sebulba split, the multihost learner on hosts of
-several ranks, the population plane), its
+several ranks, the population plane), its operations planes (chaos, the
+heal plane under injected faults, the fleet autopilot), its
 colocated LSTM training path (with checkpoint and resume), bf16-compute
 LSTM training, the other algorithms' train steps and colocated loops
 (IMPALA, V-MPO, PPO-Continuous, SAC, SAC-Continuous), the transformer's
@@ -191,7 +192,8 @@ against its plain PyTorch version:
 12c. ``obs.report.main`` and ``obs.compare.main`` of the port over the
    result dir of step 12's colocated run, compared with itself: both exit
    0, no regression;
-12d. the distributed runtime (``cluster_phase``): ``runtime.runner.local_cluster``
+12d. the distributed runtime (``cluster_phase``, on the thread):
+   ``runtime.runner.local_cluster``
    with tpu_rl's default config (PPO, CartPole-v1, H 64, seq_len 5, batch
    128; one worker machine of 2 processes, worker_num_envs 1, no worker
    throttle), twice: (a) local acting, TCP, the raw relay, 20 updates;
@@ -206,7 +208,8 @@ against its plain PyTorch version:
    flushes with no remote-acting fallback, all read from the learner's
    closing telemetry snapshot; only the learner child holds a CUDA context
    (nvidia-smi's compute PIDs mid-run);
-12d'. the inference fleet (``fleet_phase``): (F1) cluster run (d), run
+12d'. the inference fleet (``fleet_cluster_phase``, ``fleet_sweeps_phase``,
+   ``sharded_phase``): (F1) cluster run (d), run
    (b)'s config with ``inference_replicas=2``, no hedge timer and a 20 s
    request timeout, 30 updates, ``inference-1`` stopped (SIGSTOP) from
    update 12 until the learner's replica 0 has served FLEET_HOLD_FLUSHES
@@ -218,8 +221,8 @@ against its plain PyTorch version:
    ``tpu_rl_torch.examples.loadgen_smoke.run``: two replica processes on
    the card under 12000 synthetic clients from 2 driver processes, 100 /
    250 / 600 rps, 6 s a stage, the busier replica SIGKILLed 8 s in, held
-   to tpu_rl's bars, then a sweep of 600 / 1200 / 2400 / 4800 rps without
-   a kill (the saturation curve), B3 launches per replica; (F3) a replica
+   to tpu_rl's bars, then a sweep of 600 / 1200 / 2400 rps, 2 s a stage,
+   without a kill (the saturation curve), B3 launches per replica; (F3) a replica
    sharded over ``inference_mesh_data`` 2 devices refuses on one card, and
    on two or more matches a one-device replica at the serving bar with
    one B3 launch a device a flush;
@@ -231,8 +234,8 @@ against its plain PyTorch version:
    a one-rank NCCL group in this process against the plain path (bit for
    bit), with the wrapper's cost, the grad bytes all-reduced and the
    all-reduce's device time; then two ranks sharing the card over gloo
-   (``python3 chip_smoke.py --rank R ...`` children, collectives staged
-   through host memory) against world size 1 at tests/test_parallel.py's
+   (``python3 chip_smoke.py --rank R ...`` children on the thread,
+   collectives staged through host memory) against world size 1 at tests/test_parallel.py's
    bars, with each rank's B1/B2 launches; (P4) ring and Ulysses attention
    over the two ranks at (16,2048,8,64) bf16 against full attention in
    f32, beside B4's and blockwise's times; (P3) the cluster with a
@@ -251,12 +254,38 @@ against its plain PyTorch version:
    host's rank 0 sampling only its own store and scattering over its
    host-local group: B1/B2 = updates x K_epoch on every rank, equal params
    on every rank, within tests/test_parallel.py's bar of one card's plain
-   steps on the global batches; (PBT) a population of 2 colocated PPO
+   steps on the global batches (its ranks on the thread, the plain steps
+   here after it); (PBT, on the thread) a population of 2 colocated PPO
    members with member 0 poisoned, its controller a process with no CUDA
    context: an exploit whose loser resumes the copied committed checkpoint
    at a bumped epoch, B1/B2 = updates run x K_epoch in each member's
    telemetry, one context per member (nvidia-smi, /proc fds);
+12g. the operations planes, on the thread: (A1) ``tpu_rl_torch.examples.autopilot_smoke``
+   (its controller a process of its own) with its replicas on the card on a
+   cut schedule, held to tpu_rl's autopilot bars, its controller holding no
+   CUDA context, each replica process's B3 launches = its warm-ups +
+   flushes, no process of it left; (X2) tpu_rl's heal smoke run 2 (a
+   poisoned worker's rollouts, the other's log-probs) with the learner on
+   the card: a rollback at a bumped epoch, the worker quarantined and
+   released, rollout injections == storage's poisoned frames, guarded
+   non-finite updates (B2 on non-finite cotangents), every broadcast
+   finite, B1/B2 = updates run x K_epoch (its clean run is cut for the
+   time limit); (X1) cluster run (b) under tpu_rl's chaos-smoke plan and
+   a 5 ms stall of every flush, 8 updates (tpu_rl's): exit 0 at the budget, the
+   killed worker respawned and audited, corruptions == rejected frames,
+   delayed sends and stalled flushes, B1/B2 = updates x K_epoch, B3 =
+   warm-ups + flushes with no fallback, only the learner on the card;
 13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}`` line.
+
+Order (the time limit, PERF.md §4): step 3's kernel rows of B3, B1/B2 and B4,
+blockwise attention's and the mixed dot's run first, with nothing else on
+the card. Then one thread (``beside_start``) runs every phase whose
+processes hold the card, one after the other: (A1), and while it runs
+(F2), the DP ranks, (M1)'s ranks, (S2) and (X2), none of which counts the
+card's contexts; then, each alone, (X1), 12d, (PBT), (F1) and (P3), which
+count them. Meanwhile this process runs its own phases, whose kernels it
+launches and counts itself (no phase on the thread launches one here).
+World size 1, (P4), (F3), (S1) and (M1)'s plain steps run after the thread.
 
 Any failed phase raises and the script exits non-zero before the last line.
 Times are CUDA-event medians on this card; each is printed beside the card's
@@ -473,7 +502,9 @@ CKPT_INTERVAL, CKPT_KEEP, CKPT_UPDATES, CKPT_RESUMED_TO, CKPT_SAVES = 10, 2, 30,
 # updates each, in turns; IMPALA at bench.py's wide-lstm width on CartPole
 # (the colocated loop needs a device env: obs 4, 2 actions), 2 warm-up and 5
 # timed updates; serving mix 1 with the plane on and off, in turns.
-TELEMETRY_UPDATES, TELEMETRY_LOG, TELEMETRY_TIMED = 30, 10, 100
+TELEMETRY_UPDATES, TELEMETRY_LOG, TELEMETRY_TIMED = 30, 10, 50  # timed cut from 100
+# the serving turns' mix 1, cut from 1000 acts a client (PERF.md §4)
+TELEMETRY_SERVE_MIX = ((2, 500, "mix1"),)
 TELEMETRY_SLO = ("gauge:colocated-updates-per-s>0,gauge:colocated-mfu>0,"
                  "counter:colocated-xla-recompiles==0")
 WIDE_COLOCATED_CFG = dict(env="CartPole-v1", env_mode="colocated", algo="IMPALA",
@@ -510,7 +541,9 @@ LOADGEN_MODEL = [(b, 4, 32, 2) for b in (8, 16)]
 
 
 def fail(msg: str) -> None:
-    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    if threading.current_thread() is not threading.main_thread():
+        raise SystemExit(1)  # a phase on a thread: its owner fails the run
     if ADOPTING:
         left = stop_leftovers()
         if left:
@@ -592,6 +625,15 @@ def adopt_orphans() -> None:
         signal.signal(signum, stopped_by)
 
 
+def cmdline(pid: int) -> str:
+    """``pid``'s command line from /proc (cut to 300 characters), or ``?``."""
+    try:
+        return Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode(
+            errors="replace").strip()[:300]
+    except OSError:
+        return "?"
+
+
 def stop_leftovers(grace_s: float = 5.0) -> list[dict]:
     """Stop every process of the run that is still running: the
     descendants of this process (orphans included, see
@@ -608,12 +650,7 @@ def stop_leftovers(grace_s: float = 5.0) -> list[dict]:
         if not live:
             break
         for p in live:
-            try:
-                cmd = Path(f"/proc/{p}/cmdline").read_bytes().replace(b"\0", b" ").decode(
-                    errors="replace").strip()
-            except OSError:
-                cmd = "?"
-            found.setdefault(p, dict(pid=p, cmd=cmd[:300]))
+            found.setdefault(p, dict(pid=p, cmd=cmdline(p)))
             for sig in (signal.SIGCONT, signal.SIGTERM):
                 try:
                     os.kill(p, sig)
@@ -2992,11 +3029,16 @@ def tf_serve_phase(card: str, dtype: str = "f32", compute_dtype: str | None = No
 
 # --------------------------------------------------------- telemetry plane
 def free_port() -> int:
+    """A port free to bind, outside every block :func:`free_block` has
+    handed out."""
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if not any(lo <= port < hi for lo, hi in _BLOCKS):
+            return port
 
 
 def gauges_of(loop) -> dict:
@@ -3217,7 +3259,7 @@ def telemetry_serving_check(card: str) -> dict:
 
     runs = {"off": [], "on": []}
     for mode in ("off", "on", "on", "off"):
-        r = serve_phase(mixes=SERVE_MIXES[:1], telemetry=mode == "on")
+        r = serve_phase(mixes=TELEMETRY_SERVE_MIX, telemetry=mode == "on")
         serving_checks(r, f"serving telemetry {mode}", card)
         runs[mode].append(r)
     for r in runs["on"]:
@@ -3339,8 +3381,6 @@ def env_source() -> str:
     :class:`DeviceSpecEnv` (CartPole-v1 and Pendulum-v1)."""
     try:
         import gymnasium
-
-        return f"gymnasium {gymnasium.__version__}"
     except ImportError:
         from types import ModuleType
 
@@ -3348,6 +3388,11 @@ def env_source() -> str:
         stand_in.make = DeviceSpecEnv
         sys.modules["gymnasium"] = stand_in
         return "chip_smoke.DeviceSpecEnv over tpu_rl_torch/envs (gymnasium is not installed)"
+    if "gym_stand_in" in (getattr(gymnasium, "__file__", None) or ""):
+        # gym_stand_in()'s package, put on the path for the clusters' children
+        return ("chip_smoke.DeviceSpecEnv over tpu_rl_torch/envs (gymnasium is not installed; "
+                "gym_stand_in()'s package)")
+    return f"gymnasium {gymnasium.__version__}"
 
 
 def inline_run(run_kw: dict) -> dict:
@@ -3826,7 +3871,7 @@ CLUSTER_RUNS = (
 # Depth cut to keep the smoke inside its time limit (PERF.md §4): run (b),
 # the slowest (0.3-0.7 updates/s), to 12 updates (from 30); the
 # fleet's run (d) 30. The profiler window ends at 10. Runs (a) and (c)
-# keep 50: at ~4 updates/s fewer leave too few telemetry samples to rate.
+# take CLUSTER_UPDATES.
 CLUSTER_UPDATES_BY_RUN = {"b": 12, "d": 30}
 CLUSTER_TIMEOUT_S = 300.0
 
@@ -3865,13 +3910,28 @@ def gym_stand_in() -> str:
     return "stand-in gymnasium package (chip_smoke.DeviceSpecEnv over tpu_rl_torch/envs) in every process"
 
 
+# [base, base + n) of every block handed out in this run: phases on two
+# threads bind their blocks' ports later (a replica the autopilot spawns
+# minutes on), so no later block may overlap an earlier one
+_BLOCKS: list[tuple[int, int]] = []
+_BLOCKS_LOCK = threading.Lock()
+
+
 def free_block(n: int = 8) -> int:
-    """A base port whose ``n`` ports are all free to bind."""
+    """A base port whose ``n`` ports are all free to bind and overlap no
+    block this run has already handed out."""
+    with _BLOCKS_LOCK:
+        base = _free_block(n)
+        _BLOCKS.append((base, base + n))
+        return base
+
+
+def _free_block(n: int) -> int:
     import socket
 
     for _ in range(200):
         base = free_port()
-        if base + n >= 65535:
+        if base + n >= 65535 or any(base < hi and lo < base + n for lo, hi in _BLOCKS):
             continue
         socks = []
         try:
@@ -4186,9 +4246,7 @@ def cluster_run(tag: str, over: dict, card: str, ranks: int = 1) -> dict:
 
 def cluster_phase(card: str) -> dict:
     """The distributed runtime on the card: ``local_cluster`` twice (see
-    CLUSTER_RUNS)."""
-    src = gym_stand_in()
-    print(f"cluster env source: {src}", flush=True)
+    CLUSTER_RUNS); the children's envs from :func:`gym_stand_in`."""
     return {tag: cluster_run(tag, over, card) for tag, over in CLUSTER_RUNS}
 
 
@@ -4212,9 +4270,10 @@ FLEET_RUN = ("d", dict(CLUSTER_RUNS[1][1], inference_replicas=2, inference_hedge
                       inference_timeout_ms=20000))
 FLEET_HOLD = dict(at_update=12, flushes=200, max_s=60.0)
 FLEET_SWEEP = dict(clients=12_000, rates=(100.0, 250.0, 600.0), duration=6.0, kill_at=8.0)
-# (the saturation curve has no bar: its stages cut from 6 s for the time
-# limit, PERF.md §4)
-FLEET_CURVE = dict(clients=12_000, rates=(600.0, 1200.0, 2400.0, 4800.0), duration=3.0,
+# (the saturation curve has no bar: its stages cut from 6 s to 3 s, then 2 s,
+# and its 4800 rps stage, past saturation, dropped, for the time limit,
+# PERF.md §4)
+FLEET_CURVE = dict(clients=12_000, rates=(600.0, 1200.0, 2400.0), duration=2.0,
                    kill_at=None)
 SHARDED_ACTS, SHARDED_CLIENTS, SHARDED_ENVS = 20, 4, 4
 
@@ -4366,19 +4425,25 @@ def sharded_phase(card: str) -> dict:
     return out
 
 
-def fleet_phase(card: str) -> dict:
-    """(F1) cluster run (d), (F2) the load sweeps, (F3) the sharded replica."""
-    from tpu_rl_torch.examples import loadgen_smoke
-
+def fleet_cluster_phase(card: str) -> dict:
+    """(F1) cluster run (d)."""
     tag, over = FLEET_RUN
-    out = {"cluster": cluster_run(tag, over, card)}
-    fl = out["cluster"]["fleet"]
-    print(f"fleet cluster (d): {out['cluster']['updates_per_s']} updates/s, "
-          f"{out['cluster']['env_steps_ingested_per_s']} env steps/s, reply share by replica "
+    out = cluster_run(tag, over, card)
+    fl = out["fleet"]
+    print(f"fleet cluster (d): {out['updates_per_s']} updates/s, "
+          f"{out['env_steps_ingested_per_s']} env steps/s, reply share by replica "
           f"{fl['reply_share']}, B3 by replica {fl['b3']}, inference-1 held {fl['hold']}, "
           f"failovers {fl['fleet-failovers']}, storage floor {fl['version_floor']}, active "
           f"{fl['replicas_active']}, joined {fl['replicas_joined']}, evicted "
           f"{fl['replicas_evicted']} [{card}]", flush=True)
+    return out
+
+
+def fleet_sweeps_phase(card: str) -> dict:
+    """(F2) the load sweeps: the kill sweep, then the curve."""
+    from tpu_rl_torch.examples import loadgen_smoke
+
+    out = {}
     for name, kw in (("kill", FLEET_SWEEP), ("curve", FLEET_CURVE)):
         rdir = ROOT / ".chip_scratch" / f"loadgen-{name}"
         t0 = time.perf_counter()
@@ -4394,7 +4459,6 @@ def fleet_phase(card: str) -> dict:
                  if kw["kill_at"] else "")
               + f"): overall {row['overall']}, curve {row['curve']}, B3 by replica "
               f"{row['b3_by_replica']} [{card}]", flush=True)
-    out["sharded"] = sharded_phase(card)
     return out
 
 
@@ -4645,14 +4709,35 @@ def spawn_ranks(world: int, out: Path, timeout: float = DP_RANK_TIMEOUT_S) -> li
     return codes
 
 
-def dp_phase(card: str, ranks: int = DP_RANKS) -> dict:
+def dp_ranks_phase(ranks: int = DP_RANKS) -> Path:
+    """The DP_RANKS ranks of :func:`dp_phase`, sharing the card over gloo
+    (host-staged collectives), run to their end: the folder of their
+    results, which :func:`dp_phase` holds against world size 1. They run
+    beside the smoke's own phases (they count no context and launch
+    nothing in this process); world size 1 runs after, in this process."""
+    import shutil
+
+    rdir = ROOT / ".chip_scratch" / "dp-ranks"
+    shutil.rmtree(rdir, ignore_errors=True)
+    rdir.mkdir(parents=True)
+    codes = spawn_ranks(ranks, rdir)
+    if any(c != 0 for c in codes):
+        docs = [json.loads((rdir / f"rank{r}.json").read_text())
+                if (rdir / f"rank{r}.json").exists() else {} for r in range(ranks)]
+        fail(f"the {ranks} ranks exited {codes}: {docs}")
+    return rdir
+
+
+def dp_phase(card: str, rdir: Path, cluster: dict, ranks: int = DP_RANKS) -> dict:
     """(P1) the DP train step at IMPALA@wide-lstm, (P2) the colocated loop,
     (P4, DP half) the transformer at longctx-flash width with flash: each at
     world size 1 over NCCL against the plain step or loop (bit for bit),
-    then at DP_RANKS ranks sharing the card over gloo against world size 1
-    at tests/test_parallel.py's bars; (P3) the cluster with the learner at
-    mesh_data DP_RANKS. Launch counts per rank; the DP wrapper's cost. On a
-    machine with a card a rank, ``ranks`` ranks run over NCCL instead."""
+    then the DP_RANKS ranks sharing the card over gloo (run earlier by
+    :func:`dp_ranks_phase` into ``rdir``) against world size 1 at
+    tests/test_parallel.py's bars; (P3) the cluster with the learner at
+    mesh_data DP_RANKS (``cluster``, run earlier). Launch counts per rank;
+    the DP wrapper's cost. On a machine with a card a rank, ``ranks`` ranks
+    run over NCCL instead."""
     import tempfile
 
     import torch.distributed as dist
@@ -4770,18 +4855,7 @@ def dp_phase(card: str, ranks: int = DP_RANKS) -> dict:
     torch.cuda.empty_cache()
 
     # --- two ranks sharing the card over gloo (host-staged collectives)
-    rdir = ROOT / ".chip_scratch" / "dp-ranks"
-    import shutil
-
-    shutil.rmtree(rdir, ignore_errors=True)
-    rdir.mkdir(parents=True)
-    codes = spawn_ranks(ranks, rdir)
-    docs = []
-    for r in range(ranks):
-        f = rdir / f"rank{r}.json"
-        docs.append(json.loads(f.read_text()) if f.exists() else {})
-    if any(c != 0 for c in codes):
-        fail(f"the {ranks} ranks exited {codes}: {docs}")
+    docs = [json.loads((rdir / f"rank{r}.json").read_text()) for r in range(ranks)]
     p1 = [torch.load(rdir / f"rank{r}-p1.pt") for r in range(ranks)]
     p2 = [torch.load(rdir / f"rank{r}-p2.pt") for r in range(ranks)]
     p2r = [torch.load(rdir / f"rank{r}-p2r.pt") for r in range(ranks)]
@@ -4826,8 +4900,7 @@ def dp_phase(card: str, ranks: int = DP_RANKS) -> dict:
     print(f"{ranks} ranks vs world 1, share of tests/test_parallel.py's bars: {two} [{card}]",
           flush=True)
     # --- (P3) the cluster with the learner's ranks
-    tag, over = DP_CLUSTER_RUN
-    out["cluster"] = cluster_run(tag, over, card, ranks=DP_RANKS)
+    out["cluster"] = cluster
     return out
 
 
@@ -5104,21 +5177,14 @@ def mh_rank_main(argv: list[str]) -> None:
     (out / f"mh{rank}.json").write_text(json.dumps(res))
 
 
-def multihost_phase(card: str) -> dict:
-    """(M1) the multihost learner on hosts of several ranks: MH_HOSTS hosts
-    of MH_LOCAL ranks each, every rank a process sharing the one card over
-    gloo (``python3 chip_smoke.py --mh-rank R ...``), each host's rank 0
-    sampling only its own storage and scattering the rows over its
-    host-local group. B1/B2 on every rank = updates x K_epoch; every rank
-    trained only on its host's rows; every rank ends on the same params,
-    which equal one card's plain train step on the global batches (each
-    host's batch in host order) at tests/test_parallel.py's bars. Its ms
-    per update is host-staged gloo on one card: no scaling number."""
+def multihost_ranks_phase() -> dict:
+    """(M1)'s ranks, run to their end: MH_HOSTS hosts of MH_LOCAL ranks
+    each, every rank a process sharing the one card over gloo (``python3
+    chip_smoke.py --mh-rank R ...``). Returns the folder of their results
+    and the seconds from spawn; :func:`multihost_phase` checks them. They
+    run beside the smoke's own phases (they count no context and launch
+    nothing in this process)."""
     import shutil
-
-    from tpu_rl_torch.algos.registry import get_algo
-    from tpu_rl_torch.config import Config
-    from tpu_rl_torch.types import Batch
 
     rdir = ROOT / ".chip_scratch" / "mh-ranks"
     shutil.rmtree(rdir, ignore_errors=True)
@@ -5150,6 +5216,23 @@ def multihost_phase(card: str) -> dict:
     wall = time.perf_counter() - t0
     if any(c != 0 for c in codes):
         fail(f"(M1) the {world} multihost ranks exited {codes}")
+    return dict(rdir=rdir, wall_s=wall)
+
+
+def multihost_phase(card: str, run: dict) -> dict:
+    """(M1) the multihost learner on hosts of several ranks (run earlier by
+    :func:`multihost_ranks_phase`): each host's rank 0 sampling only its own
+    storage and scattering the rows over its host-local group. B1/B2 on
+    every rank = updates x K_epoch; every rank trained only on its host's
+    rows; every rank ends on the same params, which equal one card's plain
+    train step on the global batches (each host's batch in host order) at
+    tests/test_parallel.py's bars, stepped here. Its ms per update is
+    host-staged gloo on one card: no scaling number."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.types import Batch
+
+    rdir, wall, world = run["rdir"], run["wall_s"], MH_HOSTS * MH_LOCAL
     docs = [json.loads((rdir / f"mh{r}.json").read_text()) for r in range(world)]
     blobs = [torch.load(rdir / f"mh{r}.pt", weights_only=False) for r in range(world)]
     want = MH_UPDATES * Config().K_epoch
@@ -5335,6 +5418,433 @@ def population_phase(card: str) -> dict:
     return rec
 
 
+# ------------------------------------------------- the operations planes
+# (X1) a chaos cluster: cluster run (b)'s config (remote acting through B3,
+# the shm hop) under tpu_rl's chaos-smoke plan (examples/chaos_smoke.py:
+# a worker SIGKILL, rollout corruption at the storage edge, relay send
+# delays) plus a 5 ms stall before every flush of the learner's service,
+# run under the supervisor's loop (the chaos poll and the respawn).
+CHAOS_RUN = dict(CLUSTER_RUNS[1][1], worker_step_sleep=0.0, rollout_lag_sec=30.0, time_horizon=100,
+                 telemetry_interval_s=0.5, telemetry_stale_s=120.0, supervise_poll_s=0.5,
+                 chaos_spec="kill:worker-0-1@t+6s,corrupt:rollout@p=0.02,"
+                            "delay:manager@10ms@p=0.2,stall:inference@5ms",
+                 chaos_seed=7)
+CHAOS_UPDATES = 8  # tpu_rl's chaos smoke: 8
+# (X2) the heal plane under data chaos: tpu_rl's heal smoke run 2
+# (examples/heal_smoke.py: its DEFAULT_SPEC and healing config, the small
+# config of tests/conftest.py, 10 updates), the learner on the card. One
+# divergence: the workers keep tpu_rl's default throttle (worker_step_sleep
+# 0.05 s) where tpu_rl's smoke sets 0. The port's learner starts training at
+# once, where tpu_rl's first jit holds it for seconds: unthrottled, it spends
+# its whole rollback budget within a second of the logp poison and the run
+# ends before worker 1's poison window closes, so it never un-quarantines.
+HEAL_SPEC = ("nan:rollout@p=0.4@t+4s@for=6s@wid=1,spike:rollout@p=0.2@t+4s@for=6s@wid=1,"
+             "nan:logp@p=0.5@t+2s@for=25s@wid=0")
+HEAL_RUN = dict(env="CartPole-v1", algo="PPO", hidden_size=16, seq_len=5, batch_size=8,
+                buffer_size=32, obs_shape=(4,), action_space=2, worker_step_sleep=0.05,
+                rollout_lag_sec=30.0, time_horizon=100, loss_log_interval=2,
+                model_save_interval=2, ckpt_keep=4, telemetry_interval_s=0.5,
+                telemetry_stale_s=120.0, supervise_poll_s=0.5, update_guard=True,
+                watchdog_enabled=True, watchdog_nonfinite=2, max_rollbacks=10,
+                rollback_window_s=600.0, ingress_validate=True, quarantine_strikes=3,
+                quarantine_clear_s=2.0, chaos_seed=11)
+HEAL_UPDATES = 10
+OPS_TIMEOUT_S = 300.0
+# (A1) the autopilot smoke (tpu_rl_torch/examples/autopilot_smoke.py) with
+# its replicas on the card; its schedule is cut for the time limit
+# (PERF.md §4): the first valley and shoulder shorter, the peak to 45 s;
+# the falling shoulder and the last valley keep tpu_rl's 12 s and 55 s
+# (scale-in needs 50 clean polls once the peak's burn has left the 15 s
+# window, and the processes beside it slow the clean streak).
+AUTOPILOT_SCHEDULE = [(20, 10), (120, 8), (205, 45), (120, 12), (20, 55)]
+AUTOPILOT_TIMEOUT_S = 420.0
+
+
+def beside_start(card: str, t_start: float) -> dict:
+    """Start, on a thread, every phase whose processes hold the card, one
+    after the other, beside the smoke's own phases (which launch kernels
+    in this process only): first (A1) the autopilot smoke, and while it
+    runs the phases that count no context, (F2) the load sweeps, the DP
+    ranks over gloo, (M1)'s ranks, (S2) and (X2) the heal plane; then,
+    each alone, those that count the card's contexts (nothing else may
+    hold one): (X1) the chaos cluster, the cluster runs (a) and (b), the
+    population (PBT), (F1) cluster run (d) and (P3) cluster run (c). A
+    failed bar ends the thread; :func:`beside_failed` reads it between the
+    smoke's own phases and :func:`beside_finish` waits for the thread."""
+    st: dict = {"out": {}, "error": None}
+    out = st["out"]
+    print(f"cluster env source: {gym_stand_in()}", flush=True)
+    steps = (
+        ("A1 start", lambda: autopilot_start(card)),
+        ("F2", lambda: fleet_sweeps_phase(card)),
+        ("dp ranks", dp_ranks_phase),
+        ("S2 start", sebulba_cli_start),
+        ("M1 ranks", multihost_ranks_phase),
+        ("S2", lambda: sebulba_cli_phase(card, out.pop("S2 start"))),
+        ("X2", lambda: heal_phase(card)),
+        ("A1", lambda: autopilot_finish(out.pop("A1 start"), card)),
+        ("X1", lambda: chaos_cluster_phase(card)),
+        ("cluster", lambda: cluster_phase(card)),
+        ("population", lambda: population_phase(card)),
+        ("F1", lambda: fleet_cluster_phase(card)),
+        ("P3", lambda: cluster_run(*DP_CLUSTER_RUN, card, ranks=DP_RANKS)),
+    )
+
+    def run() -> None:
+        for name, fn in steps:
+            t0 = time.perf_counter()
+            try:
+                out[name] = fn()
+            except (Exception, SystemExit) as e:  # noqa: BLE001 — fail() raises SystemExit here
+                st["error"] = f"({name}) {type(e).__name__}: {e}"
+                return
+            print(f"phase {name} (beside the smoke's own phases): "
+                  f"{time.perf_counter() - t0:.1f} s (at {time.perf_counter() - t_start:.1f} s)",
+                  flush=True)
+
+    st["thread"] = threading.Thread(target=run, name="beside", daemon=True)
+    st["thread"].start()
+    return st
+
+
+def beside_failed(st: dict) -> None:
+    """Fail the run at once if a phase on the thread has failed."""
+    if st["error"] is not None:
+        fail(f"a phase beside the smoke's own ones failed: {st['error']}")
+
+
+def beside_finish(st: dict) -> dict:
+    st["thread"].join()
+    beside_failed(st)
+    return st["out"]
+
+
+def role_sum(srcs: list[dict], role: str, name: str) -> float:
+    """A counter summed over every source of one role (a respawned
+    process's last snapshot stays among them)."""
+    return sum(metric(s, name) or 0 for s in srcs if s.get("role") == role)
+
+
+def ops_cluster(tag: str, cfg_kw: dict, updates: int, watch_model: bool = False) -> dict:
+    """One ``local_cluster`` under the supervisor's own loop (the chaos
+    poll, respawns, its telemetry), to ``updates``: the learner's exit
+    code, the supervisor's restarts, telemetry.json after the learner's
+    closing snapshot, the audit files, each child's card nodes mid-run (and
+    nvidia-smi's count), and, with ``watch_model``, every Model frame the
+    learner broadcast: its versions and whether each leaf was finite."""
+    import shutil
+
+    from tpu_rl_torch.config import Config, MachinesConfig, WorkerMachine
+    from tpu_rl_torch.runtime.env import probe_spaces
+    from tpu_rl_torch.runtime.protocol import Protocol
+    from tpu_rl_torch.runtime.runner import local_cluster
+    from tpu_rl_torch.runtime.transport import MODEL_HWM, Sub
+
+    rdir = ROOT / ".chip_scratch" / f"ops-{tag}"
+    shutil.rmtree(rdir, ignore_errors=True)
+    cfg = probe_spaces(Config.from_dict(dict(cfg_kw, result_dir=str(rdir))))
+    base = free_block()
+    machines = MachinesConfig(learner_port=base, workers=[WorkerMachine(num_p=2, port=base + 5)])
+    frames: list[tuple[int, bool]] = []  # (version, every leaf finite)
+    done = threading.Event()
+    sub = Sub("127.0.0.1", machines.model_port, bind=False, hwm=MODEL_HWM) if watch_model else None
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        else:
+            yield np.asarray(tree)
+
+    def watch_frames() -> None:
+        while not done.is_set():
+            for proto, payload in sub.drain(max_msgs=64):
+                if proto == Protocol.Model:
+                    frames.append((int(payload.get("ver", -1)),
+                                   all(np.isfinite(x).all() for x in leaves(payload["actor"]))))
+            done.wait(0.02)
+
+    t0 = time.perf_counter()
+    sup = local_cluster(cfg, machines, max_updates=updates)
+    children = {c.name: c for c in sup.children}
+    learner = children["learner"]
+    ctx: dict = {}
+    loop = threading.Thread(target=sup.loop, daemon=True)
+    loop.start()
+    watcher = threading.Thread(target=watch_frames, daemon=True) if sub is not None else None
+    if watcher is not None:
+        watcher.start()
+    try:
+        deadline = time.monotonic() + OPS_TIMEOUT_S
+        while not sup.stop_event.is_set() and time.monotonic() < deadline:
+            if not ctx and learner.proc.is_alive() and card_fds(learner.proc.pid):
+                time.sleep(1.0)  # every child up and past its imports
+                ctx = {"pids": cuda_pids(),
+                       "fds": {n: card_fds(c.proc.pid) for n, c in children.items()
+                               if c.proc.is_alive()}}
+            time.sleep(0.25)
+        if not sup.stop_event.is_set():
+            fail(f"({tag}) the cluster did not finish within {OPS_TIMEOUT_S} s")
+        loop.join(10)
+        learner.proc.join(30)
+        exitcode = learner.proc.exitcode
+        wall = time.perf_counter() - t0
+        # storage writes telemetry.json every half second: wait for the
+        # learner's closing snapshot
+        until = time.monotonic() + 20.0
+        while time.monotonic() < until and not any(
+                s.get("role") == "learner" and s.get("closing") for s in telemetry_sources(rdir)):
+            time.sleep(0.25)
+        time.sleep(1.0)  # and one more write, with every role's last snapshot
+    finally:
+        done.set()
+        if watcher is not None:
+            watcher.join(5)
+            sub.close()
+        sup.stop()
+    srcs = telemetry_sources(rdir)
+    lrn = next((s for s in srcs if s.get("role") == "learner" and s.get("closing")), None)
+    if lrn is None:
+        fail(f"({tag}) no closing snapshot of the learner: {[s.get('role') for s in srcs]}")
+
+    def jsonl(name: str) -> list[dict]:
+        path = rdir / name
+        return [json.loads(x) for x in path.read_text().splitlines() if x.strip()] \
+            if path.exists() else []
+
+    return dict(exitcode=exitcode, wall_s=wall, srcs=srcs, lrn=lrn, K_epoch=cfg.K_epoch,
+                restarts=sum(c.restarts for c in sup.children), ctx=ctx, frames=frames,
+                chaos=jsonl("chaos.jsonl"), rollbacks=jsonl("learner_rollback.jsonl"))
+
+
+def learner_launches(tag: str, run: dict, want_updates: int | None = None) -> dict:
+    """B1/B2 in the learner = updates run x K_epoch (every step runs, a
+    guarded one's result discarded), from its closing snapshot."""
+    lrn = run["lrn"]
+    ran = int(metric(lrn, "learner-updates-run") or 0)
+    fwd = int(metric(lrn, "learner-lstm-fwd-launches") or 0)
+    bwd = int(metric(lrn, "learner-lstm-bwd-launches") or 0)
+    if want_updates is not None and int(metric(lrn, "learner-update-index", "gauges")) != want_updates:
+        fail(f"({tag}) learner index {metric(lrn, 'learner-update-index', 'gauges')}, "
+             f"want {want_updates}")
+    if ran < 1 or (fwd, bwd) != (ran * run["K_epoch"], ran * run["K_epoch"]):
+        fail(f"({tag}) B1/B2 launches {fwd}/{bwd}, want updates run {ran} x K_epoch "
+             f"{run['K_epoch']}")
+    return dict(updates_run=ran, lstm_fwd_launches=fwd, lstm_bwd_launches=bwd)
+
+
+def chaos_cluster_phase(card: str) -> dict:
+    """(X1) CHAOS_RUN to CHAOS_UPDATES: the learner exits 0 at exactly its
+    budget; the SIGKILLed worker respawned and audited in chaos.jsonl;
+    corruptions injected == frames rejected across the fleet, exactly; at
+    least one delayed send and one stalled flush; B1/B2 = updates x
+    K_epoch; B3 = warm-ups + flushes with no remote-acting fallback; only
+    the learner holds a CUDA context."""
+    run = ops_cluster("X1", CHAOS_RUN, CHAOS_UPDATES)
+    srcs, lrn = run["srcs"], run["lrn"]
+    if run["exitcode"] != 0:
+        fail(f"(X1) the learner exited {run['exitcode']}")
+    out = dict(wall_s=run["wall_s"], restarts=run["restarts"],
+               **learner_launches("X1", run, CHAOS_UPDATES))
+    injected = role_sum(srcs, "storage", "chaos-corrupted-frames")
+    rejected = {r: role_sum(srcs, r, f"{r}-rejected-frames") for r in ("worker", "manager", "storage")}
+    out.update(
+        kills=role_sum(srcs, "supervisor", "chaos-process-kills"),
+        corrupted=injected, rejected=rejected,
+        delayed=role_sum(srcs, "manager", "chaos-delayed-frames"),
+        stalls=metric(lrn, "inference-chaos-stalls"),
+        fused_act_launches=int(metric(lrn, "inference-fused-act-launches") or 0),
+        inference_warmups=int(metric(lrn, "inference-warmups") or 0),
+        inference_flushes=int(metric(lrn, "inference-batches") or 0),
+        fallbacks=role_sum(srcs, "worker", "worker-remote-fallbacks"),
+        chaos_records=run["chaos"], contexts=run["ctx"])
+    if run["restarts"] < 1 or out["kills"] < 1:
+        fail(f"(X1) no supervised restart after the chaos kill: {out}")
+    if [(r["ev"], r["action"], r["target"]) for r in run["chaos"]] != [("chaos", "kill", "worker-0-1")]:
+        fail(f"(X1) chaos.jsonl: {run['chaos']}")
+    if injected < 1 or injected != sum(rejected.values()):
+        fail(f"(X1) corruptions injected {injected} != frames rejected {rejected}")
+    if out["delayed"] < 1 or not out["stalls"]:
+        fail(f"(X1) delayed sends {out['delayed']}, stalled flushes {out['stalls']}")
+    if out["fused_act_launches"] != out["inference_warmups"] + out["inference_flushes"] \
+            or out["inference_flushes"] == 0:
+        fail(f"(X1) B3 launches {out['fused_act_launches']}, want warm-ups "
+             f"{out['inference_warmups']} + flushes {out['inference_flushes']}")
+    if out["fallbacks"]:
+        fail(f"(X1) {out['fallbacks']} remote-acting fallbacks (local acting would hide B3)")
+    holders = sorted(n for n, fds in run["ctx"].get("fds", {}).items() if fds)
+    if holders != ["learner"] or len(run["ctx"].get("pids") or ()) != 2:
+        fail(f"(X1) CUDA contexts mid-run: {run['ctx']} (want this process and the learner)")
+    print(f"(X1) chaos cluster {CHAOS_RUN['chaos_spec']!r}: learner exit 0 at {CHAOS_UPDATES} "
+          f"updates in {run['wall_s']:.1f} s, restarts {run['restarts']}, corruptions "
+          f"{injected:.0f} == rejected {rejected}, delayed sends {out['delayed']:.0f}, stalled "
+          f"flushes {out['stalls']:.0f}, B1/B2 {out['lstm_fwd_launches']}/"
+          f"{out['lstm_bwd_launches']} = updates x K_epoch, B3 {out['fused_act_launches']} = "
+          f"warm-ups {out['inference_warmups']} + flushes {out['inference_flushes']}, fallbacks "
+          f"0, contexts {run['ctx']} [{card}]", flush=True)
+    return out
+
+
+def heal_phase(card: str) -> dict:
+    """(X2) HEAL_RUN under HEAL_SPEC: the run ends cleanly; at least one
+    rollback with a bumped epoch; worker 1 quarantined and released;
+    rollout-channel injections == storage's poisoned frames, exactly; at
+    least one guarded non-finite update (B2 ran on non-finite cotangents
+    and returned); every Model frame the learner broadcast finite; B1/B2 =
+    updates run x K_epoch. (tpu_rl's clean run, where the heal plane must
+    do nothing, is cut for the time limit: PERF.md §4.)"""
+    import shutil
+
+    model_dir = ROOT / ".chip_scratch" / "ops-X2-models"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    run = ops_cluster("X2", dict(HEAL_RUN, chaos_spec=HEAL_SPEC, model_dir=str(model_dir)),
+                      HEAL_UPDATES, watch_model=True)
+    srcs, lrn = run["srcs"], run["lrn"]
+    if run["exitcode"] != 0:
+        fail(f"(X2) the learner exited {run['exitcode']}")
+    rec = dict(wall_s=run["wall_s"], **learner_launches("X2", run))
+    rec.update(
+        rollbacks=len(run["rollbacks"]), epochs=[r.get("epoch") for r in run["rollbacks"]],
+        learner_rollbacks=metric(lrn, "learner-rollbacks"),
+        nonfinite_updates=metric(lrn, "learner-nonfinite-updates"),
+        injected=role_sum(srcs, "worker", "chaos-nan-injected")
+        + role_sum(srcs, "worker", "chaos-spike-injected"),
+        logp_injected=role_sum(srcs, "worker", "chaos-logp-nan-injected"),
+        poisoned=role_sum(srcs, "storage", "storage-poisoned-frames"),
+        quarantines=role_sum(srcs, "storage", "storage-quarantines"),
+        unquarantines=role_sum(srcs, "storage", "storage-unquarantines"),
+        quarantined_frames=role_sum(srcs, "storage", "storage-quarantined-frames"),
+        episodes=role_sum(srcs, "worker", "worker-episodes"),
+        model_frames=len(run["frames"]),
+        nonfinite_model_frames=sum(1 for _v, ok in run["frames"] if not ok))
+    if rec["model_frames"] < 1 or rec["nonfinite_model_frames"]:
+        fail(f"(X2) Model frames seen {rec['model_frames']}, non-finite "
+             f"{rec['nonfinite_model_frames']}")
+    if rec["rollbacks"] < 1 or max(rec["epochs"]) < 1 or not rec["learner_rollbacks"]:
+        fail(f"(X2) no rollback with a bumped epoch: {run['rollbacks']}")
+    if rec["quarantines"] < 1 or rec["unquarantines"] < 1:
+        fail(f"(X2) worker 1 quarantined {rec['quarantines']}, released {rec['unquarantines']}")
+    if rec["injected"] < 1 or rec["injected"] != rec["poisoned"]:
+        fail(f"(X2) rollout injections {rec['injected']} != poisoned {rec['poisoned']}")
+    if rec["logp_injected"] < 1 or not rec["nonfinite_updates"]:
+        fail(f"(X2) logp injections {rec['logp_injected']}, guarded non-finite updates "
+             f"{rec['nonfinite_updates']}")
+    if rec["episodes"] < 1:
+        fail("(X2) the fleet produced no episode")
+    print(f"(X2) heal plane {HEAL_SPEC!r}, {HEAL_UPDATES} updates: learner exit 0 in "
+          f"{run['wall_s']:.1f} s; rollbacks {rec['rollbacks']} (epochs {rec['epochs']}); "
+          f"guarded non-finite updates {rec['nonfinite_updates']}; rollout injections "
+          f"{rec['injected']:.0f} == poisoned {rec['poisoned']:.0f} (logp "
+          f"{rec['logp_injected']:.0f}); quarantines {rec['quarantines']:.0f}, released "
+          f"{rec['unquarantines']:.0f}; Model frames {rec['model_frames']} all finite; B1/B2 "
+          f"{rec['lstm_fwd_launches']}/{rec['lstm_bwd_launches']} = updates run "
+          f"{rec['updates_run']} x K_epoch [{card}]", flush=True)
+    return rec
+
+
+def autopilot_start(card: str) -> dict:
+    """(A1) start ``python -m tpu_rl_torch.examples.autopilot_smoke
+    --device cuda`` (its controller a process of its own) and a thread
+    that samples, while it runs, which of its children hold the card (its
+    replicas) and whether it does; :func:`autopilot_finish` waits."""
+    import tempfile
+
+    rdir = Path(tempfile.mkdtemp(prefix="chip_smoke_autopilot_"))
+    out_path = rdir / "autopilot-smoke.json"
+    sched = ",".join(f"{r}:{s}" for r, s in AUTOPILOT_SCHEDULE)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_rl_torch.examples.autopilot_smoke", "--device", "cuda",
+         "--base-port", str(free_block(14)), "--result-dir", str(rdir), "--schedule", sched,
+         "--out", str(out_path)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    st = dict(proc=proc, out=out_path, t0=time.perf_counter(), log=[], seen={},
+              controller_fds=[], max_holders=0)
+
+    def sample() -> None:
+        while proc.poll() is None:
+            kids = subtree(proc.pid)
+            holders = []
+            for p in kids:
+                if running(p):
+                    st["seen"].setdefault(p, cmdline(p))
+                    if card_fds(p):
+                        holders.append(p)
+            st["max_holders"] = max(st["max_holders"], len(holders))
+            st["controller_fds"] = sorted(set(st["controller_fds"]) | set(card_fds(proc.pid)))
+            time.sleep(0.5)
+
+    st["reader"] = threading.Thread(target=lambda: st["log"].extend(proc.stdout), daemon=True)
+    st["sampler"] = threading.Thread(target=sample, daemon=True)
+    st["reader"].start()
+    st["sampler"].start()
+    return st
+
+
+def autopilot_finish(st: dict, card: str) -> dict:
+    """(A1) the autopilot smoke's own bars (it exits 0 only when all hold),
+    and here: its controller process holds no CUDA context and opened
+    none; its replicas held the card; each replica process's B3 launches =
+    its warm-ups + flushes (its last telemetry snapshot) and > 0; no
+    process it started is left."""
+    proc = st["proc"]
+    try:
+        proc.wait(timeout=max(1.0, AUTOPILOT_TIMEOUT_S - (time.perf_counter() - st["t0"])))
+    except subprocess.TimeoutExpired:
+        for p in [proc.pid, *subtree(proc.pid)]:
+            try:
+                os.kill(p, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        proc.wait()
+        fail(f"(A1) the autopilot smoke did not finish in {AUTOPILOT_TIMEOUT_S} s: "
+             f"{''.join(st['log'][-20:])}")
+    st["reader"].join(10)
+    st["sampler"].join(10)
+    wall = time.perf_counter() - st["t0"]
+    tail = "".join(st["log"][-30:])
+    if proc.returncode != 0 or not st["out"].exists():
+        fail(f"(A1) the autopilot smoke exited {proc.returncode}: {tail}")
+    res = json.loads(st["out"].read_text())
+    doc, snaps = res["doc"], res["replicas"]
+    if res["failures"]:
+        fail(f"(A1) {res['failures']}")
+    if doc["cuda_initialized"] or st["controller_fds"]:
+        fail(f"(A1) the controller process holds a CUDA context: {st['controller_fds']}")
+    if st["max_holders"] < 2:
+        fail(f"(A1) at most {st['max_holders']} replica processes held the card at once")
+    b3 = {}
+    for pid, snap in snaps.items():
+        rid = f"inference-{snap.get('rid', '?')}"
+        launches = int(metric(snap, "inference-fused-act-launches") or 0)
+        warm = int(metric(snap, "inference-warmups") or 0)
+        flushes = int(metric(snap, "inference-batches") or 0)
+        b3[f"{rid} (pid {pid})"] = dict(launches=launches, warmups=warm, flushes=flushes,
+                                        stalls=metric(snap, "inference-chaos-stalls"))
+        if launches != warm + flushes or launches < 1:
+            fail(f"(A1) replica {rid} pid {pid}: B3 launches {launches}, want warm-ups {warm} + "
+                 f"flushes {flushes}")
+    time.sleep(1.0)
+    left = {p: c for p, c in st["seen"].items() if running(p)}
+    if left:
+        fail(f"(A1) processes of the autopilot smoke left running: {left}")
+    actions = doc["actions"]
+    rec = dict(wall_s=wall, schedule=AUTOPILOT_SCHEDULE, overall=doc["overall"],
+               floors=[s["version_floor"] for s in doc["stages"]],
+               stages=[{k: s.get(k) for k in ("offered_rps", "achieved_rps", "p50_ms", "p99_ms",
+                                                "hedges", "failovers", "reprobes")}
+                       | {"slo_ok": (s.get("slo") or {}).get("ok")} for s in doc["stages"]],
+               actions=[(a["action"], a["from"], a["to"]) for a in actions],
+               autopilot=doc["autopilot"], b3_by_replica=b3, max_replicas_on_card=st["max_holders"],
+               processes_started=len(st["seen"]))
+    print(f"(A1) autopilot smoke, schedule {AUTOPILOT_SCHEDULE}: {wall:.1f} s; overall "
+          f"{doc['overall']}; floors {rec['floors']}; actions {rec['actions']}; final replicas "
+          f"{doc['autopilot'].get('replicas')}; stages {rec['stages']}; B3 by replica process "
+          f"(launches = warm-ups + flushes) {b3}; at most {st['max_holders']} replicas on the "
+          f"card at once, none in the controller; {len(st['seen'])} processes started, none "
+          f"left [{card}]", flush=True)
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs one CUDA card")
@@ -5369,15 +5879,33 @@ def main() -> None:
         print(f"ptxas: {line}", flush=True)
 
     laps = [time.perf_counter()]
+    beside: dict | None = None
 
     def lap(name: str) -> None:
         """Seconds since the previous phase ended (where the limit goes)."""
         laps.append(time.perf_counter())
         print(f"phase {name}: {laps[-1] - laps[-2]:.1f} s (at {laps[-1] - t_start:.1f} s)",
               flush=True)
+        if beside is not None:
+            beside_failed(beside)
 
+    # The kernels' own rows first, while nothing else runs on the card:
+    # their times go into the kernels line.
     shapes = kernel_phase()
     lap("shapes")
+    lstm_rows = lstm_phase()
+    lap("lstm_rows")
+    attn_rows = attention_phase()
+    lap("attn_rows")
+    blockwise_rows = blockwise_phase(card)
+    lap("blockwise_rows")
+    mixed_dot_rows = mixed_dot_check(card)
+    lap("mixed_dot_rows")
+    # From here on every phase whose processes hold the card runs on a
+    # thread, one after the other (beside_start); this process runs its own
+    # phases beside them, and they launch their kernels here only (the time
+    # limit, PERF.md §4).
+    beside = beside_start(card, t_start)
     serving = serve_phase()
     lap("serving")
     serving_checks(serving, "serving", card)
@@ -5393,8 +5921,6 @@ def main() -> None:
         serving_checks(quant_serving[mode], f"serving {mode}", card)
     lap("quant_serving")
 
-    lstm_rows = lstm_phase()
-    lap("lstm_rows")
     training = train_phase(card)
     lap("training")
     learning = learn_phase(card)
@@ -5403,8 +5929,6 @@ def main() -> None:
     lap("wide_training")
     wide_impala = wide_lstm_train_phase(card, "IMPALA")
     lap("wide_impala")
-    mixed_dot_rows = mixed_dot_check(card)
-    lap("mixed_dot_rows")
     bf16_ref = bf16_ref_phase(card)
     lap("bf16_ref")
     wide_bf16 = wide_lstm_train_phase(card, "IMPALA", "bfloat16")
@@ -5430,10 +5954,6 @@ def main() -> None:
     lap("colocated_algos")
     impala_learning = impala_learn_phase(card)
     lap("impala_learning")
-    attn_rows = attention_phase()
-    lap("attn_rows")
-    blockwise_rows = blockwise_phase(card)
-    lap("blockwise_rows")
     tf_training = tf_train_phase(card)
     lap("tf_training")
     tf_algos = tf_algos_phase(card)
@@ -5453,22 +5973,24 @@ def main() -> None:
     lap("feeds")
     reports = report_compare_check(telemetry["colocated"].pop("result_dir"), card)
     lap("reports")
-    cluster = cluster_phase(card)
-    lap("cluster")
-    fleet = fleet_phase(card)
-    lap("fleet")
-    dp = dp_phase(card)
+    out = beside_finish(beside)
+    beside = None
+    lap("the phases beside (the rest of them)")
+    cluster, population = out["cluster"], out["population"]
+    ops = {k: out[k] for k in ("A1", "X2", "X1")}
+    fleet = {"cluster": out["F1"], **out["F2"], "sharded": sharded_phase(card)}
+    lap("sharded")
+    # the in-process halves of the phases whose ranks ran beside: world
+    # size 1 over NCCL, and the checks of the ranks against it
+    dp = dp_phase(card, out["dp ranks"], out["P3"])
     lap("dp")
     sp = sp_phase(card, dp, attn_rows, blockwise_rows)
     lap("sp")
     sebulba = sebulba_phase(card)
     lap("sebulba")
-    cli = sebulba_cli_start()
-    multihost = multihost_phase(card)
-    sebulba_cli = sebulba_cli_phase(card, cli)
-    lap("multihost and sebulba_cli")
-    population = population_phase(card)
-    lap("population")
+    multihost = multihost_phase(card, out["M1 ranks"])
+    sebulba_cli = out["S2"]
+    lap("multihost")
     # every process the run started has ended by now; any that has not is
     # stopped here and named
     leftovers = stop_leftovers()
@@ -5524,6 +6046,11 @@ def main() -> None:
             **{f"sharded replica ({n}) device {dev}": v
                for n in ("1_devices", "2_devices") if n in fleet["sharded"]
                for dev, v in fleet["sharded"][n]["b3_by_device"].items()},
+            # the operations planes: the chaos cluster's learner service
+            # (stalled flushes), each autopilot replica process
+            "(X1) chaos cluster remote acting": ops["X1"]["fused_act_launches"],
+            **{f"(A1) autopilot replica {rid}": b["launches"]
+               for rid, b in ops["A1"]["b3_by_replica"].items()},
         },
         card=card,
         shapes=shapes,
@@ -5600,6 +6127,12 @@ def main() -> None:
                 **{f"population member {k} ({m['updates_run']} updates run over "
                    f"{len(m['incarnations'])} processes)": m[f"{name}_launches"]
                    for k, m in population["members"].items()},
+                # the operations planes: the chaos cluster's learner, and the
+                # heal plane's (every update run, guarded ones included: B2
+                # on non-finite cotangents)
+                "(X1) chaos cluster PPO": ops["X1"][f"{name}_launches"],
+                f"(X2) heal plane under data chaos ({ops['X2']['updates_run']} updates run, "
+                f"{ops['X2']['nonfinite_updates']:.0f} guarded)": ops["X2"][f"{name}_launches"],
             },
             # the inline trainer's shape (32,5,64), lstm_phase's row
             inline_ms=inline["kernel_ms"][name],
@@ -5670,7 +6203,7 @@ def main() -> None:
         "telemetry": telemetry, "inline": inline, "feeds": feeds,
         "report_compare": reports, "cluster": cluster, "fleet": fleet, "data_parallel": dp,
         "sequence_parallel": sp, "sebulba": sebulba, "sebulba_cli": sebulba_cli,
-        "multihost": multihost, "population": population,
+        "multihost": multihost, "population": population, "operations_planes": ops,
         "leftover_processes": leftovers}, default=str), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -134,28 +134,28 @@ def test_c13_refusals_match(raw, err):
 
 @pytest.mark.parametrize("key", ["autopilot_spec", "autopilot_poll_s", "autopilot_drain_s"])
 def test_autopilot_keys_refused_where_tpu_rl_refuses(key):
-    """The autopilot's keys stay in ``extra`` until its slice: every
-    candidate ``tpu_rl`` refuses, the port refuses (its knobs with the same
-    exception type; a spec string with a ValueError, as tpu_rl's parse
-    error); a set spec is refused whatever it says, naming the slice that
-    brings it; the defaults load."""
-    from tpu_rl_torch.config import NotPortedError
-
-    for value in CANDIDATES:
+    """The autopilot's keys are fields since the operations planes: every
+    candidate ``tpu_rl`` refuses, the port refuses with the same exception
+    type (a spec string with the same parse error); the defaults load as
+    fields, and a spec tpu_rl takes, the port takes."""
+    for value in CANDIDATES + ("scale_sideways:replicas?burn:x>1", "limit=6"):
         want = _refusal(JaxConfig, {key: value})
         if want is None:
             continue
         got = _refusal(Config, {key: value})
-        assert got is not None, (key, value, want)
-        if key != "autopilot_spec" or isinstance(value, str):
-            assert issubclass(got, want), (key, value, want, got)
+        assert got is want, (key, value, want, got)
     default = getattr(JaxConfig(), key)
-    assert Config.from_dict({key: default}).extra == {key: default}
+    cfg = Config.from_dict({key: default})
+    assert getattr(cfg, key) == default == getattr(Config(), key) and cfg.extra == {}
     if key == "autopilot_spec":
         spec = "scale_out:replicas?burn:inference-rtt>0.5@sustain=3@max=4"
         JaxConfig.from_dict({key: spec})
-        with pytest.raises(NotPortedError, match="serving and operations slice"):
-            Config.from_dict({key: spec})
+        assert Config.from_dict({key: spec}).autopilot_spec == spec
+        with pytest.raises(ValueError, match="scale_sideways") as got:
+            Config.from_dict({key: "scale_sideways:replicas?burn:x>1"})
+        with pytest.raises(ValueError) as want:
+            JaxConfig.from_dict({key: "scale_sideways:replicas?burn:x>1"})
+        assert str(got.value) == str(want.value)
 
 
 def test_slice_fields_round_trip_through_to_json(tmp_path):
@@ -163,9 +163,14 @@ def test_slice_fields_round_trip_through_to_json(tmp_path):
     port's Config writes what it loads, the ``extra`` keys included."""
     raw = {"env_mode": "colocated", "sebulba_split": 1, "sebulba_queue": 3,
            "pop_spec": "lr:log[1e-4,1e-3] k=2", "pop_seed": 7, "chaos_seed": 5,
-           "value_target_clip": [0.0, 1.0]}
+           "chaos_spec": "kill:member-1@t+5s", "autopilot_poll_s": 0.25,
+           "value_target_clip": [0.0, 1.0], "a_key_of_a_newer_tpu_rl": 5}
     cfg = Config.from_dict(raw)
     cfg.to_json(tmp_path / "c.json")
     back = Config.from_json(tmp_path / "c.json")
-    assert back == cfg and back.extra == {"chaos_seed": 5}
-    assert JaxConfig.from_json(tmp_path / "c.json").pop_seed == 7
+    assert back == cfg and back.extra == {"a_key_of_a_newer_tpu_rl": 5}
+    assert (back.chaos_seed, back.chaos_spec, back.autopilot_poll_s) == (
+        5, "kill:member-1@t+5s", 0.25)
+    jax_back = JaxConfig.from_json(tmp_path / "c.json")
+    assert (jax_back.pop_seed, jax_back.chaos_seed, jax_back.chaos_spec) == (
+        7, 5, "kill:member-1@t+5s")

@@ -80,6 +80,10 @@ def test_port_imports_no_jax_and_no_tpu_rl():
         "tpu_rl_torch.examples.loadgen_smoke",
         "tpu_rl_torch.runtime.sebulba", "tpu_rl_torch.launch", "tpu_rl_torch.population",
         *(f"tpu_rl_torch.population.{m}" for m in ("spec", "member", "controller")),
+        "tpu_rl_torch.chaos", *(f"tpu_rl_torch.chaos.{m}" for m in ("plan", "inject", "process")),
+        "tpu_rl_torch.autopilot",
+        *(f"tpu_rl_torch.autopilot.{m}" for m in ("policy", "signals", "controller")),
+        "tpu_rl_torch.obs.top", "tpu_rl_torch.examples.autopilot_smoke",
     ):
         assert name in doc["imported"], name
 
@@ -109,13 +113,20 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 def test_config_keeps_unknown_keys_and_refuses_later_slices():
     cfg = Config.from_dict(
         {"hidden_size": 32, "obs_shape": [6], "chaos_spec": None, "lr": 3e-4,
-         "worker_step_sleep": 0.05, "mesh_seq": 1, "sebulba_queue": 2, "chaos_seed": 3}
+         "worker_step_sleep": 0.05, "mesh_seq": 1, "sebulba_queue": 2, "chaos_seed": 3,
+         "a_key_of_a_newer_tpu_rl": [1, 2]}
     )
     assert cfg.obs_shape == (6,) and cfg.hidden_size == 32 and cfg.lr == 3e-4
     # the distributed runtime's keys are fields since its slice, the mesh
-    # keys since the multi-GPU slice, the split's since the topology slice
+    # keys since the multi-GPU slice, the split's since the topology slice,
+    # the chaos plane's since the operations planes; no slice is left, and a
+    # key the port does not know is kept aside
     assert cfg.worker_step_sleep == 0.05 and cfg.mesh_seq == 1 and cfg.sebulba_queue == 2
-    assert cfg.extra == {"chaos_spec": None, "chaos_seed": 3}
+    assert cfg.chaos_spec is None and cfg.chaos_seed == 3
+    assert cfg.extra == {"a_key_of_a_newer_tpu_rl": [1, 2]}
+    import tpu_rl_torch.config as C
+
+    assert not hasattr(C, "LATER_SLICES") and not hasattr(C, "NotPortedError")
     # bf16/int8 serving and the checkpoint directory load now
     for mode in ("bf16", "int8"):
         assert Config.from_dict({"inference_dtype": mode}).inference_dtype == mode
@@ -145,18 +156,26 @@ def test_config_keeps_unknown_keys_and_refuses_later_slices():
         Config.from_dict({"compute_dtype": "bfloat16", "act_kernel": "pallas"})
 
 
-@pytest.mark.parametrize("key,value,slice_name", [
-    ("autopilot_spec", "scale_out:replicas?burn:x>0.5", "serving and operations slice"),
-    ("chaos_spec", "nan:rollout@p=0.4", "serving and operations slice"),
+@pytest.mark.parametrize("key,value,bad", [
+    ("autopilot_spec", "scale_out:replicas?burn:x>0.5", "scale_out:replicas?burn:x>fast"),
+    ("chaos_spec", "nan:rollout@p=0.4", "nan:rollout"),
 ])
-def test_config_refuses_keys_the_port_would_drop(key, value, slice_name):
-    """A key that makes tpu_rl run its autopilot or arm chaos is refused
-    away from its default, naming the slice that brings it; at its default
-    (or absent) it loads. (The split, refused here until it was ported,
-    is a field now: tests/test_torch_sebulba.py.)"""
-    with pytest.raises(NotImplementedError, match=slice_name):
-        Config.from_dict({key: value})
-    assert Config.from_dict({key: None}).extra == {key: None}
+def test_config_refuses_keys_the_port_would_drop(key, value, bad):
+    """The keys that make tpu_rl run its autopilot or arm chaos, refused
+    here until the operations planes were ported, are fields: a spec tpu_rl
+    takes loads (parsed at load), one it refuses is refused with the same
+    error, and the default (None) loads with nothing kept aside."""
+    from tpu_rl.config import Config as JaxConfig
+
+    assert getattr(Config.from_dict({key: value}), key) == value
+    assert getattr(JaxConfig.from_dict({key: value}), key) == value
+    with pytest.raises(ValueError) as want:
+        JaxConfig.from_dict({key: bad})
+    with pytest.raises(ValueError) as got:
+        Config.from_dict({key: bad})
+    assert str(got.value) == str(want.value)
+    cfg = Config.from_dict({key: None})
+    assert getattr(cfg, key) is None and cfg.extra == {}
 
 
 @pytest.mark.parametrize("key,value", [("inference_replicas", 3), ("inference_mesh_data", 2)])
@@ -282,7 +301,9 @@ def test_config_loads_a_full_tpu_rl_params_file():
     cfg = Config.from_dict(raw)
     assert cfg.hidden_size == 256 and cfg.inference_batch == 256
     assert cfg.obs_shape == (4,)
-    assert "chaos_spec" in cfg.extra and "hidden_size" not in cfg.extra
+    # every key is a field since the operations planes: nothing kept aside
+    assert cfg.extra == {} and cfg.chaos_spec is None and cfg.autopilot_spec is None
+    assert set(raw) <= set(cfg.to_dict())
 
 
 # The reference's algorithm keys: (key, default, a value its assert refuses).

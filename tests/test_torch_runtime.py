@@ -323,15 +323,25 @@ def test_cli_local_role(tmp_path):
     assert any(n.startswith("PPO_") for n in os.listdir(tmp_path / "run" / "models"))
 
 
-def test_later_roles_are_refused():
-    """The autopilot role waits for its slice; the population role, ported
-    with the training-topology slice, builds its controller (and, as
-    tpu_rl's, asserts a pop_spec)."""
+def test_later_roles_are_refused(tmp_path):
+    """No role is refused any more: the autopilot role, ported with the
+    operations planes, builds its controller (and, as tpu_rl's, asserts an
+    autopilot_spec and a result_dir); the population role, ported with the
+    training-topology slice, builds its controller (and asserts a
+    pop_spec)."""
+    from tpu_rl_torch.autopilot import AutopilotController
     from tpu_rl_torch.population import PopulationController
     from tpu_rl_torch.runtime.runner import autopilot_role, population_role
 
-    with pytest.raises(NotImplementedError, match="A 9"):
+    with pytest.raises(AssertionError, match="autopilot_spec"):
         autopilot_role(Config())
+    with pytest.raises(AssertionError, match="result_dir"):
+        autopilot_role(Config(autopilot_spec="scale_out:replicas?burn:x>0.5@max=2"))
+    pilot = autopilot_role(Config(autopilot_spec="scale_out:replicas?burn:x>0.5@max=2",
+                                  result_dir=str(tmp_path), learner_device="cpu"))
+    assert isinstance(pilot, AutopilotController) and pilot.replicas.capacity == 2
+    if pilot._telem_pub is not None:
+        pilot._telem_pub.close()
     with pytest.raises(AssertionError, match="pop_spec"):
         population_role(Config())
     ctrl = population_role(Config.from_dict({"env_mode": "colocated", "result_dir": "unused",

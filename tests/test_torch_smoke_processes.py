@@ -115,3 +115,113 @@ def test_sigterm_stops_the_runs_processes(tmp_path):
     while time.monotonic() < deadline and (_alive(kid) or _alive(grandchild)):
         time.sleep(0.1)
     assert not _alive(kid) and not _alive(grandchild)
+
+
+_CHAOS = """
+import json, os, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from tpu_rl_torch.chaos import ProcessChaos
+from tpu_rl_torch.runtime.runner import Supervisor
+
+SLEEP = [sys.executable, "-c", "import time; time.sleep(120)"]
+
+
+def parent(stop_event, heartbeat):
+    # a role with a child of its own: SIGKILLed by chaos, it orphans it
+    subprocess.Popen(SLEEP)
+    while not stop_event.is_set():
+        heartbeat.value = time.time()
+        time.sleep(0.05)
+
+
+def up(child):
+    # the child loops (its sleeper started) once its heartbeat moves on
+    t = child.heartbeat.value
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and child.heartbeat.value <= t + 0.1:
+        time.sleep(0.05)
+
+
+if __name__ == "__main__":
+    cs.adopt_orphans()
+    sup = Supervisor(poll_s=0.05, heartbeat_timeout=60.0, startup_grace=60.0,
+                     log_root=sys.argv[2],
+                     chaos=ProcessChaos.from_spec("kill:parent-0@t+0.2s"))
+    first_child = sup.spawn("parent-0", parent)
+    first = first_child.proc.pid
+    up(first_child)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and sup.children[0].restarts == 0:
+        sup.poll_chaos()
+        sup.check()
+        time.sleep(0.05)
+    up(sup.children[0])
+    # a child spawned once the phase was under way (an autopilot scale-out)
+    late_child = sup.spawn("late-1", parent)
+    late = late_child.proc.pid
+    up(late_child)
+    orphans = [p for p in cs.children_of(os.getpid()) if "time.sleep(120)" in
+               open(f"/proc/{p}/cmdline", "rb").read().decode(errors="replace")]
+    respawned = sup.children[0].proc.pid
+    left = cs.stop_leftovers(grace_s=1.0)
+    tracker = __import__("multiprocessing").resource_tracker._resource_tracker._pid
+    print(json.dumps(dict(
+        left=[d["pid"] for d in left], first=first, respawned=respawned, late=late,
+        orphans=orphans, kills=sup.chaos.n_kills, restarts=sup.children[0].restarts,
+        first_state=cs.proc_state(first),
+        after=[p for p in cs.children_of(os.getpid()) if p != tracker],
+        again=cs.stop_leftovers(grace_s=1.0))))
+"""
+
+
+def test_stop_leftovers_reaps_chaos_killed_and_late_children(tmp_path):
+    """A supervised child SIGKILLed by the chaos plane (its own child
+    orphaned to the run), its respawn, and a child spawned after the phase
+    began: the sweep stops the respawn, the late child, the orphan and
+    their children, and no process of the run, zombie or not, is left."""
+    probe = tmp_path / "chaos_probe.py"
+    probe.write_text(_CHAOS)
+    out = subprocess.run([sys.executable, str(probe), str(REPO), str(tmp_path / "logs")],
+                         capture_output=True, text=True, timeout=90, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert doc["kills"] == 1 and doc["restarts"] == 1
+    assert doc["respawned"] != doc["first"]
+    # the killed child is gone and reaped; its orphan came to the run
+    assert doc["first_state"] is None
+    assert len(doc["orphans"]) == 1
+    left = set(doc["left"])
+    assert {doc["respawned"], doc["late"], *doc["orphans"]} <= left
+    # the respawn's and the late child's own sleepers: 2 more
+    assert len(left) == 5, doc
+    assert doc["after"] == [] and doc["again"] == []
+
+
+def test_free_blocks_never_overlap_across_threads():
+    """Port blocks handed out to phases on two threads never overlap, and
+    no single free port falls inside one: a replica spawned minutes after
+    its block was chosen still finds its port free of the smoke's own
+    use."""
+    import threading
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    got: list[tuple[int, int]] = []
+
+    def take() -> None:
+        for n in (14, 12, 8):
+            base = cs.free_block(n)
+            got.append((base, base + n))
+
+    threads = [threading.Thread(target=take) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(got) == 12
+    for i, (lo, hi) in enumerate(got):
+        assert all(hi <= lo2 or hi2 <= lo for lo2, hi2 in got[i + 1:]), got
+    ports = [cs.free_port() for _ in range(50)]
+    assert not [p for p in ports if any(lo <= p < hi for lo, hi in got)]

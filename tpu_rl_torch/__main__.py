@@ -10,13 +10,19 @@ Examples:
     python -m tpu_rl_torch local --env-mode colocated --sebulba-split 1
     python -m tpu_rl_torch population --env-mode colocated \
         --pop-spec 'lr:log[1e-4,1e-3] interval=50u k=2' --max-updates 200
+    python -m tpu_rl_torch local --max-updates 10 \
+        --chaos-spec 'kill:worker-0-1@t+6s,corrupt:rollout@p=0.02' --chaos-seed 7
+    python -m tpu_rl_torch autopilot --act-mode remote --telemetry-port 29500 \
+        --autopilot-spec 'scale_out:replicas?burn:inference-rtt>0.5@max=3' \
+        --autopilot-manage-all
 
 The learner trains on the card (``learner_device="auto"``, the default) and
 refuses to run without one; a params file with ``"learner_device": "cpu"``
 runs it on the plain path on the CPU. There is no device flag, as in
 ``tpu_rl``. The population role runs the PBT controller in this process
-(its members are its children); the autopilot role and the chaos flags
-come with a later slice of the port.
+(its members are its children), and so does the autopilot role (its
+inference replicas are its children, on the card unless the params file
+says ``"learner_device": "cpu"``).
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ from tpu_rl_torch.config import Config, MachinesConfig, default_result_dirs
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tpu_rl_torch")
-    p.add_argument("role", choices=["local", "learner", "manager", "worker", "population"],
+    p.add_argument("role", choices=["local", "learner", "manager", "worker", "population",
+                                     "autopilot"],
                    help="which role this host runs ('population' = the PBT controller "
-                   "orchestrating K member runs; see tpu_rl_torch.population)")
+                   "orchestrating K member runs; see tpu_rl_torch.population; "
+                   "'autopilot' = the fleet autopilot scaling inference replicas; "
+                   "see tpu_rl_torch.autopilot)")
     p.add_argument("--params", help="parameters.json-shaped config file")
     p.add_argument("--machines", help="machines.json-shaped topology file")
     p.add_argument("--machine-idx", type=int, default=0,
@@ -50,6 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(Podracer's Sebulba); 0/unset = the colocated loop")
     p.add_argument("--sebulba-queue", type=int, default=None,
                    help="batch slots between the sebulba groups (2 = double buffering)")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="learner data-mesh size: ranks of the data-parallel learner "
+                   "(0/unset = the params file's, default 1)")
     p.add_argument("--act-mode", choices=["local", "remote"], default=None,
                    help="'remote' routes worker acting through the learner's "
                    "inference service or fleet; 'local' acts on worker host cores")
@@ -111,12 +123,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="declarative SLO rules (see tpu_rl_torch.obs.slo)")
     p.add_argument("--slo-fail-run", action="store_true",
                    help="exit nonzero (storage child) on a failing final SLO verdict")
+    p.add_argument("--chaos-spec", default=None,
+                   help="deterministic fault plan, e.g. 'kill:worker-0-1@t+3s,"
+                   "corrupt:rollout@p=0.01,delay:manager@50ms' (see tpu_rl_torch.chaos.plan)")
+    p.add_argument("--chaos-seed", type=int, default=None,
+                   help="seed of the chaos plane's per-site random streams")
     p.add_argument("--pop-spec", default=None,
                    help="PBT search space and schedule of the population role, e.g. "
                    "'lr:log[1e-4,1e-2] entropy_coef:lin[0,0.05] perturb=1.2,0.8 "
                    "interval=200u k=4' (see tpu_rl_torch.population.spec)")
     p.add_argument("--pop-seed", type=int, default=None,
                    help="seed of the population's sampling, mutation and selection")
+    p.add_argument("--autopilot-spec", default=None,
+                   help="scaling rules of the autopilot role, e.g. "
+                   "'scale_out:replicas?burn:inference-rtt>0.5@sustain=3@cooldown=10s@max=4,"
+                   "scale_in:replicas?burn:inference-rtt<0.05@min=1,limit=6/60s' "
+                   "(see tpu_rl_torch.autopilot.policy)")
+    p.add_argument("--autopilot-poll", type=float, default=None,
+                   help="seconds between autopilot control ticks (scrape, decide, act)")
+    p.add_argument("--autopilot-manage-all", action="store_true",
+                   help="the autopilot owns the whole replica range from index 0 "
+                   "(a standalone fleet); default: the learner's replicas stay "
+                   "untouched and the autopilot manages only the elastic tail")
     p.add_argument("--heartbeat-timeout", type=float, default=None)
     p.add_argument("--startup-grace", type=float, default=None)
     p.add_argument("--supervise-poll", type=float, default=None)
@@ -128,6 +156,8 @@ _OVERRIDES = (
     ("env", "env"), ("algo", "algo"), ("env_mode", "env_mode"),
     ("colocated_envs", "colocated_envs"), ("sebulba_split", "sebulba_split"),
     ("sebulba_queue", "sebulba_queue"), ("pop_spec", "pop_spec"), ("pop_seed", "pop_seed"),
+    ("chaos_spec", "chaos_spec"), ("chaos_seed", "chaos_seed"),
+    ("autopilot_spec", "autopilot_spec"), ("autopilot_poll", "autopilot_poll_s"),
     ("act_mode", "act_mode"),
     ("inference_replicas", "inference_replicas"), ("inference_hedge_ms", "inference_hedge_ms"),
     ("inference_mesh_data", "inference_mesh_data"),
@@ -149,6 +179,9 @@ def load_config(args: argparse.Namespace) -> tuple[Config, MachinesConfig]:
         field: getattr(args, flag) for flag, field in _OVERRIDES
         if getattr(args, flag) not in (None, "")
     }
+    if args.mesh_data:
+        # tpu_rl's rule: 0 is no override
+        overrides["mesh_data"] = args.mesh_data
     if args.no_learn_diag:
         overrides["learn_diag"] = False
     if args.watchdog_diag:
@@ -193,6 +226,14 @@ def main(argv: list[str] | None = None) -> int:
         # The controller is the orchestrator: it runs in this process and
         # drives its own supervisor (the members are its children).
         ctrl = runner.population_role(cfg, machines, max_updates=args.max_updates)
+        ctrl.install_signal_handlers()
+        doc = ctrl.run()
+        return 0 if doc.get("ok") else 1
+    if args.role == "autopilot":
+        # the same controller-as-orchestrator shape as the population role
+        ctrl = runner.autopilot_role(
+            cfg, machines, manage_all=args.autopilot_manage_all, seed=args.seed,
+        )
         ctrl.install_signal_handlers()
         doc = ctrl.run()
         return 0 if doc.get("ok") else 1

@@ -4,15 +4,14 @@
 ``Config`` holds the fields the serving, training, durability and
 distributed-runtime slices read, with ``tpu_rl``'s names, defaults and
 asserts, so an existing params file loads unchanged. Keys the port does not
-know yet are kept in ``extra``: a full ``tpu_rl`` params file still loads.
-Those of them that would make ``tpu_rl`` do something the port does not do
-yet (arm chaos, run the autopilot) are refused at a value other than
-their default (:data:`LATER_SLICES`, :class:`NotPortedError`), so that a
-run never silently does less than asked. The multi-GPU keys
-(``mesh_data``, ``mesh_seq``, ``multihost``, ``sebulba_split``,
-``sebulba_queue``), the inference fleet's (``inference_replicas``,
-``inference_mesh_data``) and the population's (``pop_spec``, ``pop_seed``)
-are fields, with ``tpu_rl``'s asserts.
+know are kept in ``extra``: a full ``tpu_rl`` params file still loads. The
+multi-GPU keys (``mesh_data``, ``mesh_seq``, ``multihost``,
+``sebulba_split``, ``sebulba_queue``), the inference fleet's
+(``inference_replicas``, ``inference_mesh_data``), the population's
+(``pop_spec``, ``pop_seed``), the chaos plane's (``chaos_spec``,
+``chaos_seed``) and the autopilot's (``autopilot_spec``,
+``autopilot_poll_s``, ``autopilot_drain_s``) are fields, with ``tpu_rl``'s
+asserts; each spec string is parsed at load.
 
 One deliberate divergence (ROADMAP C 7): ``learner_device="auto"`` means
 the card, and a learner without one raises; ``tpu_rl`` probes its
@@ -25,7 +24,7 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any
 
 # Algorithms that train from a replay (tpu_rl.config.OFF_POLICY_ALGOS).
 OFF_POLICY_ALGOS = frozenset({"SAC", "SAC-Continuous"})
@@ -45,23 +44,6 @@ FINGERPRINT_FIELDS = (
 
 def is_off_policy(algo: str) -> bool:
     return algo in OFF_POLICY_ALGOS
-
-# Keys of a tpu_rl params file that the port keeps in ``extra`` but refuses
-# away from their default: (key, is it set?, the slice of the port that
-# brings it). Defaults as in tpu_rl.config.Config.
-LATER_SLICES: tuple[tuple[str, Callable[[Any], bool], str], ...] = (
-    ("chaos_spec", lambda v: v is not None, "serving and operations slice (A 9: chaos)"),
-    ("autopilot_spec", lambda v: v is not None,
-     "serving and operations slice (A 9: autopilot)"),
-)
-
-
-class NotPortedError(NotImplementedError, ValueError):
-    """A key of a plane the port does not run yet, set away from its
-    default. Also a ``ValueError``: the type ``tpu_rl`` raises for a spec
-    string it cannot parse, so a params file that ``tpu_rl`` refuses is
-    refused here with a type its callers already catch."""
-
 
 @dataclass
 class Config:
@@ -316,6 +298,20 @@ class Config:
     # seed every member's seed, draw and mutation derive from.
     pop_spec: str | None = None
     pop_seed: int = 0
+    # Chaos plane (tpu_rl_torch.chaos): the fault plan, e.g.
+    # "kill:worker-0-1@t+3s,corrupt:rollout@p=0.01,delay:manager@50ms"
+    # (chaos/plan.py grammar, parse-checked at load; None = no injector
+    # anywhere, every hook one `is None` check), and the base seed each
+    # socket/service derives its stream from (crc32 of site/instance).
+    chaos_spec: str | None = None
+    chaos_seed: int = 0
+    # Autopilot plane (tpu_rl_torch.autopilot): the scaling rules
+    # (autopilot/policy.py grammar, parse-checked at load; None = no
+    # engine, no controller), the seconds between control ticks, and the
+    # grace between a scale-in decision and the replica's SIGTERM.
+    autopilot_spec: str | None = None
+    autopilot_poll_s: float = 1.0
+    autopilot_drain_s: float = 0.5
     # runtime-derived (filled by the runner, not the JSON)
     obs_shape: tuple[int, ...] = (4,)
     action_space: int = 2
@@ -341,13 +337,6 @@ class Config:
         return cfg
 
     def validate(self) -> None:
-        for key, is_set, slice_name in LATER_SLICES:
-            value = self.extra.get(key)
-            if value is not None and is_set(value):
-                raise NotPortedError(
-                    f"{key}={value!r}: the port does not do this yet; it comes with the "
-                    f"{slice_name} of the port"
-                )
         assert self.seq_len >= 2, "seq_len must be >= 2 (losses bootstrap from t+1)"
         assert self.batch_size >= 1
         assert self.buffer_size >= self.batch_size
@@ -391,6 +380,11 @@ class Config:
             )
         assert self.loss_log_interval >= 1, self.loss_log_interval
         self._validate_runtime()
+        if self.chaos_spec:
+            # a bad plan fails at load, not minutes later in a spawned child
+            from tpu_rl_torch.chaos.plan import FaultPlan
+
+            FaultPlan.parse(self.chaos_spec)
         if self.slo_spec:
             # a typo'd rule dies at load, not silently mid-run
             from tpu_rl_torch.obs.slo import parse_slo_spec
@@ -403,11 +397,12 @@ class Config:
 
             PopSpec.parse(self.pop_spec).check_searchable()
         assert self.pop_seed >= 0, self.pop_seed
-        # the autopilot's knobs (its spec is refused above until it is ported)
-        poll = self.extra.get("autopilot_poll_s", 1.0)
-        assert poll > 0, poll
-        drain = self.extra.get("autopilot_drain_s", 0.5)
-        assert drain >= 0, drain
+        if self.autopilot_spec:
+            from tpu_rl_torch.autopilot.policy import AutopilotSpec
+
+            AutopilotSpec.parse(self.autopilot_spec)
+        assert self.autopilot_poll_s > 0, self.autopilot_poll_s
+        assert self.autopilot_drain_s >= 0, self.autopilot_drain_s
         assert 0 <= self.telemetry_port < 65536, self.telemetry_port
         assert self.telemetry_interval_s > 0, self.telemetry_interval_s
         assert self.telemetry_stale_s > 0, self.telemetry_stale_s

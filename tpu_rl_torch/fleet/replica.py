@@ -288,6 +288,9 @@ def _publish_replica(registry, svc: InferenceReplica) -> None:
     registry.counter("inference-warmups").set_total(len(svc.buckets))
     registry.counter("inference-flush-deadline").set_total(svc.n_flush_deadline)
     registry.gauge("fleet-replica-version").set(svc.version)
+    if svc.chaos is not None:
+        registry.counter("inference-chaos-stalls").set_total(svc.chaos.n_stalled)
+        registry.counter("inference-chaos-refusals").set_total(svc.chaos.n_refused)
     svc.publish_serving_metrics(registry)
     if svc.ledger is not None:
         svc.ledger.publish(registry)

@@ -12,9 +12,8 @@ never touches a card); each member process opens its own.
 Control flow per poll tick (single-threaded — no new threads; the members
 are processes and the telemetry scrape is file-based):
 
-1. supervision pass (crash/silence respawns; ``tpu_rl`` polls its chaos
-   plane first, which the port does not have yet: ``chaos_spec`` is
-   refused at config load),
+1. chaos poll + supervision pass (crash/silence respawns; a chaos
+   ``kill:member-<k>`` is absorbed by the same respawn),
 2. scrape every member's ``telemetry.json`` (the PR 4 JSON exporter —
    zero new member-side protocol) for the fitness gauge and the progress
    counter,
@@ -273,8 +272,11 @@ class PopulationController:
             result_dir=m.dir,
             model_dir=os.path.join(m.dir, "models"),
             telemetry_port=self._tele_ports[m.idx],
-            # Members are plain runs: no nested populations.
+            # Members are plain runs: no nested populations, and chaos is
+            # injected at the controller's supervisor (member-<k> targets),
+            # not re-parsed inside each member's own supervisor.
             pop_spec=None,
+            chaos_spec=None,
         )
         return self.base.replace(**over)
 
@@ -535,6 +537,10 @@ class PopulationController:
         last_eval = time.time()
         ok = True
         while not self.sup.stop_event.is_set():
+            if self.sup.chaos is not None:
+                for action, name in self.sup.chaos.poll(self.sup.children):
+                    self.counts["chaos"] += 1
+                    self._event({"ev": "chaos", "action": action, "target": name})
             for name in self.sup.check():
                 self.counts["respawns"] += 1
                 self._event({"ev": "respawn", "member": name})

@@ -17,8 +17,8 @@ exploit step a plain process cycle: the controller stops the member,
 copies the winner's checkpoint into ``models/``, rewrites ``config.json``
 with the mutated values, and starts the child again — the respawned member
 resumes from the copied checkpoint under the new hyperparameters. The same
-property makes a kill safe at any moment (a crash, or ``tpu_rl``'s chaos
-fault ``kill:member-1``, which the port's chaos plane will bring): the
+property makes a kill safe at any moment (a crash, or the chaos fault
+``kill:member-1``): the
 supervisor's ordinary respawn runs this entry again, and two-phase
 commit guarantees the newest COMMITTED checkpoint it resumes from is
 whole, copied or not.
@@ -82,6 +82,9 @@ def member_main(member_dir: str, stop_event, heartbeat) -> None:
     poll = max(0.2, cfg.supervise_poll_s)
     try:
         while not stop_event.is_set() and not sup.stop_event.is_set():
+            if sup.chaos is not None:
+                for action, name in sup.chaos.poll(sup.children):
+                    print(f"[member] chaos {action} -> {name}", flush=True)
             sup.check()
             if heartbeat is not None:
                 heartbeat.value = time.time()

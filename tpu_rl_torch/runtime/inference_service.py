@@ -39,7 +39,10 @@ which counts the FLOPs of that bucket's warm-up call (the fused kernel is
 charged its formula) and watches its argument signatures: ``recompiles``
 sums them, and stays 0 while every flush runs at a warmed bucket's shape.
 :meth:`InferenceService.publish_serving_metrics` replays the counters into
-a metrics registry. The chaos hooks come with the operations planes.
+a metrics registry. With a chaos plan naming the service,
+``stall:inference`` sleeps before each flush and ``refuse:inference``
+swallows replies (the client times out and falls back); ``chaos`` holds
+the injector and its counts.
 
 The router is passed in: anything with ``recv(timeout_ms)``, ``drain()`` and
 ``send(identity, proto, payload)`` — the in-process
@@ -270,6 +273,13 @@ class InferenceService:
         self.perf_buckets: dict[int, PerfTracker] = {}
         self.ledger: GoodputLedger | None = None
         self._hist_emitted: dict[int, int] = {}
+        # Service-level fault injection (tpu_rl_torch.chaos): None unless
+        # cfg.chaos_spec names this service.
+        self.chaos = None
+        if getattr(cfg, "chaos_spec", None):
+            from tpu_rl_torch.chaos import maybe_service_chaos
+
+            self.chaos = maybe_service_chaos(cfg)
 
     # --------------------------------------------------------------- control
     def start(self) -> "InferenceService":
@@ -564,6 +574,8 @@ class InferenceService:
 
     # ----------------------------------------------------------------- flush
     def _flush(self, act, st: _Staging, chunk: list[_Pending], rows: int, generator) -> None:
+        if self.chaos is not None:
+            self.chaos.maybe_stall()
         t0 = time.perf_counter()
         st.reset()
         off = 0
@@ -607,6 +619,11 @@ class InferenceService:
             if carry:
                 reply["hx"] = carry[0][off:off + n]
                 reply["cx"] = carry[1][off:off + n]
+            if self.chaos is not None and self.chaos.refuse():
+                # Swallowed reply: the client burns a timeout and retries or
+                # falls back; n_replies counts replies sent. The carry already
+                # advanced, as it does for a reply lost on the wire.
+                continue
             self.router.send(req.identity, Protocol.Act, reply)
             self.n_replies += 1
         self.timer.record_gauge("inference-batch-size", rows)

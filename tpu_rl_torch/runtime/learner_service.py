@@ -558,7 +558,14 @@ class LearnerService:
                     "max_updates budget; anneal disabled", flush=True,
                 )
 
-        pub = Pub("*", self.model_port, bind=True, hwm=MODEL_HWM)
+        # Fault injection (tpu_rl_torch.chaos): delay:learner shims the model
+        # broadcast sends. None unless a chaos_spec names this site.
+        chaos = None
+        if cfg.chaos_spec:
+            from tpu_rl_torch.chaos import maybe_transport_chaos
+
+            chaos = maybe_transport_chaos(cfg, "learner")
+        pub = Pub("*", self.model_port, bind=True, hwm=MODEL_HWM, chaos=chaos)
         self._publisher = AsyncPublisher(pub) if cfg.learner_prefetch > 0 else None
         writer = make_writer(cfg.result_dir)
         logger = LearnerLogger(writer, cfg.algo)
@@ -1204,6 +1211,9 @@ class LearnerService:
             reg.counter("inference-replies").set_total(svc.n_replies)
             reg.counter("inference-batches").set_total(svc.n_batches)
             reg.counter("inference-warmups").set_total(len(svc.buckets))
+            if svc.chaos is not None:
+                reg.counter("inference-chaos-stalls").set_total(svc.chaos.n_stalled)
+                reg.counter("inference-chaos-refusals").set_total(svc.chaos.n_refused)
             reg.counter("inference-fused-act-launches").set_total(FA.LAUNCHES)
             if self._router is not None:
                 reg.counter("inference-rejected-frames").set_total(self._router.n_rejected)

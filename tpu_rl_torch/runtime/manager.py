@@ -1,7 +1,6 @@
 """Manager relay process: per-machine fan-in between workers and the learner
-storage — the port of ``tpu_rl.runtime.manager`` (both relay modes; the
-chaos hooks come with the operations slice, whose ``chaos_spec`` the port's
-Config refuses).
+storage — the port of ``tpu_rl.runtime.manager`` (both relay modes, and
+the chaos plane's ``delay:manager`` shim on its sockets).
 
 Capability parity with the reference manager
 (``agents/manager.py:11-90``): SUB-bind on the machine's
@@ -91,11 +90,18 @@ class Manager:
         self.ledger = None
 
     def run(self) -> None:
-        sub = self._sub = Sub("*", self.worker_port, bind=True)
+        # Fault injection (tpu_rl_torch.chaos): delay:manager shims the
+        # forward sends to storage. None unless a chaos_spec names this site.
+        chaos = None
+        if self.cfg.chaos_spec:
+            from tpu_rl_torch.chaos import maybe_transport_chaos
+
+            chaos = maybe_transport_chaos(self.cfg, "manager")
+        sub = self._sub = Sub("*", self.worker_port, bind=True, chaos=chaos)
         # Storage hop: shm ring when Config.transport selects it for the
         # learner address (same host), else the TCP PUB — same chaos shim,
         # same send_raw surface either way.
-        pub = make_data_pub(self.cfg, *self.learner_addr, bind=False)
+        pub = make_data_pub(self.cfg, *self.learner_addr, bind=False, chaos=chaos)
         recv = sub.recv_raw if self.raw else sub.recv_traced
 
         # Telemetry (tpu_rl_torch.obs): the relay's own health snapshot, emitted
@@ -178,6 +184,10 @@ class Manager:
                         registry.counter("shm-dropped-no-peer").set_total(
                             pub.n_dropped_no_peer
                         )
+                    if chaos is not None:
+                        registry.counter("chaos-corrupted-frames").set_total(chaos.n_corrupted)
+                        registry.counter("chaos-dropped-frames").set_total(chaos.n_dropped)
+                        registry.counter("chaos-delayed-frames").set_total(chaos.n_delayed)
                     if emitter.due():
                         # /proc self-stats refreshed only just before an
                         # emit (syscalls; the gauges only travel then).

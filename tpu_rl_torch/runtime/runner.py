@@ -28,8 +28,12 @@ them with ``CUDA_VISIBLE_DEVICES=""`` in their environment and
 ``role_entry`` hides the card again before the role runs
 (``utils.platform.host_role``), so only the learner and the inference
 replicas open a CUDA context.
-The autopilot role comes with the serving and operations slice of the port
-(ROADMAP A 9).
+With ``Config.chaos_spec`` set, the supervisor polls a
+:class:`~tpu_rl_torch.chaos.ProcessChaos` in its loop (one-shot SIGKILL /
+SIGSTOP by child-name prefix) and audits each fault to
+``result_dir/chaos.jsonl``. The ``autopilot`` role builds the fleet
+autopilot (``autopilot/controller.py``), which runs in the calling process
+and spawns its ``inference-<i>`` replicas as its own children.
 """
 
 from __future__ import annotations
@@ -232,7 +236,10 @@ class Supervisor:
     poll_s: float = SUPERVISE_POLL
     # Injectable for tests (backoff timing with a mocked clock).
     clock: Callable[[], float] = time.time
-    # Audit sink of process events (result_dir); None = no audit.
+    # Optional tpu_rl_torch.chaos.ProcessChaos, polled from loop(): the
+    # supervisor is the only place that knows every child's name and pid.
+    chaos: Any = None
+    # Audit sink of process events (result_dir/chaos.jsonl); None = no audit.
     audit_dir: str | None = None
 
     def __post_init__(self):
@@ -242,7 +249,13 @@ class Supervisor:
 
     @classmethod
     def from_config(cls, cfg, **kw) -> "Supervisor":
-        """Build a supervisor from Config's supervision fields."""
+        """Build a supervisor from Config's supervision fields; chaos
+        process faults come from ``cfg.chaos_spec`` when set."""
+        chaos = kw.pop("chaos", None)
+        if chaos is None and getattr(cfg, "chaos_spec", None):
+            from tpu_rl_torch.chaos import ProcessChaos
+
+            chaos = ProcessChaos.from_spec(cfg.chaos_spec)
         return cls(
             heartbeat_timeout=cfg.heartbeat_timeout_s,
             startup_grace=cfg.startup_grace_s,
@@ -251,6 +264,7 @@ class Supervisor:
             backoff_s=cfg.restart_backoff_s,
             backoff_max_s=cfg.restart_backoff_max_s,
             poll_s=cfg.supervise_poll_s,
+            chaos=chaos,
             audit_dir=getattr(cfg, "result_dir", None),
             **kw,
         )
@@ -390,6 +404,7 @@ class Supervisor:
         any child exhausted its restart budget."""
         poll = self.poll_s if poll is None else poll
         while not self.stop_event.is_set():
+            self.poll_chaos()
             restarted = self.check()
             for name in restarted:
                 print(f"[supervisor] restarted silent/dead child: {name}")
@@ -414,6 +429,22 @@ class Supervisor:
                 break
             time.sleep(poll)
         self._emit_telemetry(force=True)
+
+    def poll_chaos(self) -> list[tuple[str, str]]:
+        """Fire the due process faults of ``self.chaos`` (if any) at the
+        children: each prints a ``[chaos]`` line and appends one record to
+        ``audit_dir/chaos.jsonl``. Returns the ``(action, child name)`` pairs
+        fired."""
+        if self.chaos is None:
+            return []
+        fired = self.chaos.poll(self.children)
+        for action, name in fired:
+            print(f"[chaos] {action} -> {name}", flush=True)
+            from tpu_rl_torch.obs.audit import append_jsonl
+
+            append_jsonl(self.audit_dir, "chaos.jsonl",
+                         {"ev": "chaos", "action": action, "target": name})
+        return fired
 
     # ------------------------------------------------------------ telemetry
     def enable_telemetry(self, cfg, stat_ip: str, stat_port: int) -> None:
@@ -453,6 +484,9 @@ class Supervisor:
         reg.gauge("supervisor-children-alive").set(
             sum(1 for c in self.children if c.proc.is_alive())
         )
+        if self.chaos is not None:
+            reg.counter("chaos-process-kills").set_total(self.chaos.n_kills)
+            reg.counter("chaos-process-stops").set_total(self.chaos.n_stops)
         if force:
             emitter.maybe_emit(now=float("inf"))
         else:
@@ -779,8 +813,11 @@ def autopilot_role(
     manage_all: bool = False,
     seed: int = 0,
 ):
-    """tpu_rl's fleet autopilot; not in the port yet."""
-    raise NotImplementedError(
-        "the autopilot role comes with the serving and operations slice of the "
-        "port (ROADMAP A 9)"
-    )
+    """Build the fleet autopilot (``autopilot/controller.py``). Same
+    controller-as-orchestrator shape as ``population_role``: the returned
+    controller runs in the calling process and owns its own supervisor,
+    whose children are the elastic ``inference-<i>`` replicas it scales
+    from the fleet's SLO burn rates, goodput and straggler scores."""
+    from tpu_rl_torch.autopilot import AutopilotController
+
+    return AutopilotController(cfg, machines=machines, manage_all=manage_all, seed=seed)

@@ -1,8 +1,9 @@
 """Learner-storage process: bridge from the DCN transport into device-feedable
 shared memory — the port of ``tpu_rl.runtime.storage``. Storage also keeps
 the inference fleet's replica table (:class:`~tpu_rl_torch.fleet.membership.
-ReplicaTable`, leased from the replicas' telemetry). The chaos hooks come
-with the operations slice; the port's Config refuses chaos until then.
+ReplicaTable`, leased from the replicas' telemetry). With a chaos plan,
+``corrupt``/``drop`` of the rollout, stat and telemetry channels and
+``delay:storage`` are injected at this process's data SUB.
 
 Capability parity with the reference ``LearnerStorage``
 (``agents/learner_storage.py:25-159``): SUB-bind on the
@@ -213,6 +214,16 @@ class LearnerStorage:
         # RolloutBatch's obs/rew columns BEFORE the epoch fence, feeding the
         # membership table's per-wid quarantine strikes. None when off — the
         # ingest path then pays one `is None` check per frame.
+        # Fault injection (tpu_rl_torch.chaos): corrupt/drop:rollout|stat|
+        # telemetry and delay:storage apply at this SUB's receives — the
+        # consuming edge — so every injected corruption pairs with one
+        # n_rejected in the same recv call. None unless a chaos_spec names
+        # this site.
+        self._chaos = None
+        if cfg.chaos_spec:
+            from tpu_rl_torch.chaos import maybe_transport_chaos
+
+            self._chaos = maybe_transport_chaos(cfg, "storage")
         self._ingress = None
         if cfg.ingress_validate:
             from tpu_rl_torch.heal.ingress import IngressGuard
@@ -228,7 +239,8 @@ class LearnerStorage:
         # Config.transport enables the shm channel, else the plain TCP SUB.
         # Either way the ingest loop below sees the same recv_traced/
         # drain_traced surface and the same n_rejected accounting.
-        sub = self._sub = make_data_sub(cfg, "*", self.learner_port, bind=True)
+        sub = self._sub = make_data_sub(cfg, "*", self.learner_port, bind=True,
+                                        chaos=self._chaos)
         self._setup_trace(assembler)
         self._setup_telemetry()
         led = self.ledger
@@ -437,6 +449,10 @@ class LearnerStorage:
             reg.gauge("storage-wids-quarantined").set(
                 len(self.members.quarantined)
             )
+        if self._chaos is not None:
+            reg.counter("chaos-corrupted-frames").set_total(self._chaos.n_corrupted)
+            reg.counter("chaos-dropped-frames").set_total(self._chaos.n_dropped)
+            reg.counter("chaos-delayed-frames").set_total(self._chaos.n_delayed)
         now_m = time.monotonic()
         if now_m >= self._next_slo:
             # 1s cadence for the expensive bits: /proc self-stats and the

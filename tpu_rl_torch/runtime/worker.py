@@ -29,8 +29,10 @@ plain version. The broadcast carries the actor in ``tpu_rl``'s flax layout
   re-probes every ``inference_reprobe_s`` seconds (doubling);
   ``inference_reprobe_s=0`` keeps the fallback permanent.
 
-The chaos hooks come with the operations slice (the port's Config refuses
-``chaos_spec`` until then).
+With ``Config.chaos_spec`` set, the chaos plane shims the worker's PUB and
+model SUB (``delay:worker``, ``corrupt``/``drop:model``) and poisons the
+tick payload's values just before the send (``nan``/``spike``), and the
+worker publishes the six ``chaos-*`` counters.
 """
 
 from __future__ import annotations
@@ -171,8 +173,19 @@ class Worker:
 
         cfg = self.cfg
         manager_ip, manager_port, learner_ip, model_port = self.addr
-        pub = Pub(manager_ip, manager_port, bind=False)
-        model_sub = Sub(learner_ip, model_port, bind=False, hwm=MODEL_HWM)
+        # Fault injection (tpu_rl_torch.chaos): delay:worker shims this
+        # worker's sends, corrupt/drop:model its model-SUB receives; nan:/
+        # spike: poison rollout payload values pre-send (the wire stays
+        # CRC-valid: the heal plane must contain them). None unless a
+        # chaos_spec names this site / this worker instance.
+        chaos = dchaos = None
+        if cfg.chaos_spec:
+            from tpu_rl_torch.chaos import maybe_data_chaos, maybe_transport_chaos
+
+            chaos = maybe_transport_chaos(cfg, "worker", instance=self.worker_id)
+            dchaos = maybe_data_chaos(cfg, "worker", instance=self.worker_id)
+        pub = Pub(manager_ip, manager_port, bind=False, chaos=chaos)
+        model_sub = Sub(learner_ip, model_port, bind=False, hwm=MODEL_HWM, chaos=chaos)
 
         # Telemetry (tpu_rl_torch.obs): periodic registry snapshots ride the same
         # PUB as rollouts/stats, emitted on the CLOCK — an idle or wedged
@@ -499,6 +512,8 @@ class Worker:
                     ver=tick_ver,
                     epoch=run_epoch,
                 )
+                if dchaos is not None:
+                    dchaos.on_tick(tick_payload)
                 pub.send(Protocol.RolloutBatch, tick_payload, trace=trailer)
                 if ledger is not None:
                     ledger.add(WIRE, time.perf_counter() - t_built)
@@ -554,6 +569,14 @@ class Worker:
                             registry.counter(name).set_total(
                                 fleet[attr] + getattr(remote, attr, 0)
                             )
+                    if chaos is not None:
+                        registry.counter("chaos-corrupted-frames").set_total(chaos.n_corrupted)
+                        registry.counter("chaos-dropped-frames").set_total(chaos.n_dropped)
+                        registry.counter("chaos-delayed-frames").set_total(chaos.n_delayed)
+                    if dchaos is not None:
+                        registry.counter("chaos-nan-injected").set_total(dchaos.n_nan)
+                        registry.counter("chaos-spike-injected").set_total(dchaos.n_spike)
+                        registry.counter("chaos-logp-nan-injected").set_total(dchaos.n_logp_nan)
                     if emitter.due():
                         # /proc self-stats only just before an emit — the
                         # reads cost syscalls, the gauges only travel then.
