@@ -98,16 +98,19 @@ against its plain PyTorch version:
    invisible; a bf16 config refused unless resume_force; save seconds sync
    and async, ms/update with and without checkpoints;
 9. B4 (``flash_attn_fwd``/``flash_attn_bwd``: bf16 on the tensor-core
-   kernels, f32 on the CUDA-core ones) vs plain: the main path's (B,T,H,D)
+   kernels ``flash_attn_tc_*``, f32 on the split-TF32 tensor-core kernels
+   ``flash_attn_f32_*``) vs plain: the main path's (B,T,H,D)
    = (16,2048,8,64) bf16, the colocated config's (8,4096,8,32) bf16, bf16
    rows with long segments over many tiles, many seams on a ragged T, a
    small D=32 shape and shuffled (non-monotone) segment ids, and f32 rows
-   (one with ~1000-key segments), q/k/v as strided views of one qkv tensor;
-   per shape the tile pairs the bf16 kernels visit beside the causal ones,
+   (the main path's shape at tpu_rl's default f32 compute, one with
+   ~1000-key segments), q/k/v as strided views of one qkv tensor;
+   per shape the tile pairs the kernels visit beside the causal ones,
    the max abs error of o, lse, dq, dk and dv beside its tolerance (bf16:
    element by element) and the median |ref|, the kernels', the plain
    versions' and ``scaled_dot_product_attention``'s times (the same mask as
-   a boolean attn_mask), and the bound;
+   a boolean attn_mask), and the bound (f32: the dense TF32 peak, with the
+   f32 FMA peak's bound of the CUDA-core kernels beside it);
 10. blockwise attention (the plain tile loop, block 512) at bench.py's
    longctx-blockwise shape (16,2048,8,64), f32 and bf16, seams from
    CartPole-like episodes: output and gradients of a weighted loss against
@@ -117,7 +120,9 @@ against its plain PyTorch version:
    backward, which must sit one (B,H,T,T) f32 score tensor or more below
    full attention's; device times beside B4's on the same inputs;
 10a. transformer training: small f32 and bf16 train steps on the card
-   against the CPU's plain path (loss, grad norm), then
+   against the CPU's plain path (loss, grad norm), and a small f32 flash
+   PPO step (8 x 256, d128, 2 heads of 64, 2 layers, CartPole-like
+   episode seams) at the @ref bars, then
    ``get_algo("PPO").build`` at
    bench.py's ``PPO-transformer@longctx-flash`` model (d512, 8 heads, 4
    layers, bf16, flash; its build must leave bf16 products reducing in f32)
@@ -127,7 +132,9 @@ against its plain PyTorch version:
    counts equal to n_layers x K_epoch x updates; then the
    ``PPO-transformer@longctx-blockwise`` row (the same with blockwise
    attention, 5 timed updates, B4 launches 0, the tiles' share of device
-   time);
+   time) and the longctx-flash row at ``compute_dtype="float32"``,
+   tpu_rl's default (the f32 kernels; 2 warm-up then 5 timed updates, the
+   same counts and shares);
 10b. the transformer's IMPALA and V-MPO: each step at 128 x 16, d64, 4
    heads, 2 layers (full attention, f32) on the card against the CPU's at
    the @ref bars, then at the longctx-flash width for 2 timed updates with
@@ -310,10 +317,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32
-# CUDA-core FLOP/s and dense bf16 tensor-core FLOP/s.
+# CUDA-core FLOP/s, dense bf16 and dense TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 # Serving configuration: the model of tpu_rl's serving benchmark
 # (bench.py:1058-1082), f32 weights through the fused act kernel.
@@ -355,13 +363,15 @@ LSTM_FWD_TOL, LSTM_GRAD_TOL = 1e-5, 3e-5
 # many tiles, most of them unmasked), a ragged T with ~50 seams (most tile
 # pairs skipped, the rest masked), a small D=32 shape, and shuffled segment
 # ids (not monotone: the skip rule visits every causal tile and the element
-# mask does the work); the f32 CUDA-core kernels at the main path's row
-# length (segments of ~1000 keys), a ragged shape with many segments and a
-# small shape.
+# mask does the work); the f32 split-TF32 kernels at the main path's shape
+# (the longctx-flash row at tpu_rl's default f32 compute), at its row length
+# (segments of ~1000 keys), a ragged shape with many segments and a small
+# shape.
 ATTN_SHAPES = [
     (16, 2048, 8, 64, torch.bfloat16, 1, False), (8, 4096, 8, 32, torch.bfloat16, 16, False),
     (2, 2048, 8, 64, torch.bfloat16, 1, False), (3, 1000, 4, 64, torch.bfloat16, 50, False),
     (2, 200, 3, 32, torch.bfloat16, 5, False), (2, 512, 4, 64, torch.bfloat16, 8, True),
+    (16, 2048, 8, 64, torch.float32, 1, False),
     (2, 2048, 8, 64, torch.float32, 1, False), (3, 1000, 4, 64, torch.float32, 50, False),
     (2, 200, 3, 32, torch.float32, 5, False),
 ]
@@ -381,6 +391,14 @@ TF_TRAIN_CFG = dict(
     action_space=8,
 )
 TF_WARMUP, TF_UPDATES, TF_PROFILE = 2, 10, 2
+# The same row at tpu_rl's default compute dtype, float32 (the f32 B4
+# kernels): its timed updates.
+TF_F32_UPDATES = 5
+# A small f32 flash transformer (B4's f32 kernels at head width 64) whose
+# PPO step on the card is held against the CPU's at REF_TOL: 8 x 256, d128,
+# 2 heads, 2 layers, seams from CartPole-like episodes.
+TF_F32_REF = dict(TF_TRAIN_CFG, compute_dtype="float32", batch_size=8, seq_len=256,
+                  hidden_size=128, n_heads=2, n_layers=2)
 # The colocated long-context loop: one update (two until the transformer
 # serving phases came in), ~4096 host-bound decode ticks.
 TF_COLOCATED_UPDATES = 1
@@ -2206,8 +2224,8 @@ def visible_pairs(seg: torch.Tensor) -> int:
 
 
 def tile_visits(seg: torch.Tensor) -> tuple[int, int]:
-    """(tile pairs the bf16 kernels visit, causal tile pairs) per head, by
-    the kernels' own skip rule (``ops.attention.visited_tiles``)."""
+    """(tile pairs the kernels visit, causal tile pairs) per head, by the
+    kernels' own skip rule (``ops.attention.visited_tiles``)."""
     from tpu_rl_torch.ops import attention as A
 
     r = A.tile_ranges(seg)
@@ -2222,10 +2240,15 @@ def attn_bounds(B: int, T: int, H: int, D: int, elt: int, pairs: int) -> dict:
     its operations over the dtype's peak. The operations count the pairs
     this run's mask keeps, per head 2*D for each of the products that
     touch a pair: 2 forward (s, o) and 5 backward (s, dp, dv, dq, dk); with
-    one segment per row that is 2*B*H*T^2*D and 5*B*H*T^2*D."""
+    one segment per row that is 2*B*H*T^2*D and 5*B*H*T^2*D. The dtype's
+    peak: bf16 989 TFLOP/s; f32 the dense TF32 rate, 495 TFLOP/s, which
+    no f32-accurate tensor-core scheme can beat (the split-TF32 kernels
+    run three TF32 products for each). f32 rows also carry
+    ``fma_bound_ms``, the bound over the 67 TFLOP/s f32 FMA peak that the
+    earlier CUDA-core f32 kernels were held to."""
     n = B * T * H * D * elt
     small = 4 * B * T + 4 * B * H * T  # seg, lse
-    peak = BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if elt == 2 else TF32_FLOPS_PER_S
     out = {}
     for name, nbytes, products in (("flash_attn_fwd", 4 * n + small, 2),
                                    ("flash_attn_bwd", 8 * n + small, 5)):
@@ -2235,6 +2258,8 @@ def attn_bounds(B: int, T: int, H: int, D: int, elt: int, pairs: int) -> dict:
             bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
+        if elt == 4:
+            out[name]["fma_bound_ms"] = max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3
     return out
 
 
@@ -2272,9 +2297,9 @@ def attention_phase() -> list[dict]:
     rows = []
     for B, T, H, D, dtype, seams, shuffled in ATTN_SHAPES:
         q, k, v, seg, do = attn_inputs(B, T, H, D, dtype, seams, B * T + D, shuffled)
-        # the bf16 kernels' tile plan, made once per forward on the main path
-        # and timed apart from the kernels
-        plan = A.tile_plan(seg) if dtype == torch.bfloat16 else None
+        # the kernels' tile plan, made once per forward on the main path and
+        # timed apart from the kernels
+        plan = A.tile_plan(seg)
         visited, causal = tile_visits(seg)
         o, lse = A.flash_fwd(q, k, v, seg, plan)
         dq, dk, dv = A.flash_bwd(q, k, v, seg, o, lse, do, plan)
@@ -2293,7 +2318,7 @@ def attention_phase() -> list[dict]:
         kw = dict(iters=3, reps=3, warmup=2) if big else dict(iters=20, reps=3, warmup=3)
         fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg, plan), **kw)
         bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o, lse, do, plan), **kw)
-        plan_ms = None if plan is None else device_ms(lambda: A.tile_plan(seg), **kw)
+        plan_ms = device_ms(lambda: A.tile_plan(seg), **kw)
         fwd_plain_ms = device_ms(lambda: A.flash_attention_forward_plain(q, k, v, seg), **kw)
         bwd_plain_ms = device_ms(
             lambda: A.flash_attention_backward_plain(q, k, v, seg, o, lse, do), **kw
@@ -2333,14 +2358,15 @@ def attention_phase() -> list[dict]:
                 f"{name} B={B} T={T} H={H} D={D} {row['shape']['dtype']}: kernel_ms={r['ms']:.6f} "
                 f"plain_ms={r['plain_ms']:.6f} sdpa_ms={r['library_ms']:.6f} "
                 f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, {r['bytes']} bytes, "
-                f"{r['flops']} flops)",
+                f"{r['flops']} flops"
+                + (f"; f32 FMA-peak bound {r['fma_bound_ms']:.6f}" if "fma_bound_ms" in r else "")
+                + ")",
                 flush=True,
             )
         print(
             f"flash_attn B={B} T={T} H={H} D={D} {row['shape']['dtype']}"
             f"{' shuffled ids' if shuffled else ''}: tile pairs visited {visited} of "
-            f"{causal} causal (per head; the bf16 kernels' skip rule)"
-            + ("" if plan_ms is None else f", tile plan {plan_ms:.6f} ms"),
+            f"{causal} causal (per head; the kernels' skip rule), tile plan {plan_ms:.6f} ms",
             flush=True,
         )
         print(
@@ -2358,17 +2384,23 @@ def attention_phase() -> list[dict]:
 
 
 # ------------------------------------------------------ transformer training
-def tf_batch(cfg, seed: int, device: str = "cuda"):
+def tf_batch(cfg, seed: int, device: str = "cuda", episodes: bool = False):
     """A seeded batch at ``cfg``'s shape as tests/test_transformer.py builds
-    one: every row starts an episode and has one more seam mid-window;
-    uniform behaviour logits; 1-wide carry placeholders."""
+    one: every row starts an episode and has one more seam mid-window (or,
+    with ``episodes``, seams from CartPole-like episode lengths,
+    ``episode_firsts``); uniform behaviour logits; 1-wide carry
+    placeholders."""
     from tpu_rl_torch.types import Batch
 
     rng = np.random.default_rng(seed)
     B, S, A, D = cfg.batch_size, cfg.seq_len, cfg.action_space, int(cfg.obs_shape[0])
-    firsts = np.zeros((B, S, 1), np.float32)
-    firsts[:, 0] = 1.0
-    firsts[np.arange(B), rng.integers(1, S, size=B)] = 1.0
+    if episodes:
+        firsts = episode_firsts(B, S, torch.Generator().manual_seed(seed)).numpy()
+        firsts = firsts[..., None].astype(np.float32)
+    else:
+        firsts = np.zeros((B, S, 1), np.float32)
+        firsts[:, 0] = 1.0
+        firsts[np.arange(B), rng.integers(1, S, size=B)] = 1.0
     return Batch.from_mapping(dict(
         obs=rng.normal(size=(B, S, D)).astype(np.float32),
         act=rng.integers(0, A, size=(B, S, 1)).astype(np.float32),
@@ -2392,7 +2424,7 @@ def tf_reference_check(dtype: str) -> dict:
     the card, through B4's kernels, against the same step from the same
     state on the CPU, through B4's plain versions.
 
-    float32 (D=32, the CUDA-core kernels): f32 on both sides, summed in
+    float32 (D=32, the split-TF32 kernels): f32 on both sides, summed in
     other orders over 800 transitions: loss and grad norm at rtol 1e-4.
     bfloat16 (D=64, the tensor-core kernels): both sides round activations
     to bf16 at every layer, at other places (cuBLAS and the CPU's GEMMs
@@ -2435,10 +2467,52 @@ def tf_reference_check(dtype: str) -> dict:
     return {k: dict(card=g, cpu=w, rtol=rtol) for k, (g, w) in out.items()}
 
 
+def tf_f32_ref_check(card: str) -> dict:
+    """TF_F32_REF's PPO step (flash, f32: B4's split-TF32 kernels at head
+    width 64, tile skipping over CartPole-like episode seams) on the card
+    against the same step on the CPU through B4's plain versions, from one
+    seeded state and batch, at REF_TOL (``card_vs_cpu``); one forward and
+    one backward launch per layer."""
+    from tpu_rl_torch.algos.registry import get_algo
+    from tpu_rl_torch.config import Config
+    from tpu_rl_torch.ops import attention as A
+
+    cfg = Config.from_dict(TF_F32_REF)
+    _f, state_cpu, step_cpu = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0),
+                                                    device="cpu")
+    _f, _s, step_dev = get_algo("PPO").build(cfg, torch.Generator().manual_seed(0), device="cuda")
+    batch_cpu = tf_batch(cfg, 1, "cpu", episodes=True)
+    want_state, want = step_cpu(state_cpu, batch_cpu)
+    A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_LAUNCHES = 0
+    got_state, got = step_dev(state_to(state_cpu, "cuda"), tf_batch(cfg, 1, "cuda", episodes=True))
+    torch.cuda.synchronize()
+    launches = (A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES)
+    want_launches = (cfg.n_layers * cfg.K_epoch,) * 2
+    if launches != want_launches:
+        fail(f"transformer f32 flash step launched B4 {launches}, want {want_launches}")
+    tag = "transformer PPO f32 flash (D=64)"
+    errs, worst = card_vs_cpu(tag, got, want, got_state, want_state)
+    seg = torch.cumsum(batch_cpu.is_fir[..., 0].to(torch.int32), 1, dtype=torch.int32)
+    visited, causal = tile_visits(seg)
+    print(
+        f"{tag} B={cfg.batch_size} T={cfg.seq_len} d={cfg.hidden_size} heads={cfg.n_heads} "
+        f"layers={cfg.n_layers}, {int(seg[:, -1].sum())} episodes, tile pairs visited {visited} "
+        f"of {causal} causal: the card's step vs the CPU's: "
+        + " ".join(f"{k} {v:.3e} (bar {REF_TOL[k]:g}{', ' + worst[k] if k in worst else ''})"
+                   for k, v in errs.items())
+        + f"; B4 launches {launches[0]}/{launches[1]} [{card}]",
+        flush=True,
+    )
+    return dict(errs=errs, worst=worst, tol=REF_TOL, tiles_visited=visited, tiles_causal=causal,
+                flash_attn_fwd_launches=launches[0], flash_attn_bwd_launches=launches[1])
+
+
 def tf_train_row(card: str, algo: str = "PPO", impl: str = "flash", updates: int = TF_UPDATES,
-                 warmup: int = TF_WARMUP, profiled: int = TF_PROFILE) -> dict:
-    """The transformer's learner at full width (TF_TRAIN_CFG) with ``algo``
-    and attention ``impl``: get_algo(algo).build and its train_step on one
+                 warmup: int = TF_WARMUP, profiled: int = TF_PROFILE,
+                 dtype: str = "bfloat16") -> dict:
+    """The transformer's learner at full width (TF_TRAIN_CFG at compute
+    dtype ``dtype``) with ``algo`` and attention ``impl``:
+    get_algo(algo).build and its train_step on one
     seeded 16 x 2048 batch, ``warmup`` untimed then ``updates`` timed
     updates, then ``profiled`` updates under the profiler. The B4 launch
     counters are zeroed just before the timed updates and read just after:
@@ -2450,12 +2524,13 @@ def tf_train_row(card: str, algo: str = "PPO", impl: str = "flash", updates: int
     from tpu_rl_torch.config import Config
     from tpu_rl_torch.ops import attention as A
 
-    cfg = Config.from_dict(dict(TF_TRAIN_CFG, algo=algo, attention_impl=impl))
+    cfg = Config.from_dict(dict(TF_TRAIN_CFG, algo=algo, attention_impl=impl,
+                                compute_dtype=dtype))
     _family, state, train_step = get_algo(algo).build(
         cfg, torch.Generator().manual_seed(0), device="cuda"
     )
     # the bf16 model's build makes its products reduce in f32, as tpu_rl's do
-    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+    if dtype == "bfloat16" and torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
         fail("building the bf16 transformer left cuBLAS free to reduce bf16 products in bf16")
     batch = tf_batch(cfg, 0, "cuda")
     for _ in range(warmup):
@@ -2474,7 +2549,7 @@ def tf_train_row(card: str, algo: str = "PPO", impl: str = "flash", updates: int
     fwd, bwd = A.FLASH_FWD_LAUNCHES, A.FLASH_BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     want = cfg.n_layers * cfg.K_epoch * updates if impl == "flash" else 0
-    tag = f"transformer training {algo} {impl}"
+    tag = f"transformer training {algo} {impl}" + ("" if dtype == "bfloat16" else f" {dtype}")
     if fwd != want or bwd != want:
         fail(f"{tag} launched flash_attn_fwd {fwd} and flash_attn_bwd {bwd} times, want {want} "
              "each")
@@ -2543,11 +2618,14 @@ def tf_train_phase(card: str) -> dict:
     """The transformer's learner: the small card-vs-CPU PPO steps, then
     bench.py's PPO-transformer@longctx-flash row and, beside it, its
     longctx-blockwise row (the same model and batch, blockwise attention:
-    B4 launches 0)."""
+    B4 launches 0) and the longctx-flash row at compute dtype float32,
+    tpu_rl's default (B4's f32 kernels)."""
     reference = {dt: tf_reference_check(dt) for dt in ("float32", "bfloat16")}
+    reference["float32 flash D=64"] = tf_f32_ref_check(card)
     flash = tf_train_row(card)
     blockwise = tf_train_row(card, impl="blockwise", updates=TF_BLOCKWISE_UPDATES)
-    return dict(flash, reference=reference, blockwise=blockwise)
+    flash_f32 = tf_train_row(card, updates=TF_F32_UPDATES, dtype="float32")
+    return dict(flash, reference=reference, blockwise=blockwise, flash_f32=flash_f32)
 
 
 def tf_colocated_phase(card: str, impl: str = "blockwise") -> dict:
@@ -2730,7 +2808,7 @@ def blockwise_phase(card: str) -> list[dict]:
         with torch.no_grad():
             fwd_ms = device_ms(lambda: blockwise_attention(q, k, v, pos, seg), **kw)
         bwd_ms = device_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True), **kw)
-        plan = A.tile_plan(seg) if dtype == torch.bfloat16 else None
+        plan = A.tile_plan(seg)
         o4, lse4 = A.flash_fwd(q, k, v, seg, plan)
         b4_fwd_ms = device_ms(lambda: A.flash_fwd(q, k, v, seg, plan), **kw)
         b4_bwd_ms = device_ms(lambda: A.flash_bwd(q, k, v, seg, o4, lse4, do, plan), **kw)
@@ -4912,7 +4990,8 @@ def sp_phase(card: str, dp: dict, attn_rows: list[dict], blockwise_rows: list[di
     blockwise attention's fwd+bwd at the same shape from this run; and the
     data-parallel step with flash at world size 1 (B4 per rank)."""
     b4 = next(r for r in attn_rows if (r["shape"]["B"], r["shape"]["T"], r["shape"]["H"],
-                                       r["shape"]["D"]) == SP_SHAPE)
+                                       r["shape"]["D"]) == SP_SHAPE
+              and r["shape"]["dtype"] == "bfloat16")
     blk = next((r for r in blockwise_rows if r["dtype"] == "bfloat16"), blockwise_rows[0])
     ranks = {d["rank"]: d["p4"] for d in dp["two_ranks"]["ranks"]}
     out = dict(
@@ -6140,50 +6219,63 @@ def main() -> None:
             card=card,
             shapes=[dict(shape=x["shape"], **x[name]) for x in lstm_rows],
         ))
-    attn_main = attn_rows[0]  # (16, 2048, 8, 64) bf16, the transformer's main path
-    for name, errs in (("flash_attn_fwd", ("o", "lse")), ("flash_attn_bwd", ("dq", "dk", "dv"))):
-        r = attn_main[name]
-        kernels.append(dict(
-            name=name,
-            route="cuda",
-            # the bf16 main path's tensor-core kernel; f32 takes csrc/{name}.cu
-            source=f"tpu_rl_torch/csrc/{name.replace('flash_attn', 'flash_attn_tc')}.cu",
-            replaces="tpu_rl/parallel/sequence.py:608",
-            launches=tf_training[f"{name}_launches"],
-            max_abs_err=max(x["errs"][e] for x in attn_rows for e in errs),
-            ms=r["ms"],
-            plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"],
-            # scaled_dot_product_attention with the causal-and-segment mask
-            # as a boolean attn_mask (forward; or the backward of its graph)
-            library_ms=r["library_ms"],
-            at=attn_main["shape"],
-            tiles_visited=attn_main["tiles_visited"],
-            tiles_causal=attn_main["tiles_causal"],
-            plan_ms=attn_main["plan_ms"],
-            # this kernel's launches on each transformer path of the run,
-            # counted the same way (blockwise attention runs none)
-            launches_by_path={
-                "PPO longctx-flash": tf_training[f"{name}_launches"],
-                "PPO longctx-blockwise": tf_training["blockwise"][f"{name}_launches"],
-                **{f"{a} longctx-flash": r["wide"][f"{name}_launches"]
-                   for a, r in tf_algos.items()},
-                "colocated longcontext config (blockwise)": tf_colocated[f"{name}_launches"],
-                "colocated longcontext config (flash)": tf_colocated_flash[f"{name}_launches"],
-                "DP longctx-flash world 1": dp["p4_dp_flash_world1"][name.replace(
-                    "flash_attn", "flash") + "_launches"],
-                # ring and Ulysses attention are plain PyTorch, as tpu_rl's:
-                # each rank's count over its calls
-                **{f"SP {impl} rank {d['rank']}/{DP_RANKS}": d["p4"][impl][
-                    name.replace("flash_attn", "flash") + "_launches"]
-                   for d in dp["two_ranks"]["ranks"] for impl in ("ring", "ulysses")},
-            },
-            card=card,
-            shapes=[dict(shape=x["shape"], checks=x["checks"], tiles_visited=x["tiles_visited"],
-                         tiles_causal=x["tiles_causal"], **x[name])
-                    for x in attn_rows],
-        ))
+    # B4's two pairs of kernels, each at its main path's row (16, 2048, 8, 64):
+    # bf16 (PPO-transformer@longctx-flash) and f32 (the same row at tpu_rl's
+    # default f32 compute)
+    f32_ref = tf_training["reference"]["float32 flash D=64"]
+    for dtype, prefix, train in (("bfloat16", "flash_attn_tc", tf_training),
+                                 ("float32", "flash_attn_f32", tf_training["flash_f32"])):
+        rows = [x for x in attn_rows if x["shape"]["dtype"] == dtype]
+        attn_main = next(x for x in rows if (x["shape"]["B"], x["shape"]["T"]) == (16, 2048))
+        for name, errs in (("flash_attn_fwd", ("o", "lse")), ("flash_attn_bwd", ("dq", "dk", "dv"))):
+            r = attn_main[name]
+            count = name.replace("flash_attn", "flash") + "_launches"
+            if dtype == "bfloat16":
+                # this kernel's launches on each transformer path of the run,
+                # counted the same way (blockwise attention runs none)
+                by_path = {
+                    "PPO longctx-flash": train[f"{name}_launches"],
+                    "PPO longctx-blockwise": tf_training["blockwise"][f"{name}_launches"],
+                    **{f"{a} longctx-flash": x["wide"][f"{name}_launches"]
+                       for a, x in tf_algos.items()},
+                    "colocated longcontext config (blockwise)": tf_colocated[f"{name}_launches"],
+                    "colocated longcontext config (flash)": tf_colocated_flash[f"{name}_launches"],
+                    "DP longctx-flash world 1": dp["p4_dp_flash_world1"][count],
+                    # ring and Ulysses attention are plain PyTorch, as tpu_rl's:
+                    # each rank's count over its calls
+                    **{f"SP {impl} rank {d['rank']}/{DP_RANKS}": d["p4"][impl][count]
+                       for d in dp["two_ranks"]["ranks"] for impl in ("ring", "ulysses")},
+                }
+            else:
+                by_path = {
+                    "PPO longctx-flash float32": train[f"{name}_launches"],
+                    "PPO f32 flash step 8 x 256, D 64 (card vs CPU)": f32_ref[f"{name}_launches"],
+                }
+            kernels.append(dict(
+                name=name if dtype == "bfloat16" else name.replace("flash_attn", prefix),
+                route="cuda",
+                source=f"tpu_rl_torch/csrc/{name.replace('flash_attn', prefix)}.cu",
+                replaces="tpu_rl/parallel/sequence.py:608",
+                launches=train[f"{name}_launches"],
+                max_abs_err=max(x["errs"][e] for x in rows for e in errs),
+                ms=r["ms"],
+                plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"],
+                # scaled_dot_product_attention with the causal-and-segment mask
+                # as a boolean attn_mask (forward; or the backward of its graph)
+                library_ms=r["library_ms"],
+                dtype=dtype,
+                at=attn_main["shape"],
+                tiles_visited=attn_main["tiles_visited"],
+                tiles_causal=attn_main["tiles_causal"],
+                plan_ms=attn_main["plan_ms"],
+                launches_by_path=by_path,
+                card=card,
+                shapes=[dict(shape=x["shape"], checks=x["checks"], tiles_visited=x["tiles_visited"],
+                             tiles_causal=x["tiles_causal"], **x[name])
+                        for x in rows],
+            ))
     print(json.dumps({"training": training, "wide_lstm_training": wide_training, "learning": {
         k: v for k, v in learning.items() if k != "scalars"
     }, "wide_impala_training": wide_impala, "wide_impala_bf16_training": wide_bf16,

@@ -13,12 +13,17 @@ the CPU, from the same numpy inputs.
   position contract;
 - ``flash_attention`` (the autograd Function, CPU path) against ``tpu_rl``'s
   ``flash_attention_tpu``, which takes ``full_attention`` off the TPU;
-- the bf16 kernels' tile-skip rule (``visited_tiles``) against the dense
-  mask, their launch plan, and the wrappers' checks;
+- the kernels' tile-skip rule (``visited_tiles``, both dtypes) against the
+  dense mask, their launch plan, and the wrappers' checks;
 - a torch emulation of the bf16 kernels' arithmetic (online softmax over
   64-key tiles, P and dS fed to the products as hi/lo bf16 pairs, f32
   accumulation) against the plain versions at ``chip_smoke.attn_check``'s
-  per-element bar.
+  per-element bar;
+- a torch emulation of the f32 kernels' arithmetic (split TF32, the
+  tensor core's sums cut toward zero, online softmax over the plan's
+  visited 64-key tiles, fresh sums per tile and per 32-wide chunk) against
+  ``tpu_rl``'s ``full_attention`` at the f32 bar, and one TF32 product
+  failing it; the wrappers' 16-byte refusals for f32 views.
 
 Shapes have B, H > 1, several segments per row and ragged T."""
 
@@ -31,6 +36,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.test_torch_lstm import _round
 from tpu_rl.parallel import sequence as JS
 from tpu_rl_torch.ops import attention as A
 from tpu_rl_torch.parallel import sequence as S
@@ -237,7 +243,7 @@ def test_flash_attention_is_causal_only():
         "full", "flash", "blockwise", "ring", "ulysses"}
 
 
-# ------------------------------------------------- the bf16 kernels' tile rule
+# ------------------------------------------ the kernels' tile rule (both dtypes)
 def _segments(kind, B, T, rng):
     if kind == "one":
         return np.ones((B, T), np.int32)
@@ -310,6 +316,31 @@ def test_bf16_checks_refuse_what_cp_async_cannot_copy(W, offset, match):
     A._check("flash_fwd", *(t.float() if t.dtype == torch.bfloat16 else t for t in (q, k, v)), seg, {})
     aligned = _strided_bf16(3 * 64, 0)
     assert A._check("flash_fwd", *aligned, {}) == (2, 8, 2, 32)
+
+
+def _strided_f32(W, offset, B=2, T=8, H=2, D=32):
+    buf = torch.zeros((B, T, W), dtype=torch.float32)
+    q, k, v = (buf[:, :, offset + i * H * D: offset + (i + 1) * H * D].unflatten(2, (H, D))
+               for i in range(3))
+    return q, k, v, torch.ones((B, T), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("W, offset, match", [
+    (3 * 64 + 2, 0, "multiples of 4 elements"),    # rows 4 * 194 bytes apart
+    (3 * 64 + 4, 1, "16-byte boundary"),            # q, k, v start 4 bytes in
+    (3 * 64 + 4, 2, "16-byte boundary"),            # 8 bytes in
+])
+def test_f32_checks_refuse_what_cp_async_cannot_copy(W, offset, match):
+    """The f32 tensor-core kernels copy 16-byte pieces too: the wrappers'
+    check refuses f32 views whose rows or starts are not 16-byte aligned
+    (they are never copied another way); the strided q/k/v views of one
+    qkv tensor, rows 3*H*D apart, pass."""
+    q, k, v, seg = _strided_f32(W, offset)
+    with pytest.raises(ValueError, match=match):
+        A._check("flash_fwd", q, k, v, seg, {})
+    qkv = torch.zeros((2, 8, 3, 2, 32))
+    assert A._check("flash_fwd", qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg, {}) == (2, 8, 2, 32)
+    assert A._check("flash_fwd", *_strided_f32(3 * 64 + 4, 4)[:3], seg, {}) == (2, 8, 2, 32)
 
 
 # --------------------------------------- the bf16 kernels' arithmetic, emulated
@@ -390,3 +421,157 @@ def test_kernel_precision_plan_holds_the_per_element_bar(split):
         assert worst <= 1.0
     else:
         assert min(used[n] for n in ("o", "dq", "dk", "dv")) > 2.0 and worst > 10.0
+
+
+# ---------------------------------------- the f32 kernels' arithmetic, emulated
+F32_TOL = chip_smoke.ATTN_F32_TOL  # (o and lse, gradients), absolute
+F32_CHUNK = 32  # csrc/flash_attn_f32_bwd.cu, kCols
+
+
+def _cut(x, bits=13):
+    """x with its low ``bits`` mantissa bits cleared: what the tensor core
+    reads of an f32 register given as a TF32 operand."""
+    return (x.contiguous().view(torch.int32) & -(1 << bits)).view(torch.float32)
+
+
+def _toward_zero(x):
+    """float64 x as f32, cut toward zero: the tensor core's sums are not
+    rounded to nearest, and cutting is the worse of the two."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma(c, a, b):
+    """One m16n8k8 mma: c + a @ b over 8 k, the products exact, one sum cut
+    toward zero."""
+    return _toward_zero(c.double() + a.double() @ b.double())
+
+
+def _pad8(x, dim):
+    n = x.shape[dim]
+    if n % 8 == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = 8 - n % 8
+    return torch.cat([x, torch.zeros(shape)], dim)  # the kernels' zero rows past T
+
+
+def _tf32_product(a, b, scheme):
+    """a @ b (f32, K a multiple of 8) as the f32 kernels run it on the tensor
+    core, 8 k at a time into one accumulator from zero. ``3xtf32`` (the
+    kernels'): hi = x rounded to TF32 by integer add and mask
+    (``_round``, as B1/B2's split), lo = x - hi read as TF32; lo*hi, hi*lo,
+    hi*hi, one mma each. ``bf16-cross`` (B1/B2's scheme): the cross terms as
+    one bf16 mma over (hi, lo) x (lo, hi), then hi*hi. ``tf32``: one TF32
+    product of the rounded operands, no split."""
+    ah, bh = _round(a, 13), _round(b, 13)
+    al, bl = _cut(a - ah), _cut(b - bh)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if scheme == "3xtf32":
+            acc = _mma(acc, al[..., ks], bh[..., ks, :])
+            acc = _mma(acc, ah[..., ks], bl[..., ks, :])
+        elif scheme == "bf16-cross":
+            bf = lambda x: _round(x, 16)  # noqa: E731
+            acc = _mma(acc, torch.cat([bf(ah[..., ks]), bf(a - ah)[..., ks]], -1),
+                       torch.cat([bf(b - bh)[..., ks, :], bf(bh[..., ks, :])], -2))
+        acc = _mma(acc, ah[..., ks], bh[..., ks, :])
+    return acc
+
+
+def _emulated_f32_forward(q, k, v, seg, scheme):
+    """csrc/flash_attn_f32_fwd.cu's arithmetic: for each 64-key tile, only
+    for the query tiles whose plan visits it, S = Q K^T in split TF32, the
+    online softmax in log2 units (one FMA and exp2 a weight), P V into a
+    fresh sum, then acc * alpha + pv in one f32 FMA."""
+    B, T, H, D = q.shape
+    sl = _LOG2E / math.sqrt(D)
+    qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))
+    vis = A._visible(seg)
+    plan = A.tile_plan(seg)
+    visits = A.visited_tiles((plan.tile_min, plan.tile_max), (plan.tile_min, plan.tile_max))
+    m = torch.full((B, H, T), -1e30)
+    l, acc = torch.zeros((B, H, T)), torch.zeros((B, H, T, D))
+    for kt in range(visits.shape[2]):
+        k0 = kt * A.TILE
+        rows = visits[:, :, kt].repeat_interleave(A.TILE, 1)[:, None, :T]  # (B, 1, T)
+        keep = vis[..., k0:k0 + A.TILE]
+        s = _tf32_product(qf, kf[:, :, k0:k0 + A.TILE].transpose(-1, -2), scheme)
+        s = torch.where(keep, s, -1e30)
+        mn = torch.maximum(m, s.amax(-1) * sl)
+        alpha = torch.exp2(m - mn)
+        p = torch.where(keep, torch.exp2((s.double() * sl - mn[..., None].double()).float()), 0.0)
+        pv = _tf32_product(_pad8(p, -1), _pad8(vf[:, :, k0:k0 + A.TILE], -2), scheme)
+        new_acc = (acc.double() * alpha[..., None].double() + pv.double()).float()
+        acc = torch.where(rows[..., None], new_acc, acc)
+        l = torch.where(rows, l * alpha + p.sum(-1), l)
+        m = torch.where(rows, mn, m)
+    l = l.clamp_min(1e-30)
+    return (acc / l[..., None]).transpose(1, 2), (m + torch.log2(l)) * _LN2
+
+
+def _emulated_f32_backward(q, k, v, seg, o, lse, do, scheme):
+    """csrc/flash_attn_f32_bwd.cu's arithmetic: S and dP in split TF32 over D
+    from zero, P and dS in f32 (the pairs the plan skips hold only exact
+    zeros), then each 32-wide chunk's share of dQ, dK and dV in split TF32
+    into a fresh sum, added to the running f32 sum in chunk order."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (x.transpose(1, 2) for x in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)
+    s = _tf32_product(qf, kf.transpose(-1, -2), scheme)
+    dp = _tf32_product(dof, vf.transpose(-1, -2), scheme)
+    p = torch.where(A._visible(seg),
+                    torch.exp2((s.double() * (scale * _LOG2E) - lse[..., None].double() * _LOG2E)
+                               .float()), 0.0)
+    ds = p * (dp - delta[..., None]) * scale
+
+    def chunked(w, x):
+        out = torch.zeros(w.shape[:-1] + x.shape[-1:])
+        for c0 in range(0, w.shape[-1], F32_CHUNK):
+            out = out + _tf32_product(_pad8(w[..., c0:c0 + F32_CHUNK], -1),
+                                      _pad8(x[..., c0:c0 + F32_CHUNK, :], -2), scheme)
+        return out
+
+    grads = (chunked(ds, kf), chunked(ds.transpose(-1, -2), qf), chunked(p.transpose(-1, -2), dof))
+    return tuple(g.transpose(1, 2) for g in grads)
+
+
+def _f32_bar_shares(shape, seams, scheme):
+    B, T, H, D = shape
+    rng = np.random.default_rng(11)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
+    firsts = _firsts(B, T, rng, seams_per_row=seams)
+    pos, seg = _relative_pos(firsts), np.array(JS.segment_ids_from_firsts(jnp.asarray(firsts)))
+    jq, jk, jv = _j(q, k, v)
+    jpos, jseg = jnp.asarray(pos), jnp.asarray(seg)
+    fn = lambda a, b, c: JS.full_attention(a, b, c, jpos, jseg)  # noqa: E731
+    want = [fn(jq, jk, jv)]
+    scores = JS._masked_block_scores(jq, jk, jpos, jpos, jseg, jseg, 1.0 / np.sqrt(D), True)
+    want.append(jax.nn.logsumexp(scores, axis=-1))
+    want.extend(_jax_grads(fn, jq, jk, jv, jnp.asarray(do)))
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    tseg = torch.from_numpy(seg)
+    o, lse = _emulated_f32_forward(tq, tk, tv, tseg, scheme)
+    got = (o, lse, *_emulated_f32_backward(tq, tk, tv, tseg, o, lse, tdo, scheme))
+    names, tols = ("o", "lse", "dq", "dk", "dv"), (F32_TOL[0],) * 2 + (F32_TOL[1],) * 3
+    return {n: float(np.abs(g.numpy() - np.asarray(w)).max()) / tol
+            for n, g, w, tol in zip(names, got, want, tols, strict=True)}
+
+
+@pytest.mark.parametrize("scheme", ["3xtf32", "bf16-cross", "tf32"])
+@pytest.mark.parametrize("shape, seams", [((2, 512, 2, 64), 6), ((3, 200, 3, 32), 5)],
+                         ids=["2x512x2x64", "ragged-3x200x3x32"])
+def test_f32_kernel_precision_plan_holds_the_f32_bar(shape, seams, scheme):
+    """The f32 kernels' arithmetic (split TF32, 3xtf32) against tpu_rl's
+    full_attention in f32 (its "flash" off the TPU) at the unchanged f32
+    bar, 2e-5 on o and lse and 1e-4 on the gradients, absolute (printed:
+    the share of the bar each output uses); B1/B2's bf16-cross split holds
+    it too; one TF32 product, no split, misses it on every output."""
+    used = _f32_bar_shares(shape, seams, scheme)
+    print(f"share of the f32 bar used at {shape}, {scheme}: "
+          + " ".join(f"{n} {u:.3f}" for n, u in used.items()))
+    if scheme == "tf32":
+        assert min(used.values()) > 2.0
+    else:
+        assert max(used.values()) <= 1.0

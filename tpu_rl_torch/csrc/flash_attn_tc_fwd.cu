@@ -13,7 +13,7 @@
 // q, k, v are (B,T,H,D) in tpu_rl's layout, read in place as strided views
 // (q = qkv[:, :, 0], rows 3*H*D apart) that share their strides; rows must
 // start on 16 bytes (the wrapper checks). o is (B,T,H,D) contiguous bf16.
-// float32 inputs take the CUDA-core kernel of flash_attn_fwd.cu.
+// float32 inputs take the split-TF32 kernel of flash_attn_f32_fwd.cu.
 //
 // What bounds it on an H100. At the main path's (16,2048,8,64) with one seam
 // per row it moves ~135 MB (q, k, v, o, seg, lse), ~0.04 ms at 3.35 TB/s;

@@ -10,23 +10,27 @@ the row log-sum-exp ``lse`` (B,H,T) f32) and :func:`flash_bwd` (``dq, dk,
 dv`` in the input dtype). Each dispatches by dtype, and neither ever takes
 the other's kernel:
 
-- bfloat16, the model's compute type: the tensor-core kernels
-  ``csrc/flash_attn_tc_fwd.cu`` and ``csrc/flash_attn_tc_bwd.cu``
-  (``mma.sync`` bf16 with f32 accumulation, P and dS fed as hi/lo bf16
-  pairs). They skip every (query tile, key tile) pair whose segment ids
-  cannot meet: :func:`tile_plan` gives them each 64-row tile's segment-id
-  range and the launch order, and :func:`visited_tiles` is their skip rule;
-- float32: the CUDA-core kernels ``csrc/flash_attn_fwd.cu`` and
-  ``csrc/flash_attn_bwd.cu`` (plain f32 FMAs; TF32 would miss the f32 bar).
+- bfloat16: the tensor-core kernels ``csrc/flash_attn_tc_fwd.cu`` and
+  ``csrc/flash_attn_tc_bwd.cu`` (``mma.sync`` bf16 with f32 accumulation,
+  P and dS fed as hi/lo bf16 pairs);
+- float32, ``tpu_rl``'s default compute type: the tensor-core kernels
+  ``csrc/flash_attn_f32_fwd.cu`` and ``csrc/flash_attn_f32_bwd.cu``
+  (``mma.sync`` TF32 in split precision, 3xTF32: every operand as a
+  TF32 hi and its remainder lo, three products for each; one TF32 product
+  would miss the f32 bar).
+
+Both pairs skip every (query tile, key tile) pair whose segment ids cannot
+meet: :func:`tile_plan` gives them each 64-row tile's segment-id range and
+the launch order, and :func:`visited_tiles` is their skip rule.
 
 The kernels take head widths :data:`HEAD_DIMS` and q, k, v as strided
 views (``qkv[:, :, 0]``) as long as the three share their strides and each
-row's heads and features are dense; the bf16 kernels copy 16-byte pieces,
-so their rows must start on 16 bytes.
+row's heads and features are dense; they copy 16-byte pieces, so their
+rows must start on 16 bytes.
 
 Both kernel entries are ``torch.library.custom_op`` operators
-(``tpu_rl_torch::flash_fwd``, ``tpu_rl_torch::flash_bwd``; the bf16 tile
-plan rides as a list of tensors) with FLOP formulas registered for
+(``tpu_rl_torch::flash_fwd``, ``tpu_rl_torch::flash_bwd``; the tile plan
+rides as a list of tensors) with FLOP formulas registered for
 ``torch.utils.flop_counter`` (:func:`attn_flops`): the plain versions' full
 T×T score and value products, so that the tiles the kernels skip show as
 speed, not as less work. The wrappers enter the operators only while a
@@ -61,8 +65,11 @@ FLASH_BWD_LAUNCHES = 0
 
 # Head widths the kernels are built for (csrc/flash_attn_*.cu, their C entries).
 HEAD_DIMS = (32, 64)
-# Rows of the bf16 kernels' query and key tiles (csrc/flash_attn_tc.cuh, kTile).
+# Rows of the kernels' query and key tiles (csrc/flash_attn_tc.cuh, kTile; the
+# f32 kernels take the same, csrc/flash_attn_f32.cuh).
 TILE = 64
+# The kernels' C entries by input dtype: csrc/<name>_{fwd,bwd}.cu.
+_KERNELS = {torch.bfloat16: "flash_attn_tc", torch.float32: "flash_attn_f32"}
 _NEG_INF = -1e30  # tpu_rl's finite -inf stand-in
 # Score elements the plain versions hold at once (1 GiB of f32): larger
 # batches go through in chunks of rows.
@@ -131,7 +138,7 @@ def tile_ranges(seg: torch.Tensor, tile: int = TILE) -> tuple[torch.Tensor, torc
 
 
 def visited_tiles(q_range, k_range, q_tile: int = TILE, k_tile: int = TILE) -> torch.Tensor:
-    """(B, n_q, n_k) bool: the bf16 kernels' skip rule. Query tile i and key
+    """(B, n_q, n_k) bool: the kernels' skip rule. Query tile i and key
     tile j (``q_range``/``k_range`` as :func:`tile_ranges` gives them) are
     visited iff the pair is causal (the key tile starts at or before the
     query tile's last row) and their segment-id ranges overlap. No pair
@@ -147,7 +154,7 @@ def visited_tiles(q_range, k_range, q_tile: int = TILE, k_tile: int = TILE) -> t
 
 
 class TilePlan(NamedTuple):
-    """What the bf16 kernels read besides the tensors: each 64-row tile's
+    """What the kernels read besides the tensors: each 64-row tile's
     segment-id range, and the launch order of the query tiles (forward, dq)
     and of the key tiles (dk/dv), the ones that visit the most tiles first
     (flattened ``b * n_tiles + tile``)."""
@@ -210,16 +217,16 @@ def _check(fn: str, q, k, v, seg, dense: dict) -> tuple[int, int, int, int]:
         want = (B, H, T) if name == "lse" else (B, T, H, D)
         if tuple(t.shape) != want or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous {want}, got {tuple(t.shape)}")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core kernels copy rows in 16-byte pieces (cp.async)
-        if q.stride(0) % 8 or q.stride(1) % 8:
-            raise ValueError(
-                f"{fn}: bf16 q/k/v strides {q.stride()}: the batch and time strides must be "
-                "multiples of 8 elements (16 bytes)"
-            )
-        for name, t in (("q", q), ("k", k), ("v", v), *dense.items()):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{fn}: bf16 {name} does not start on a 16-byte boundary")
+    # the kernels copy rows in 16-byte pieces (cp.async)
+    per16 = 16 // q.element_size()
+    if q.stride(0) % per16 or q.stride(1) % per16:
+        raise ValueError(
+            f"{fn}: {q.dtype} q/k/v strides {q.stride()}: the batch and time strides must be "
+            f"multiples of {per16} elements (16 bytes)"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v), *dense.items()):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {q.dtype} {name} does not start on a 16-byte boundary")
     for name, t in (("k", k), ("v", v), ("seg", seg), *dense.items()):
         if t.device != q.device:
             raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
@@ -251,9 +258,9 @@ def attn_flops(B: int, T: int, H: int, D: int, backward: bool = False) -> int:
 
 def flash_fwd(q, k, v, seg, plan: TilePlan | None = None):
     """Kernel B4's forward: ``(o, lse)``. CPU tensors take
-    :func:`flash_attention_forward_plain`; CUDA tensors launch the bf16
-    tensor-core kernel (with ``plan``, or :func:`tile_plan` of ``seg``) or
-    the f32 CUDA-core kernel. Under a FLOP counter it runs as the operator
+    :func:`flash_attention_forward_plain`; CUDA tensors launch the bf16 or
+    the f32 tensor-core kernel (with ``plan``, or :func:`tile_plan` of
+    ``seg``). Under a FLOP counter it runs as the operator
     ``tpu_rl_torch::flash_fwd``; a tensor on another device is refused
     first."""
     on_card("flash_fwd", q)
@@ -268,22 +275,14 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, seg: Tensor, plan: list[Tensor]
     B, T, H, D = _check("flash_fwd", q, k, v, seg, {})
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    shape = (B, T, H, D, q.stride(0), q.stride(1), 1.0 / math.sqrt(D), _stream(q))
-    if q.dtype == torch.bfloat16:
-        plan = tile_plan(seg) if plan is None else plan
-        _check_plan("flash_fwd", plan, seg)
-        name = "flash_attn_tc_fwd"
-        err = _entry(name, 9)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), plan.tile_min.data_ptr(),
-            plan.tile_max.data_ptr(), plan.order_q.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *shape,
-        )
-    else:
-        name = "flash_attn_fwd"
-        err = _entry(name, 6)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *shape,
-        )
+    plan = tile_plan(seg) if plan is None else plan
+    _check_plan("flash_fwd", plan, seg)
+    name = f"{_KERNELS[q.dtype]}_fwd"
+    err = _entry(name, 9)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), plan.tile_min.data_ptr(),
+        plan.tile_max.data_ptr(), plan.order_q.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, T, H, D, q.stride(0), q.stride(1), 1.0 / math.sqrt(D), _stream(q),
+    )
     if err != 0:
         raise RuntimeError(f"{name} launch failed at {(B, T, H, D)}: CUDA error {err}")
     global FLASH_FWD_LAUNCHES
@@ -302,9 +301,9 @@ def _flash_fwd_flops(q_shape, *_shapes, out_shape=None) -> int:
 def flash_bwd(q, k, v, seg, o, lse, do, plan: TilePlan | None = None):
     """Kernel B4's backward: ``(dq, dk, dv)``. CPU tensors take
     :func:`flash_attention_backward_plain`; CUDA tensors launch the three
-    kernels (delta, dk/dv, dq) of ``csrc/flash_attn_tc_bwd.cu`` for bf16
-    (with ``plan``, or :func:`tile_plan` of ``seg``) or of
-    ``csrc/flash_attn_bwd.cu`` for f32. Under a FLOP counter it runs as the
+    kernels (delta, dk/dv, dq) of ``csrc/flash_attn_tc_bwd.cu`` for bf16 or
+    of ``csrc/flash_attn_f32_bwd.cu`` for f32 (with ``plan``, or
+    :func:`tile_plan` of ``seg``). Under a FLOP counter it runs as the
     operator ``tpu_rl_torch::flash_bwd``; a tensor on another device is
     refused first."""
     on_card("flash_bwd", q)
@@ -320,21 +319,16 @@ def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, seg: Tensor, o: Tensor, lse: Ten
     B, T, H, D = _check("flash_bwd", q, k, v, seg, {"o": o, "lse": lse, "do": do})
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
-    shape = (B, T, H, D, q.stride(0), q.stride(1), 1.0 / math.sqrt(D), _stream(q))
-    tail = (o.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr())
-    if q.dtype == torch.bfloat16:
-        plan = tile_plan(seg) if plan is None else plan
-        _check_plan("flash_bwd", plan, seg)
-        name = "flash_attn_tc_bwd"
-        err = _entry(name, 15)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), plan.tile_min.data_ptr(),
-            plan.tile_max.data_ptr(), plan.order_q.data_ptr(), plan.order_k.data_ptr(), *tail,
-            *shape,
-        )
-    else:
-        name = "flash_attn_bwd"
-        err = _entry(name, 11)(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *tail, *shape)
+    plan = tile_plan(seg) if plan is None else plan
+    _check_plan("flash_bwd", plan, seg)
+    name = f"{_KERNELS[q.dtype]}_bwd"
+    err = _entry(name, 15)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), plan.tile_min.data_ptr(),
+        plan.tile_max.data_ptr(), plan.order_q.data_ptr(), plan.order_k.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, H, D, q.stride(0), q.stride(1),
+        1.0 / math.sqrt(D), _stream(q),
+    )
     if err != 0:
         raise RuntimeError(f"{name} launch failed at {(B, T, H, D)}: CUDA error {err}")
     global FLASH_BWD_LAUNCHES
@@ -354,8 +348,8 @@ def _flash_bwd_flops(q_shape, *_shapes, out_shape=None) -> int:
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg):
-        # the bf16 kernels' tile plan, made once and kept for the backward
-        plan = tile_plan(seg) if q.is_cuda and q.dtype == torch.bfloat16 else None
+        # the kernels' tile plan, made once and kept for the backward
+        plan = tile_plan(seg) if q.is_cuda else None
         o, lse = flash_fwd(q, k, v, seg, plan)
         ctx.save_for_backward(q, k, v, seg, o, lse, *(plan or ()))
         return o
