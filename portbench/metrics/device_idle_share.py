@@ -1,0 +1,10 @@
+"""The share of the traced window in which no operation ran on
+the device: 1 - (the union of the device's operation intervals) / the
+window, in %."""
+
+
+def read(run):
+    tr = run.trace
+    if tr is None or not tr.ops:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.seconds)
