@@ -1,0 +1,11 @@
+"""Device milliseconds an update of the operations whose launch the host issued
+inside the train step's ``train_step.forward`` span: the model's forward and
+the loss (``loss_fn``: returns, V-trace, the surrogate, the in-loss diag
+rows). From the spans pass (``portbench.phases``); None where the program
+has no spans or the run has no device trace."""
+
+from portbench.phases import device_ms
+
+
+def read(run):
+    return device_ms(run, "forward")

@@ -295,6 +295,31 @@ def test_tile_plan_orders_the_most_visited_tiles_first():
     assert int(visited.sum()) < 3 * n * (n + 1) // 2  # seams skip tiles
 
 
+def test_b4_counter_counts_the_score_elements_the_plan_visits():
+    """count_visits, B4's forward counter: visited tile pairs x TILE^2 x
+    heads, on the plan's device. Row 0 has episodes of 100 and 156 steps
+    over 4 tiles: 8 of the 10 causal tile pairs meet (tiles 0 and 2, 0 and 3
+    hold no common episode); row 1 is one episode, all 10."""
+    from tpu_rl_torch.obs import trace
+
+    firsts = torch.zeros((2, 256))
+    firsts[:, 0] = 1.0
+    firsts[0, 100] = 1.0
+    plan = A.tile_plan(S.segment_ids_from_firsts(firsts[..., None]).contiguous())
+    ranges = (plan.tile_min, plan.tile_max)
+    before = trace.set_spans(True)
+    trace.reset_counters()
+    try:
+        A.count_visits(plan, heads=3)
+        A.count_visits(plan, heads=3)
+        got = trace.counters()["counts"][A.VISITED]
+    finally:
+        trace.set_spans(*before)
+        trace.reset_counters()
+    assert int(A.visited_tiles(ranges, ranges).sum()) == 8 + 10
+    assert got == 2 * (8 + 10) * A.TILE**2 * 3
+
+
 def _strided_bf16(W, offset, B=2, T=8, H=2, D=32):
     buf = torch.zeros((B, T, W), dtype=torch.bfloat16)
     q, k, v = (buf[:, :, offset + i * H * D: offset + (i + 1) * H * D].unflatten(2, (H, D))

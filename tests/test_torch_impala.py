@@ -16,6 +16,7 @@ from tests.test_torch_ppo import (
     _assert_states_close,
     _close,
     _jax_step,
+    assert_spans_leave_the_step_unchanged,
     setup_algo_step,
 )
 from tpu_rl.ops.returns import vtrace as jax_vtrace
@@ -108,3 +109,9 @@ def test_nonfinite_update_is_skipped_like_tpu_rl():
     for name, t in state.params["actor"].items():
         torch.testing.assert_close(new.params["actor"][name], t, rtol=0, atol=0)
     _assert_states_close(new, jax.device_get(jnew))
+
+
+@pytest.mark.parametrize("k_epoch", [1, 2])
+def test_spans_leave_the_impala_step_unchanged(k_epoch):
+    """The step's phase spans (obs.trace) change no bit of IMPALA's update."""
+    assert_spans_leave_the_step_unchanged("IMPALA", k_epoch)

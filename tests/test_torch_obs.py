@@ -232,3 +232,77 @@ def test_scenarios_exercise_what_they_name(tmp_path):
     assert over["overcommit_s"] > 0 and snap["buckets"]["compute"] == 1.5
     store = sc_history_store(PACKAGES["tpu_rl_torch"], tmp_path / "h")
     assert store[4] >= 4 and store[5] >= 1 and [v for _t, v in store[0]][-1] == 5.0
+
+
+# ------------------------------------------------------------------- spans
+# obs.trace.span, the port's one way to open a span inside the program
+# (no counterpart in tpu_rl): off by default, one shared no-op while off.
+@pytest.fixture
+def spans():
+    from tpu_rl_torch.obs import trace
+
+    before = trace.set_spans(False)
+    trace.reset_counters()
+    yield trace
+    trace.set_spans(*before)
+    trace.reset_counters()
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("record_function entered")
+
+
+def test_spans_off_are_one_shared_noop(spans, monkeypatch):
+    import torch
+
+    assert spans.span("a", update=1) is spans.span("b") is spans.NO_SPAN
+    assert not spans.spans_on()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+        with spans.span("a", update=1) as s:
+            torch.ones(2) + 1
+        monkeypatch.undo()
+    assert s is None
+    assert not [e for e in prof.events() if e.name == "a"]
+    assert spans.counters() == {"spans": {}, "counts": {}}
+
+
+def test_spans_on_total_their_time_profile_and_fill_the_ring(spans, monkeypatch):
+    import torch
+
+    ring = T.TraceRecorder(capacity=16, pid=3, role="learner", host="h")
+    assert spans.set_spans(True, ring) == (False, None)
+    # no profiler recording: no record_function (a dispatcher call) is entered
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    with spans.span("outer", update=3):
+        with spans.span("outer.inner"):
+            pass
+    monkeypatch.undo()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with spans.span("outer", update=4):
+            torch.ones(2) + 1
+    totals = spans.counters()["spans"]
+    assert totals["outer"]["count"] == 2 and totals["outer.inner"]["count"] == 1
+    assert totals["outer"]["seconds"] >= totals["outer.inner"]["seconds"] > 0
+    outer = [e for e in prof.events() if e.name == "outer"]
+    add = [e for e in prof.events() if e.name == "aten::add"]
+    assert len(outer) == 1 and len(add) == 1
+    assert outer[0].time_range.start <= add[0].time_range.start
+    assert add[0].time_range.end <= outer[0].time_range.end
+    done = [e for e in ring.to_chrome()["traceEvents"] if e["ph"] == "X"]
+    assert [(e["name"], e.get("args")) for e in done] == [
+        ("outer.inner", None), ("outer", {"update": 3}), ("outer", {"update": 4})]
+    assert spans.set_spans(False) == (True, ring)
+
+
+def test_device_counters_add_on_their_device_and_read_once(spans):
+    import torch
+
+    one = torch.tensor(3)
+    spans.add_count("n", one)
+    spans.add_count("n", one)
+    spans.add_count("m", torch.tensor(5))
+    assert int(one) == 3  # the counter is a copy
+    assert spans.counters()["counts"] == {"n": 6, "m": 5}
+    spans.reset_counters()
+    assert spans.counters() == {"spans": {}, "counts": {}}

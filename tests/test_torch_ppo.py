@@ -410,3 +410,93 @@ def test_other_families_act_matches_tpu_rl(algo):
             _close(g, w, "greedy")
     else:
         assert fam.act_greedy is None and jfam.act_greedy is None
+
+
+# ------------------------------------------------------ the step's phase spans
+def _port_step(algo, k_epoch):
+    """The port's step of ``algo`` at the parity tests' small shape, its
+    state after one warm-up update (RMSprop's ``nu`` no longer 0), and a
+    fresh batch."""
+    obs_shape, n = SPACES[algo]
+    cfg = Config.from_dict(dict(algo=algo, hidden_size=16, batch_size=8, buffer_size=32,
+                                time_horizon=32, seq_len=5, obs_shape=list(obs_shape),
+                                action_space=n, K_epoch=k_epoch, learn_diag=True,
+                                update_guard=True))
+    _f, state, step = get_algo(algo).build(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state, _ = step(state, Batch.from_mapping(_batch_np(cfg, 20), device="cpu"))
+    return step, state, Batch.from_mapping(_batch_np(cfg, 21), device="cpu")
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaves(v, f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def assert_spans_leave_the_step_unchanged(algo, k_epoch):
+    """With spans on, the step's new state and metrics equal, bit for bit,
+    those it gives with spans off."""
+    from tpu_rl_torch.obs import trace
+
+    step, state, batch = _port_step(algo, k_epoch)
+    before = trace.set_spans(False)
+    try:
+        off = step(state, batch)
+        trace.set_spans(True)
+        on = step(state, batch)
+    finally:
+        trace.set_spans(*before)
+        trace.reset_counters()
+    for (new, metrics) in (off, on):
+        assert float(metrics["nonfinite-updates"]) == 0.0
+    tree = lambda r: {"step": r[0].step, "params": r[0].params,  # noqa: E731
+                      "opt": r[0].opt_state, "metrics": r[1]}
+    got, want = _leaves(tree(on)), _leaves(tree(off))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want, strict=True):
+        assert torch.equal(g, w), path
+
+
+@pytest.mark.parametrize("k_epoch", [1, 2])
+def test_spans_leave_the_ppo_step_unchanged(k_epoch):
+    assert_spans_leave_the_step_unchanged("PPO", k_epoch)
+
+
+def test_spans_nest_the_step_phases_under_the_profiler():
+    """Under torch.profiler on the CPU each update is one ``train_step``
+    whose children are, in order, forward, backward, optimizer (each epoch)
+    and diag; every aten op of the step lies in exactly one child or in the
+    root's own time; the installed ring receives the same spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_rl_torch.obs import trace
+
+    step, state, batch = _port_step("PPO", 2)
+    ring = trace.TraceRecorder(capacity=64)
+    before = trace.set_spans(True, ring)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                step(state, batch)
+    finally:
+        trace.set_spans(*before)
+        trace.reset_counters()
+    span = lambda e: (e.time_range.start, e.time_range.end, e.name)  # noqa: E731
+    spans = sorted(span(e) for e in prof.events() if e.name.startswith("train_step"))
+    roots = [s for s in spans if s[2] == "train_step"]
+    assert len(roots) == 2
+    ops = [span(e) for e in prof.events() if e.name.startswith("aten::")]
+    assert ops
+    for a, b, _ in roots:
+        kids = [s for s in spans if s[2] != "train_step" and a <= s[0] and s[1] <= b]
+        assert [k[2] for k in kids] == [
+            "train_step.forward", "train_step.backward", "train_step.optimizer"] * 2 + [
+            "train_step.diag"]
+        assert all(k[1] <= n[0] for k, n in zip(kids, kids[1:]))
+        for oa, ob, name in (o for o in ops if a <= o[0] < b):
+            inside = [k for k in kids if k[0] <= oa and ob <= k[1]]
+            apart = [k for k in kids if ob <= k[0] or oa >= k[1]]
+            assert ob <= b and (len(inside) == 1 or len(apart) == len(kids)), name
+    assert all(any(a <= o[0] and o[1] <= b for a, b, _ in roots) for o in ops)
+    done = sorted((e["ts"], e["name"]) for e in ring.to_chrome()["traceEvents"] if e["ph"] == "X")
+    assert [n for _, n in done] == [s[2] for s in spans]

@@ -24,6 +24,7 @@ import torch
 from tpu_rl_torch.config import Config
 from tpu_rl_torch.heal.guards import guarded, update_ok
 from tpu_rl_torch.obs.learn import module_grad_norms, tree_delta_norm, tree_norm
+from tpu_rl_torch.obs.trace import span
 from tpu_rl_torch.ops.losses import clip_subtree_by_global_norm
 from tpu_rl_torch.parallel.mesh import NO_SYNC
 from tpu_rl_torch.utils.tree import tree_leaves, tree_map, value_and_grad
@@ -179,46 +180,64 @@ def make_on_policy_step(
     clip, so the clip, the guard and the optimizer see global numbers and
     every rank decides the same.
 
+    The step's phases are spans (:func:`tpu_rl_torch.obs.trace.span`, off
+    by default): ``train_step`` around each call, with the call's index
+    counted on the host as ``update``; in each epoch ``train_step.forward``
+    (``loss_fn``), ``train_step.backward`` (the gradients) and
+    ``train_step.optimizer`` (the clip, the guard, RMSprop and
+    ``project``); after the epochs ``train_step.diag``.
+
     Returns ``step(state, batch, epoch_args=None) -> (state, metrics)``."""
     opt = rmsprop(cfg)
     guard = cfg.update_guard
+    calls = 0  # the step's calls so far; state.step would be a device read
 
     def apply(grads, state: TrainState):
         params, opt_state = opt.apply(grads, state.opt_state, state.params)
         return (project(params) if project else params), opt_state
 
     def step(state: TrainState, batch, epoch_args=None):
-        params0 = state.params
-        metrics: dict = {}
-        grads = None
-        nf = None
-        for e in range(cfg.K_epoch):
-            extra = () if epoch_args is None else epoch_args[e]
-            loss, metrics, grads = value_and_grad(loss_fn, state.params, batch, *extra)
-            metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
-            grads, loss = sync.grads(grads, loss)
-            grads, gnorm = clip_subtree_by_global_norm(grads, cfg.max_grad_norm, clip_subtree)
+        nonlocal calls
+        with span("train_step", update=calls):
+            calls += 1
+            params0 = state.params
+            metrics: dict = {}
+            grads = None
+            nf = None
+            for e in range(cfg.K_epoch):
+                extra = () if epoch_args is None else epoch_args[e]
+                loss, metrics, grads = value_and_grad(
+                    loss_fn, state.params, batch, *extra,
+                    phases=(span("train_step.forward"), span("train_step.backward")))
+                metrics = {k: (v.detach() if torch.is_tensor(v) else v)
+                           for k, v in metrics.items()}
+                grads, loss = sync.grads(grads, loss)
+                with span("train_step.optimizer"):
+                    grads, gnorm = clip_subtree_by_global_norm(
+                        grads, cfg.max_grad_norm, clip_subtree)
+                    if guard:
+                        ok = update_ok(loss, gnorm)
+                        params, opt_state = guarded(
+                            ok, lambda grads=grads, state=state: apply(grads, state),
+                            (state.params, state.opt_state),
+                        )
+                        skipped = 1.0 - ok.float()
+                        nf = skipped if nf is None else nf + skipped
+                    else:
+                        params, opt_state = apply(grads, state)
+                state = state.replace(params=params, opt_state=opt_state)
+                metrics["grad-norm"] = gnorm
             if guard:
-                ok = update_ok(loss, gnorm)
-                params, opt_state = guarded(
-                    ok, lambda grads=grads, state=state: apply(grads, state),
-                    (state.params, state.opt_state),
-                )
-                skipped = 1.0 - ok.float()
-                nf = skipped if nf is None else nf + skipped
-            else:
-                params, opt_state = apply(grads, state)
-            state = state.replace(params=params, opt_state=opt_state)
-            metrics["grad-norm"] = gnorm
-        if guard:
-            metrics["nonfinite-updates"] = nf
-        if cfg.learn_diag:
-            metrics["diag"]["scalars"].update(
-                {f"grad-norm-{k}": v for k, v in module_grad_norms(grads).items()}
-            )
-            metrics["diag"]["scalars"]["update-norm"] = tree_delta_norm(state.params, params0)
-            metrics["diag"]["scalars"]["param-norm"] = tree_norm(state.params)
-        return state.replace(step=state.step + 1), metrics
+                metrics["nonfinite-updates"] = nf
+            if cfg.learn_diag:
+                with span("train_step.diag"):
+                    scalars = metrics["diag"]["scalars"]
+                    scalars.update(
+                        {f"grad-norm-{k}": v for k, v in module_grad_norms(grads).items()}
+                    )
+                    scalars["update-norm"] = tree_delta_norm(state.params, params0)
+                    scalars["param-norm"] = tree_norm(state.params)
+            return state.replace(step=state.step + 1), metrics
 
     return step
 

@@ -1,6 +1,8 @@
-"""Span tracing for the learner batch timeline.
+"""Span tracing for the learner batch timeline, and the port's one way to
+open a span inside the program.
 
-The port's own copy of ``tpu_rl.obs.trace``, unchanged in behaviour.
+:class:`TraceRecorder` is the port's own copy of ``tpu_rl.obs.trace``,
+unchanged in behaviour. :func:`span` (below it) is the port's addition.
 
 The ExecutionTimer answers "how long does X take on average"; it cannot
 answer "where did THIS batch's time go" — whether queue-wait happened
@@ -21,6 +23,18 @@ The deep-dive companion is the torch.profiler window that already exists
 (``Config.profile_dir`` / ``profile_start`` / ``profile_steps``): this ring
 shows the host-side pipeline shape continuously; the profiler hook captures
 device internals for a configured update window on top.
+
+:func:`span` marks a phase of the program (the train step's ``train_step``,
+``train_step.forward``, ``.backward``, ``.optimizer``, ``.diag``; the
+learner's ``learner-dispatch``). Spans are off by default, and then
+``span`` returns one shared no-op context: no clock reading, no profiler
+call, no record. :func:`set_spans` turns them on; each span then adds its
+host time to a per-name total, opens ``torch.profiler.record_function``
+while a profiler is recording (so it lies on the profiler's timeline, the
+clock the device's operations share), and appends itself to the ring that
+``set_spans`` installed, if any. Device counters (:func:`add_count`, such
+as B4's visited score elements) count while spans are on, on the device;
+:func:`counters` reads them once, after the caller has synchronised.
 """
 
 from __future__ import annotations
@@ -151,3 +165,104 @@ class TraceRecorder:
         with open(tmp, "w") as f:
             json.dump(self.to_chrome(extra_meta), f)
         os.replace(tmp, path)
+
+
+# ------------------------------------------------------------------ spans
+class _NoSpan:
+    """The span while spans are off: one shared context that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+_on = False  # the switch: span() tests only this while spans are off
+_ring: TraceRecorder | None = None
+_lock = threading.Lock()
+_totals: dict[str, list] = {}  # name -> [spans closed, host seconds]
+_counts: dict = {}  # name -> 0-d int64 tensor on the device it counts
+
+
+class _Span:
+    __slots__ = ("name", "args", "rf", "t0")
+
+    def __init__(self, name: str, args: dict):
+        self.name, self.args, self.rf = name, args, None
+
+    def __enter__(self):
+        import torch
+
+        # record_function costs a dispatcher call even with no profiler
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(
+                self.name, json.dumps(self.args) if self.args else None)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dur = time.perf_counter() - self.t0
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        with _lock:
+            total = _totals.setdefault(self.name, [0, 0.0])
+            total[0] += 1
+            total[1] += dur
+        ring = _ring
+        if ring is not None:
+            ring.add(self.name, self.t0, dur, args=self.args or None)
+        return False
+
+
+def span(name: str, **args):
+    """A context that marks one phase ``name`` (with JSON-able ``args``)
+    while spans are on, and :data:`NO_SPAN` while they are off."""
+    if not _on:
+        return NO_SPAN
+    return _Span(name, args)
+
+
+def set_spans(on: bool, ring: TraceRecorder | None = None) -> tuple[bool, TraceRecorder | None]:
+    """Turn spans on or off and install ``ring`` (or none) to receive them.
+    Returns the switch and ring it replaced, to be put back after."""
+    global _on, _ring
+    old = _on, _ring
+    _on, _ring = bool(on), ring
+    return old
+
+
+def spans_on() -> bool:
+    return _on
+
+
+def add_count(name: str, value) -> None:
+    """Add the integer 0-d tensor ``value`` to the device counter ``name``,
+    on the tensor's device: no host read. Call only while spans are on."""
+    with _lock:
+        acc = _counts.get(name)
+        if acc is None:
+            _counts[name] = value.detach().clone()
+        else:
+            acc.add_(value)
+
+
+def counters() -> dict:
+    """``{"spans": {name: {"count", "seconds"}}, "counts": {name: int}}``:
+    the spans' host totals and each device counter, read once (a host
+    read: call after synchronising)."""
+    with _lock:
+        spans = {k: {"count": n, "seconds": s} for k, (n, s) in _totals.items()}
+        counts = dict(_counts)
+    return {"spans": spans, "counts": {k: int(v) for k, v in counts.items()}}
+
+
+def reset_counters() -> None:
+    with _lock:
+        _totals.clear()
+        _counts.clear()

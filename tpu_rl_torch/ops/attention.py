@@ -21,7 +21,9 @@ the other's kernel:
 
 Both pairs skip every (query tile, key tile) pair whose segment ids cannot
 meet: :func:`tile_plan` gives them each 64-row tile's segment-id range and
-the launch order, and :func:`visited_tiles` is their skip rule.
+the launch order, and :func:`visited_tiles` is their skip rule. While spans
+are on (:mod:`tpu_rl_torch.obs.trace`) the forward counts the score elements
+its plan visits (:func:`count_visits`).
 
 The kernels take head widths :data:`HEAD_DIMS` and q, k, v as strided
 views (``qkv[:, :, 0]``) as long as the three share their strides and each
@@ -57,6 +59,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from tpu_rl_torch import counted, on_card
 from tpu_rl_torch.kernels import build
+from tpu_rl_torch.obs import trace
 
 # Kernel launches made through flash_fwd / flash_bwd (plain-version calls
 # excluded); one per wrapper call.
@@ -68,6 +71,9 @@ HEAD_DIMS = (32, 64)
 # Rows of the kernels' query and key tiles (csrc/flash_attn_tc.cuh, kTile; the
 # f32 kernels take the same, csrc/flash_attn_f32.cuh).
 TILE = 64
+# The device counter (obs.trace) of the score elements B4's forward visits
+# while spans are on: visited tile pairs x TILE^2 x heads (count_visits).
+VISITED = "b4.visited_score_elements"
 # The kernels' C entries by input dtype: csrc/<name>_{fwd,bwd}.cu.
 _KERNELS = {torch.bfloat16: "flash_attn_tc", torch.float32: "flash_attn_f32"}
 _NEG_INF = -1e30  # tpu_rl's finite -inf stand-in
@@ -177,6 +183,16 @@ def tile_plan(seg: torch.Tensor) -> TilePlan:
     return TilePlan(lo, hi, order[0], order[1])
 
 
+def count_visits(plan: TilePlan, heads: int) -> None:
+    """Add to the device counter :data:`VISITED` the score elements a
+    forward under ``plan`` visits, on ``heads`` heads: the tile pairs of
+    the kernels' skip rule (:func:`visited_tiles`) times ``TILE**2`` times
+    ``heads``, on the plan's device (no host read). The backward visits the
+    same tiles and is not counted again."""
+    ranges = (plan.tile_min, plan.tile_max)
+    trace.add_count(VISITED, visited_tiles(ranges, ranges).sum() * (TILE * TILE * heads))
+
+
 # ------------------------------------------------------------------ binding
 def _entry(name: str, n_ptrs: int):
     """The kernel's C entry: ``n_ptrs`` pointers, then B, T, H, D, the
@@ -277,6 +293,8 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, seg: Tensor, plan: list[Tensor]
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     plan = tile_plan(seg) if plan is None else plan
     _check_plan("flash_fwd", plan, seg)
+    if trace.spans_on():
+        count_visits(plan, H)
     name = f"{_KERNELS[q.dtype]}_fwd"
     err = _entry(name, 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), plan.tile_min.data_ptr(),

@@ -88,6 +88,7 @@ from tpu_rl_torch.data.prefetch import (
     wait_ready,
 )
 from tpu_rl_torch.data.shm_ring import ShmHandles, make_store
+from tpu_rl_torch.obs import trace as obs_trace
 from tpu_rl_torch.runtime.mailbox import (
     SLOT_ACTIVATE,
     SLOT_FORWARD_BYTES,
@@ -688,6 +689,10 @@ class LearnerService:
         idx = start_idx
         profiling = profiled = False
         metrics: dict = {}
+        # With a profiler window or a result dir, the train step's phase spans
+        # (obs.trace) land on the profile's timeline and in the flight ring.
+        spans_before = (obs_trace.set_spans(True, tracer) if prof_capture is not None
+                        else None)
         try:
             while not self._stopped():
                 if self.max_updates is not None and idx - start_idx + chain > self.max_updates:
@@ -724,7 +729,7 @@ class LearnerService:
                 vers = self._diag_vers.popleft() if self._diag_vers else None
                 rc0 = self._perf.recompiles if self._perf is not None else 0
                 t_step = time.perf_counter()
-                with torch.profiler.record_function("learner-dispatch"):
+                with obs_trace.span("learner-dispatch"):
                     batches = [wait_ready(b) for b in batches]
                     if self._channel is not None:
                         # one host: every rank takes its rows of the global batch
@@ -898,6 +903,8 @@ class LearnerService:
                     )
                     break
         finally:
+            if spans_before is not None:
+                obs_trace.set_spans(*spans_before)
             if self._channel is not None:
                 self._channel.command(RankChannel.STOP)
             # every rank's launch counts, for the closing snapshot
